@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each printing its own lines:
+
+1. environment: the card's name and power limit, the torch and CUDA versions,
+   and the TF32 switches, which are set to False so that the fp32 checks run
+   in full fp32 (cuDNN convolutions default to TF32);
+2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``;
+3. each kernel against its plain PyTorch version on the card, at the serving
+   shapes and at unaligned ones, in fp32 and bf16: every output within an
+   absolute tolerance and, relative to the output's own scale (max |diff| /
+   max |plain|), within a relative one, so that small outputs such as the
+   context (a mean over L) are held as tightly as large ones;
+4. each kernel's time at the serving shapes in bf16 (CUDA events, L2 flushed
+   and the card held busy ~1 ms before every call so that the host has
+   queued the whole call before it starts: device time, not the host's
+   launch pace; median), beside its bound, the plain version's time (also
+   printed host-paced, without the head start) and, for the cell,
+   ``torch.lstm_cell``'s as a yardstick;
+5. end to end: ``Captioner`` at the model's full width (VGG16 at 224 px,
+   E=512, H=1024, V=10000, random weights from a seed, bf16) captions 256
+   uint8 images by beam-3 and by greedy decoding; the kernel launch counts
+   are reset before and read after each mode; the time splits into trunk
+   and decode, and one decode per mode is traced with torch.profiler
+   (device busy share, top kernels); the decode step's logits through the
+   kernels are held against the plain path (the same weights on the CPU,
+   where every op runs its plain version, fed the card's features) in fp32
+   and in bf16.
+
+The line before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script exits non-zero. Without CUDA it exits non-zero before any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
+
+SEED = 0
+# kernel vs plain version: max |diff| per output, absolute ...
+TOL = {torch.float32: {"lstm_cell": 1e-5, "attention": 2e-5},
+       torch.bfloat16: {"lstm_cell": 2e-2, "attention": 2e-2}}
+# ... and relative to the output's scale, max |diff| / max |plain|
+RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+REPS = 3  # timed Captioner calls per decode mode
+# decode-step logits of the kernel path vs the plain path, relative to the
+# logit scale
+LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# cycles of torch.cuda._sleep before each timed call: ~1 ms at the H100's
+# 1.98 GHz, longer than the host takes to queue the plain versions' launches
+HEAD_START_CYCLES = 2_000_000
+
+REPLACES = {
+    "lstm_cell": "show_and_tell_tpu/ops/lstm.py:109",
+    "additive_attention": "show_and_tell_tpu/ops/fused_attention.py:49",
+    "attention_beam": "show_and_tell_tpu/ops/fused_decode_attention.py:167",
+}
+SOURCES = {
+    "lstm_cell": "show_and_tell_tpu_torch/csrc/lstm_cell.cu",
+    "additive_attention": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
+    "attention_beam": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
+}
+
+
+def _gen(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _randn(shape, g, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _uniform(shape, g, dtype, bound):
+    return ((torch.rand(shape, generator=g, device="cuda") * 2 - 1) * bound).to(dtype)
+
+
+def _maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _diffs(out: torch.Tensor, ref: torch.Tensor):
+    """(max |diff|, max |diff| / max |ref|)."""
+    d = _maxdiff(out, ref)
+    return d, d / ref.float().abs().max().item()
+
+
+# --- inputs at a shape ------------------------------------------------------
+
+
+def cell_inputs(B, I, H, dtype, seed):
+    g = _gen(seed)
+    k = H ** -0.5
+    params = {"w": _uniform((I + H, 4 * H), g, dtype, k), "b": _uniform((4 * H,), g, torch.float32, k)}
+    x = _randn((B, I), g, dtype)
+    h = _randn((B, H), g, dtype)
+    c = _randn((B, H), g, torch.float32)
+    return params, x, h, c
+
+
+def attention_inputs(B, K, L, D, dtype, seed):
+    g = _gen(seed)
+    ce = _randn((B, L, D), g, dtype)
+    f = _randn((B, L, D), g, dtype)
+    hp = _randn((B, K, D), g, dtype)
+    watt = _uniform((D,), g, dtype, (6.0 / (D + 1)) ** 0.5)
+    return ce, f, hp, watt
+
+
+# --- bounds -----------------------------------------------------------------
+
+
+def cell_bound(B, I, H, dtype):
+    es = torch.tensor([], dtype=dtype).element_size()
+    flops = 2.0 * B * (I + H) * 4 * H
+    nbytes = (B * I + B * H + (I + H) * 4 * H) * es + 4 * H * 4 + B * H * 4  # in: x h W b c
+    nbytes += B * H * es + B * H * 4  # out: h' c'
+    return _bound(flops, nbytes, dtype)
+
+
+def attention_bound(B, K, L, D, dtype):
+    es = torch.tensor([], dtype=dtype).element_size()
+    # per (b, k, l, d): add, tanh, multiply-add for the score (tanh counted
+    # as one operation) and a multiply-add for the context, all in fp32
+    ops = 6.0 * B * K * L * D
+    nbytes = (2 * B * L * D + B * K * D + D) * es  # in: ce f hp w_att
+    nbytes += B * K * D * es + B * K * L * 4  # out: ctx alpha
+    return _bound(ops, nbytes, torch.float32)
+
+
+def _bound(ops, nbytes, op_dtype):
+    t_ops = ops / PEAK_FLOPS[op_dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- timing -----------------------------------------------------------------
+
+
+def time_cold(fn, iters=30, warmup=3, head_start=True) -> float:
+    """Median ms of one call, with L2 flushed before each: in the decode
+    loop the attention streams ~100 MB between two calls of any kernel.
+    With ``head_start`` the card spins before each call, so that the host
+    has queued all of the call's launches when the first event fires and
+    the time is the device's; without it a call of many small launches is
+    timed at the pace at which the host issues them."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        if head_start:
+            torch.cuda._sleep(HEAD_START_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in pairs]
+    return statistics.median(times)
+
+
+def profile_decode(fn, mode, top=8):
+    """Device busy share of one decode (the sum of kernel times over the
+    wall time of the traced window) and its most expensive kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels or busy_us == 0:
+        print(f"  {mode:6s} profile: the trace holds no device time (not measured)")
+        return
+    print(f"  {mode:6s} profile: wall {wall_us / 1e3:.2f} ms, kernels {busy_us / 1e3:.2f} ms, "
+          f"device busy {busy_us / wall_us:.1%}, idle {1 - busy_us / wall_us:.1%}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+# --- phases -----------------------------------------------------------------
+
+
+def phase_environment():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print("== 1. environment")
+    print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  python {sys.version.split()[0]}")
+    print(f"device 0: {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
+    print(
+        "TF32 as found: cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 set to False for the fp32 checks: cudnn.allow_tf32=False cuda.matmul.allow_tf32=False")
+    print("card name, power limit:")
+    print(smi)
+    return smi
+
+
+def phase_build():
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    print("== 2. build")
+    secs = cuda_lib.build_all()
+    print(f"built {', '.join(cuda_lib.SOURCES)} for sm_90a in {secs:.1f} s")
+    for src, log in cuda_lib.build_logs().items():
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"  {src}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"spill stores at most {max(spills)} bytes (ptxas -v)")
+
+
+def phase_check():
+    from show_and_tell_tpu_torch.ops import fused_attention as fa
+    from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
+    from show_and_tell_tpu_torch.ops import lstm
+
+    print("== 3. kernels against their plain versions")
+    errs = {}  # name -> max abs err at the serving shape in bf16
+    failures = []
+
+    def report(name, shape, dtype, pairs, tol, serving):
+        """pairs: output name -> (kernel's output, plain version's)."""
+        diffs = {k: _diffs(out, ref) for k, (out, ref) in pairs.items()}
+        worst = max(d for d, _ in diffs.values())
+        worst_rel = max(r for _, r in diffs.values())
+        rtol = RTOL[dtype]
+        ok = worst <= tol and worst_rel <= rtol
+        dname = str(dtype).replace("torch.", "")
+        parts = " ".join(f"{k}={d:.3e} (rel {r:.2e})" for k, (d, r) in diffs.items())
+        print(f"  {name:19s} {shape:26s} {dname:8s} max|diff| {parts}  tol {tol:g} rel {rtol:g}  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} {shape} {dname}")
+        if serving and dtype == torch.bfloat16:
+            errs[name] = max(errs.get(name, 0.0), worst)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        # the last three: ragged H, I+H not a multiple of the k-tile, and
+        # I not a multiple of the vector width (element-wise loads)
+        for B, I, H, serving in ((768, 1024, 1024, True), (256, 1024, 1024, True),
+                                 (13, 40, 24, False), (9, 48, 40, False), (5, 17, 20, False)):
+            p, x, h, c = cell_inputs(B, I, H, dtype, SEED)
+            hk, ck = lstm.lstm_cell_cuda(p, x, h, c)
+            hr, cr = lstm.lstm_cell_reference(p, x, h, c)
+            assert hk.dtype == dtype and ck.dtype == torch.float32
+            report("lstm_cell", f"B={B} I={I} H={H}", dtype,
+                   {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving)
+        for name, B, K, L, D, serving in (
+            ("additive_attention", 256, 1, 196, 512, True),
+            ("additive_attention", 7, 1, 13, 40, False),
+            ("attention_beam", 256, 3, 196, 512, True),
+            ("attention_beam", 256, 3, 13, 512, False),
+            ("attention_beam", 5, 3, 13, 36, False),
+        ):
+            ce, f, hp, watt = attention_inputs(B, K, L, D, dtype, SEED + 1)
+            if K == 1:
+                ck, ak = fa.fused_attention(ce, f, hp[:, 0], watt)
+                cr, ar = fa.attention_reference(ce, f, hp[:, 0], watt)
+            else:
+                ck, ak = fda.attention_beam(ce, f, hp, watt)
+                cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
+            assert ck.dtype == dtype and ak.dtype == torch.float32
+            report(name, f"B={B} K={K} L={L} D={D}", dtype,
+                   {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], serving)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions: {failures}")
+    return errs
+
+
+def phase_times():
+    from show_and_tell_tpu_torch.ops import fused_attention as fa
+    from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
+    from show_and_tell_tpu_torch.ops import lstm
+
+    print("== 4. times at the serving shapes, bf16 (median ms, L2 flushed and the card "
+          "given a head start before each call)")
+    dt = torch.bfloat16
+    rows = {}
+
+    def show(name, shape, kernel_ms, plain, bound, library_ms):
+        bound_ms, bound_by = bound
+        plain_ms = time_cold(plain)
+        host_paced_ms = time_cold(plain, head_start=False)
+        lib = f"{library_ms:.4f}" if library_ms is not None else "null"
+        print(
+            f"  {name:19s} {shape:24s} kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} "
+            f"({bound_by}, {bound_ms / kernel_ms:.1%} of it)  plain_ms {plain_ms:.4f} "
+            f"(host-paced {host_paced_ms:.4f})  library_ms {lib}"
+        )
+        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    for B in (768, 256):
+        I = H = 1024
+        p, x, h, c = cell_inputs(B, I, H, dt, SEED)
+        w_ih = p["w"][:I].t().contiguous()
+        w_hh = p["w"][I:].t().contiguous()
+        b_ih = p["b"].to(dt)
+        b_hh = torch.zeros_like(b_ih)
+        c_lib = c.to(dt)
+        row = show(
+            "lstm_cell", f"B={B} I={I} H={H}",
+            time_cold(lambda: lstm.lstm_cell_cuda(p, x, h, c)),
+            lambda: lstm.lstm_cell_reference(p, x, h, c),
+            cell_bound(B, I, H, dt),
+            time_cold(lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh)),
+        )
+        if B == 768:  # the beam-3 serving batch, 256 images x 3 beams
+            rows["lstm_cell"] = row
+    B, L, D = 256, 196, 512
+    ce, f, hp, watt = attention_inputs(B, 1, L, D, dt, SEED + 1)
+    hp1 = hp[:, 0].contiguous()
+    rows["additive_attention"] = show(
+        "additive_attention", f"B={B} K=1 L={L} D={D}",
+        time_cold(lambda: fa.fused_attention(ce, f, hp1, watt)),
+        lambda: fa.attention_reference(ce, f, hp1, watt),
+        attention_bound(B, 1, L, D, dt), None,
+    )
+    ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
+    rows["attention_beam"] = show(
+        "attention_beam", f"B={B} K=3 L={L} D={D}",
+        time_cold(lambda: fda.attention_beam(ce, f, hp, watt)),
+        lambda: fda.attention_beam_reference(ce, f, hp, watt),
+        attention_bound(B, 3, L, D, dt), None,
+    )
+    return rows
+
+
+def phase_end_to_end():
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    print("== 5. end to end: Captioner at full width, bf16, 256 images")
+    V, N = 10000, 256
+    vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
+    assert len(vocab) == V
+    cfg = Config(dtype="bfloat16")
+    print(
+        f"  config: {cfg.model} {cfg.encoder} crop {cfg.crop_size} E={cfg.embed_size} "
+        f"H={cfg.hidden_size} V={V} beam {cfg.beam_size} max_decode_len {cfg.max_decode_len} {cfg.dtype}"
+    )
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    cap = Captioner(cfg, model, None, vocab, device="cuda")
+    images = np.random.default_rng(SEED).integers(0, 256, (N, 256, 256, 3), dtype=np.uint8)
+
+    warm = cap.warmup(modes=("beam", "greedy"), buckets=(N,))
+    print(f"  warmup (beam and greedy at bucket {N}): {warm:.2f} s")
+    path_kernels = {"beam": ("lstm_cell", "attention_beam"), "greedy": ("lstm_cell", "additive_attention")}
+    launches = {name: 0 for name in REPLACES}
+    for mode, kernels in path_kernels.items():
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        secs = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            caps = cap.caption_images(images, mode=mode)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = {name: cuda_lib.LAUNCHES[name] for name in REPLACES}
+        for name, n in counts.items():
+            launches[name] += n
+        dt = statistics.median(secs)
+        print(f"  {mode:6s}: {N} images in {dt * 1e3:.2f} ms (median of {REPS}: "
+              f"{', '.join(f'{s * 1e3:.2f}' for s in secs)}) = {N / dt:.1f} img/s  launches {counts}")
+        print(f"  {mode:6s} caption[0]: {caps[0]!r}")
+        assert len(caps) == N and all(isinstance(s, str) for s in caps)
+        missing = [k for k in kernels if counts[k] == 0]
+        assert not missing, f"{mode}: kernels of the path never launched: {missing}"
+
+    # where the time goes: trunk vs decode, host clock around synchronised work
+    with torch.inference_mode():
+        x = torch.from_numpy(images).cuda()
+        for mode in ("beam", "greedy"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = model.backbone_features(eval_transform(x, cfg.crop_size))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ids = decode_ids(model, cfg, feats, mode)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            assert ids.shape == (N, cfg.max_decode_len)
+            assert int(ids.min()) >= 0 and int(ids.max()) < V
+            print(f"  {mode:6s} split: transform+trunk {(t1 - t0) * 1e3:.2f} ms, decode {(t2 - t1) * 1e3:.2f} ms")
+            profile_decode(lambda: decode_ids(model, cfg, feats, mode), mode)
+
+    # the decode step through the kernels against the plain path: the same
+    # weights (same seed) on the CPU, where every op runs its plain version,
+    # fed the card's features, over 5 forced tokens
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    x8 = torch.from_numpy(images[:8]).cuda()
+    with torch.inference_mode():
+        for c, m in ((cfg32, m32), (cfg, model)):
+            m_cpu = build_model(c, V, device="cpu", generator=torch.Generator().manual_seed(SEED))
+            feats = m.backbone_features(eval_transform(x8, c.crop_size))
+            assert feats.shape == (8, 196, 512) and torch.isfinite(feats).all()
+            rtol = LOGITS_RTOL[m.cdtype]
+            for k in (1, 3):
+                toks = torch.from_numpy(rng.integers(0, V, (5, 8 * k)))
+                sk, ck, _ = m.make_decode_state(feats, k)
+                sp, cp, _ = m_cpu.make_decode_state(feats.cpu(), k)
+                worst = 0.0
+                for t in range(5):
+                    ck, lk = sk(ck, toks[t].cuda())
+                    cp, lp = sp(cp, toks[t])
+                    assert lk.shape == (8 * k, V) and torch.isfinite(lk).all()
+                    worst = max(worst, _diffs(lk.cpu(), lp)[1])
+                print(f"  {c.dtype} step logits, kernels vs plain, k={k}: "
+                      f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
+                assert worst <= rtol, f"{c.dtype} k={k}: kernel path logits disagree with the plain path"
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the kernel results as JSON to this path")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on the GPU", file=sys.stderr)
+        return 1
+    # the port itself: importable only from a checkout of the repository
+    import show_and_tell_tpu_torch  # noqa: F401
+
+    t_start = time.perf_counter()
+    smi = phase_environment()
+    phase_build()
+    errs = phase_check()
+    rows = phase_times()
+    launches = phase_end_to_end()
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
+        for name in REPLACES
+    ]
+    print(f"== done in {time.perf_counter() - t_start:.1f} s")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump({"card": smi, "kernels": kernels}, fh, indent=1)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,171 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources live in ``show_and_tell_tpu_torch/csrc/``. Each ``.cu`` file is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
+C interface, loaded with ``ctypes``. The libraries go to
+``show_and_tell_tpu_torch/_build/`` (git-ignored), named by a hash of the
+source and flags, so an edited source is rebuilt and an unchanged one is
+reused. All sources build in parallel at first use.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port, and the CPU host has no ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by name. Each wrapper adds one right
+after its kernel launched, and nowhere else, so a run can show that it went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("lstm_cell.cu", "additive_attention.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+# C signatures: (argtypes), every function returns a cudaError_t as int
+_SIGNATURES = {
+    "lstm_cell.cu": {
+        "sat_lstm_cell": (_vp,) * 7 + (_i,) * 5 + (_vp,),
+    },
+    "additive_attention.cu": {
+        "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),
+        "sat_attention_kmax": (),
+    },
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(src: str) -> str:
+    with open(os.path.join(CSRC, src), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{src[:-3]}-{digest[:16]}.so")
+
+
+def build_all() -> float:
+    """Compile every source that has no up-to-date library, all at once.
+    Returns the seconds spent. Raises with the compiler's output on error."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for src in SOURCES:
+        out = _lib_path(src)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for src, out, tmp, p in procs:
+        log, _ = p.communicate()
+        with open(out[:-3] + ".log", "w") as fh:
+            fh.write(log)
+        if p.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_logs() -> Dict[str, str]:
+    """The compiler's output (register and shared-memory use) per source."""
+    logs = {}
+    for src in SOURCES:
+        path = _lib_path(src)[:-3] + ".log"
+        if os.path.exists(path):
+            with open(path) as fh:
+                logs[src] = fh.read()
+    return logs
+
+
+def library(src: str) -> ctypes.CDLL:
+    """The loaded library of one source, building all sources at first use."""
+    with _lock:
+        if src not in _libs:
+            path = _lib_path(src)
+            if not os.path.exists(path):
+                build_all()
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES[src].items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _libs[src] = lib
+        return _libs[src]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return _DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") from None
+
+
+def vectorizable(sizes, *tensors: torch.Tensor) -> bool:
+    """Whether a kernel may load 16-byte vectors: every row length in
+    ``sizes`` is a multiple of the vector width of the tensors' dtype and
+    every tensor starts on a 16-byte boundary."""
+    width = 16 // tensors[0].element_size()
+    return all(n % width == 0 for n in sizes) and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_operands(what: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """Every operand on the CUDA ``device``, contiguous. Raises ValueError."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {device}")
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")

@@ -1,0 +1,101 @@
+"""Fused LSTM cell: the plain PyTorch version and the CUDA kernel's wrapper.
+
+Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
+
+    z = [x, h] @ W + b            W: [I+H, 4H]
+    i, f, o = sigmoid(z_i, z_f, z_o);  g = tanh(z_g)
+    c' = f*c + i*g;  h' = o*tanh(c')
+
+``lstm_cell`` launches the kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
+and runs ``lstm_cell_reference`` for CPU tensors. On a CUDA tensor it never
+falls back: the launch succeeds or it raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from show_and_tell_tpu_torch.ops import cuda_lib
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_lstm_params(
+    input_size: int,
+    hidden_size: int,
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """U(-1/sqrt(H), 1/sqrt(H)) init (torch nn.LSTM's default)."""
+    k = 1.0 / math.sqrt(hidden_size)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=generator, dtype=dtype) * (2 * k) - k
+
+    return {"w": u(input_size + hidden_size, 4 * hidden_size), "b": u(4 * hidden_size)}
+
+
+def lstm_cell_reference(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version. h comes back in h's dtype, c in c's dtype."""
+    hx = torch.cat([x, h], dim=-1)
+    z = hx @ params["w"] + params["b"]
+    zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
+    i = torch.sigmoid(zi)
+    f = torch.sigmoid(zf)
+    g = torch.tanh(zg)
+    o = torch.sigmoid(zo)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def lstm_cell_cuda(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fused cell kernel. x, h and W share one dtype (float32 or
+    bfloat16); b and c are float32. Returns (h' in h's dtype, c' float32)."""
+    w, b = params["w"], params["b"]
+    what = "lstm_cell"
+    cuda_lib.check_operands(what, x.device, x=x, h=h, c=c, w=w, b=b)
+    if x.dim() != 2 or h.dim() != 2:
+        raise ValueError(f"{what}: x and h must be 2-D, got {tuple(x.shape)}, {tuple(h.shape)}")
+    B, I = x.shape
+    H = h.shape[1]
+    if h.shape[0] != B or tuple(c.shape) != (B, H):
+        raise ValueError(f"{what}: batch mismatch x {tuple(x.shape)} h {tuple(h.shape)} c {tuple(c.shape)}")
+    if tuple(w.shape) != (I + H, 4 * H) or tuple(b.shape) != (4 * H,):
+        raise ValueError(f"{what}: W {tuple(w.shape)} / b {tuple(b.shape)} do not fit I={I}, H={H}")
+    if not (x.dtype == h.dtype == w.dtype):
+        raise TypeError(f"{what}: x, h, W dtypes differ: {x.dtype}, {h.dtype}, {w.dtype}")
+    if b.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"{what}: b and c must be float32, got {b.dtype}, {c.dtype}")
+    code = cuda_lib.dtype_code(x)
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    if B == 0:
+        return h_out, c_out
+    lib = cuda_lib.library("lstm_cell.cu")
+    vec = int(cuda_lib.vectorizable((I, H), x, h, w))
+    err = lib.sat_lstm_cell(
+        cuda_lib.ptr(x), cuda_lib.ptr(h), cuda_lib.ptr(w), cuda_lib.ptr(b),
+        cuda_lib.ptr(c), cuda_lib.ptr(h_out), cuda_lib.ptr(c_out),
+        B, I, H, code, vec, cuda_lib.stream(x.device),
+    )
+    cuda_lib.check(err, what)
+    cuda_lib.LAUNCHES["lstm_cell"] += 1
+    return h_out, c_out
+
+
+def lstm_cell(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if x.is_cuda:
+        return lstm_cell_cuda(params, x, h, c)
+    return lstm_cell_reference(params, x, h, c)
