@@ -8,19 +8,26 @@ Phases, each printing its own lines:
 1. environment: the card's name and power limit, the torch and CUDA versions,
    and the TF32 switches, which are set to False so that the fp32 checks run
    in full fp32 (cuDNN convolutions default to TF32);
-2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``;
-3. each kernel against its plain PyTorch version on the card, at the serving
-   shapes and at unaligned ones, in fp32 and bf16: every output within an
-   absolute tolerance and, relative to the output's own scale (max |diff| /
-   max |plain|), within a relative one, so that small outputs such as the
-   context (a mean over L) are held as tightly as large ones;
+2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``,
+   one ``nvcc`` per source, all started together;
+3. each of the six kernels against its plain PyTorch version on the card, at
+   the serving shapes and at unaligned ones, in fp32 and bf16: every output
+   within an absolute tolerance and, relative to the output's own scale (max
+   |diff| / max |plain|), within a relative one, so that small outputs such
+   as the context (a mean over L) are held as tightly as large ones; every
+   variant name of the beam attention; and the two autograd Functions that
+   training runs (the cell and the per-row attention: the kernel forward, a
+   plain recompute backward), whose input gradients at the training shapes
+   are held against autograd through the plain versions (fp32; bf16
+   printed);
 4. each kernel's time at the serving shapes in bf16 (CUDA events, L2 flushed
    and the card held busy ~1 ms before every call so that the host has
    queued the whole call before it starts: device time, not the host's
    launch pace; median), beside its bound, the plain version's time (also
    printed host-paced, without the head start) and, for the cell,
-   ``torch.lstm_cell``'s as a yardstick;
-5. end to end: ``Captioner`` at the model's full width (VGG16 at 224 px,
+   ``torch.lstm_cell``'s as a yardstick; the ce transpose that the ``st_*``
+   variants pay per call is timed apart;
+5. serving: ``Captioner`` at the model's full width (VGG16 at 224 px,
    E=512, H=1024, V=10000, random weights from a seed, bf16) captions 256
    uint8 images by beam-3 and by greedy decoding; the kernel launch counts
    are reset before and read after each mode; the time splits into trunk
@@ -28,7 +35,21 @@ Phases, each printing its own lines:
    (device busy share, top kernels); the decode step's logits through the
    kernels are held against the plain path (the same weights on the CPU,
    where every op runs its plain version, fed the card's features) in fp32
-   and in bf16.
+   and in bf16;
+6. the beam-route decode chain: with the same model's weights and the
+   features of the same images, 20 steps of h-projection, beam attention by
+   one route (``s16_cmxu``, ``grid2``, ``st_cmxu``, ``hybrid-s16``), the
+   cell and the head, the argmax feeding the next step; per route the ms per
+   step, its kernel's launches (20), its step logits against the default
+   route's, and one traced decode (device busy share, top kernels);
+7. training: the Show-Attend-Tell train step at full width (bf16, batch 256,
+   T=20, uint8 images with synthetic captions from the seed): warm steps,
+   then timed steps on one fixed batch (img/s), the split into trunk,
+   forward, backward and optimizer, one traced step (device busy share, top
+   kernels), the launches per step (19 of the cell and of the per-row
+   attention), the loss finite and falling, and one fp32 step whose
+   gradients through the kernels are held against the plain path's on the
+   card.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -38,6 +59,7 @@ script exits non-zero. Without CUDA it exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -67,15 +89,28 @@ LOGITS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # 1.98 GHz, longer than the host takes to queue the plain versions' launches
 HEAD_START_CYCLES = 2_000_000
 
+# autograd Functions: input gradients through the kernel path against
+# autograd through the plain path, max |diff| / max |plain grad|
+GRAD_RTOL = 1e-4
+STEPS = 20  # decode steps of the beam-route chain
+WARM_STEPS, TIMED_STEPS = 2, 10  # training steps
+
 REPLACES = {
     "lstm_cell": "show_and_tell_tpu/ops/lstm.py:109",
     "additive_attention": "show_and_tell_tpu/ops/fused_attention.py:49",
     "attention_beam": "show_and_tell_tpu/ops/fused_decode_attention.py:167",
+    "attention_beam_grid2": "show_and_tell_tpu/ops/fused_decode_attention.py:140",
+    "attention_beam_st": "show_and_tell_tpu/ops/fused_decode_attention.py:108",
+    "attention_scores": "show_and_tell_tpu/ops/fused_decode_attention.py:339",
 }
+_BEAM_CU = "show_and_tell_tpu_torch/csrc/beam_attention.cu"
 SOURCES = {
     "lstm_cell": "show_and_tell_tpu_torch/csrc/lstm_cell.cu",
     "additive_attention": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
     "attention_beam": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
+    "attention_beam_grid2": _BEAM_CU,
+    "attention_beam_st": _BEAM_CU,
+    "attention_scores": _BEAM_CU,
 }
 
 
@@ -144,6 +179,13 @@ def attention_bound(B, K, L, D, dtype):
     return _bound(ops, nbytes, torch.float32)
 
 
+def scores_bound(B, K, L, D, dtype):
+    es = torch.tensor([], dtype=dtype).element_size()
+    ops = 4.0 * B * K * L * D  # add, tanh, multiply-add per (b, k, l, d), fp32
+    nbytes = (B * L * D + B * K * D + D) * es + B * K * L * 4  # in: ce hp w_att; out: e
+    return _bound(ops, nbytes, torch.float32)
+
+
 def _bound(ops, nbytes, op_dtype):
     t_ops = ops / PEAK_FLOPS[op_dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -179,9 +221,9 @@ def time_cold(fn, iters=30, warmup=3, head_start=True) -> float:
     return statistics.median(times)
 
 
-def profile_decode(fn, mode, top=8):
-    """Device busy share of one decode (the sum of kernel times over the
-    wall time of the traced window) and its most expensive kernels."""
+def profile_window(fn, mode, top=8):
+    """Device busy share of one call of ``fn`` (the sum of kernel times over
+    the wall time of the traced window) and its most expensive kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -291,10 +333,92 @@ def phase_check():
             assert ck.dtype == dtype and ak.dtype == torch.float32
             report(name, f"B={B} K={K} L={L} D={D}", dtype,
                    {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], serving)
+        # rows 4-6, through the public API by variant name; the scores are
+        # held like alpha, and the hybrid's plain softmax and context beside
+        for B, K, L, D, serving in ((256, 3, 196, 512, True), (256, 3, 13, 512, False),
+                                    (5, 3, 13, 36, False)):
+            ce, f, hp, watt = attention_inputs(B, K, L, D, dtype, SEED + 1)
+            cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
+            shape, tol = f"B={B} K={K} L={L} D={D}", TOL[dtype]["attention"]
+            for name, variant in (("attention_beam_grid2", "grid2"), ("attention_beam_st", "st_cmxu")):
+                ck, ak = fda.attention_beam(ce, f, hp, watt, variant=variant)
+                assert ck.dtype == dtype and ak.dtype == torch.float32
+                report(name, shape, dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, serving)
+            e = fda.attention_scores(ce, hp, watt, "s16")
+            assert e.shape == (B, K, L) and e.dtype == torch.float32
+            report("attention_scores", shape, dtype,
+                   {"e": (e, fda.attention_scores_reference(ce, hp, watt))}, tol, serving)
+            ch, ah = fda.attention_beam_hybrid(ce, f, hp, watt, "s16")
+            report("  hybrid-s16", shape, dtype, {"ctx": (ch, cr), "alpha": (ah, ar)}, tol, False)
+        # every variant name runs its kernel and agrees with the plain version
+        ce, f, hp, watt = attention_inputs(5, 3, 13, 36, dtype, SEED + 2)
+        cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
+        for variant in fda.VARIANTS:
+            ck, ak = fda.attention_beam(ce, f, hp, watt, variant=variant)
+            report(f"  {variant}", "B=5 K=3 L=13 D=36", dtype,
+                   {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], False)
+        for variant in fda.SCORE_VARIANTS:
+            ch, ah = fda.attention_beam_hybrid(ce, f, hp, watt, variant)
+            report(f"  hybrid-{variant}", "B=5 K=3 L=13 D=36", dtype,
+                   {"ctx": (ch, cr), "alpha": (ah, ar)}, TOL[dtype]["attention"], False)
     torch.cuda.synchronize()
+    failures += check_functions()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return errs
+
+
+def _input_grads(fn, leaves, weights):
+    """Gradients of sum_i <out_i, weights_i> with respect to ``leaves``."""
+    outs = fn(*leaves)
+    loss = sum((o.float() * w.float()).sum() for o, w in zip(outs, weights))
+    return torch.autograd.grad(loss, leaves)
+
+
+def check_functions():
+    """The two autograd Functions of training at the training shapes: input
+    gradients through the kernel forward and the recompute backward, against
+    autograd through the plain version on the same inputs. Held in fp32;
+    printed in bf16. Returns the failures."""
+    from show_and_tell_tpu_torch.ops import fused_attention as fa
+    from show_and_tell_tpu_torch.ops import lstm
+
+    print(f"  autograd Functions, input gradients vs autograd through the plain version "
+          f"(max|diff| / max|plain grad|, fp32 limit {GRAD_RTOL:g})")
+    failures = []
+    cell_fn = lstm.LSTMCellFunction.apply
+
+    def cell_plain(w, b, x, h, c):
+        return lstm.lstm_cell_reference({"w": w, "b": b}, x, h, c)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        B, I, H, L, D = 256, 1024, 1024, 196, 512
+        p, x, h, c = cell_inputs(B, I, H, dtype, SEED + 3)
+        g = _gen(SEED + 4)
+        cases = [
+            ("LSTMCellFunction", f"B={B} I={I} H={H}", cell_fn, cell_plain,
+             (p["w"], p["b"], x, h, c), ("w", "b", "x", "h", "c"),
+             (_randn((B, H), g, dtype), _randn((B, H), g, torch.float32))),
+        ]
+        ce, f, hp, watt = attention_inputs(B, 1, L, D, dtype, SEED + 5)
+        cases.append(("FusedAttentionFunction", f"B={B} L={L} D={D}", fa.FusedAttentionFunction.apply,
+                      fa.attention_reference, (ce, f, hp[:, 0].contiguous(), watt),
+                      ("ce", "f", "hp", "w_att"),
+                      (_randn((B, D), g, dtype), _randn((B, L), g, torch.float32))))
+        dname = str(dtype).replace("torch.", "")
+        for name, shape, fn, plain, ins, names, weights in cases:
+            gk = _input_grads(fn, [t.clone().requires_grad_() for t in ins], weights)
+            gp = _input_grads(plain, [t.clone().requires_grad_() for t in ins], weights)
+            rel = {n: _diffs(a, b)[1] for n, a, b in zip(names, gk, gp)}
+            worst = max(rel.values())
+            ok = worst <= GRAD_RTOL or dtype != torch.float32
+            verdict = ("ok" if ok else "FAIL") if dtype == torch.float32 else "(printed)"
+            print(f"  {name:22s} {shape:22s} {dname:8s} " + " ".join(f"d{n} {r:.2e}" for n, r in rel.items())
+                  + f"  {verdict}")
+            if not ok:
+                failures.append(f"{name} {dname}")
+    torch.cuda.synchronize()
+    return failures
 
 
 def phase_times():
@@ -347,11 +471,38 @@ def phase_times():
         attention_bound(B, 1, L, D, dt), None,
     )
     ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
+    shape = f"B={B} K=3 L={L} D={D}"
     rows["attention_beam"] = show(
-        "attention_beam", f"B={B} K=3 L={L} D={D}",
+        "attention_beam", shape,
         time_cold(lambda: fda.attention_beam(ce, f, hp, watt)),
         lambda: fda.attention_beam_reference(ce, f, hp, watt),
         attention_bound(B, 3, L, D, dt), None,
+    )
+    rows["attention_beam_grid2"] = show(
+        "attention_beam_grid2", shape,
+        time_cold(lambda: fda.attention_beam(ce, f, hp, watt, variant="grid2")),
+        lambda: fda.attention_beam_reference(ce, f, hp, watt),
+        attention_bound(B, 3, L, D, dt), None,
+    )
+    # the kernel on a ce^T made beforehand: a decode transposes the
+    # step-invariant ce once; attention_beam(variant="st_*") pays the
+    # transpose on every call, timed apart below
+    cet = ce.transpose(1, 2).contiguous()
+    rows["attention_beam_st"] = show(
+        "attention_beam_st", shape,
+        time_cold(lambda: fda.attention_beam_st(cet, f, hp, watt)),
+        lambda: fda.attention_beam_st_reference(cet, f, hp, watt),
+        attention_bound(B, 3, L, D, dt), None,
+    )
+    t_ms = time_cold(lambda: ce.transpose(1, 2).contiguous())
+    t_bound = 2 * ce.numel() * ce.element_size() / PEAK_BYTES_PER_S * 1e3
+    print(f"  {'ce transpose (plain)':19s} B={B} L={L} D={D}{'':8s} ms {t_ms:.4f}  bound_ms {t_bound:.4f} "
+          f"(bytes): paid per call by attention_beam(variant='st_*')")
+    rows["attention_scores"] = show(
+        "attention_scores", shape,
+        time_cold(lambda: fda.attention_scores(ce, hp, watt, "s16")),
+        lambda: fda.attention_scores_reference(ce, hp, watt),
+        scores_bound(B, 3, L, D, dt), None,
     )
     return rows
 
@@ -365,7 +516,7 @@ def phase_end_to_end():
     from show_and_tell_tpu_torch.serve import Captioner
     from show_and_tell_tpu_torch.utils.vocab import Vocabulary
 
-    print("== 5. end to end: Captioner at full width, bf16, 256 images")
+    print("== 5. serving: Captioner at full width, bf16, 256 images")
     V, N = 10000, 256
     vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
     assert len(vocab) == V
@@ -417,7 +568,7 @@ def phase_end_to_end():
             assert ids.shape == (N, cfg.max_decode_len)
             assert int(ids.min()) >= 0 and int(ids.max()) < V
             print(f"  {mode:6s} split: transform+trunk {(t1 - t0) * 1e3:.2f} ms, decode {(t2 - t1) * 1e3:.2f} ms")
-            profile_decode(lambda: decode_ids(model, cfg, feats, mode), mode)
+            profile_window(lambda: decode_ids(model, cfg, feats, mode), mode)
 
     # the decode step through the kernels against the plain path: the same
     # weights (same seed) on the CPU, where every op runs its plain version,
@@ -445,7 +596,214 @@ def phase_end_to_end():
                 print(f"  {c.dtype} step logits, kernels vs plain, k={k}: "
                       f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
                 assert worst <= rtol, f"{c.dtype} k={k}: kernel path logits disagree with the plain path"
+    return launches, model, cfg, images
+
+
+def phase_beam_routes(model, cfg, images):
+    """The decode-step chain of the JAX package's attention benchmark
+    (``full_chain``) on the port: per step the h-projection, the beam
+    attention by one route, the cell and the head, the argmax feeding the
+    next step's embedding. Returns each route kernel's launches."""
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.models.layers import dense, embedding_lookup
+    from show_and_tell_tpu_torch.ops import cuda_lib, lstm
+    from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
+    from show_and_tell_tpu_torch.utils.vocab import START_ID
+
+    # route -> (its kernel, attention(ce, ce^T, f, hp, w_att))
+    routes = {
+        "s16_cmxu": ("attention_beam", lambda ce, cet, f, hp, w: fda.attention_beam(ce, f, hp, w, "s16_cmxu")),
+        "grid2": ("attention_beam_grid2", lambda ce, cet, f, hp, w: fda.attention_beam(ce, f, hp, w, "grid2")),
+        # ce is step-invariant: transposed once per decode, before the loop
+        "st_cmxu": ("attention_beam_st", lambda ce, cet, f, hp, w: fda.attention_beam_st(cet, f, hp, w)),
+        "hybrid-s16": ("attention_scores",
+                       lambda ce, cet, f, hp, w: fda.attention_beam_hybrid(ce, f, hp, w, "s16")),
+    }
+    N, K = images.shape[0], 3
+    print(f"== 6. beam-route decode chain: {N} images x {K} beams, {STEPS} steps, {cfg.dtype}, "
+          "the serving model's weights")
+    with torch.inference_mode():
+        feats = model.backbone_features(eval_transform(torch.from_numpy(images).cuda(), cfg.crop_size))
+        t, f, ce, h0, c0 = model.decode_init(feats)
+        cet = ce.transpose(1, 2).contiguous()
+        h0, c0 = h0.repeat_interleave(K, dim=0), c0.repeat_interleave(K, dim=0)
+        D = f.shape[2]
+
+        def chain(route, tokens=None):
+            """20 steps; with ``tokens`` each step embeds tokens[s] (the
+            default route's argmax) instead of its own, so that the routes'
+            logits can be compared step by step. Returns (logits, argmaxes)."""
+            attend = routes[route][1]
+            h, c = h0, c0
+            tok = torch.full((N * K,), START_ID, dtype=torch.long, device="cuda")
+            logits_all, picks = [], []
+            for s in range(STEPS):
+                emb = embedding_lookup(t["embed"], tok)
+                hp = (h @ t["att"]["w_hh"] + t["att"]["b_hh"]).reshape(N, K, D)
+                ctx, _ = attend(ce, cet, f, hp, t["att"]["w_att"])
+                ctx = ctx.reshape(N * K, D)
+                h, c = lstm.lstm_cell(t["lstm"], torch.cat([emb, ctx], dim=-1), h, c)
+                logits = dense(t["classifier"], dense(t["c2o"], ctx) + dense(t["h2o"], h))
+                pick = logits.argmax(dim=-1)
+                tok = pick if tokens is None else tokens[s]
+                logits_all.append(logits)
+                picks.append(pick)
+            return logits_all, picks
+
+        ref_logits, ref_tokens = chain("s16_cmxu")
+        launches = {}
+        for route, (kernel, _) in routes.items():
+            chain(route, ref_tokens)  # warm
+            torch.cuda.synchronize()
+            cuda_lib.LAUNCHES.clear()
+            logits, _ = chain(route, ref_tokens)
+            torch.cuda.synchronize()
+            n, n_cell = cuda_lib.LAUNCHES[kernel], cuda_lib.LAUNCHES["lstm_cell"]
+            worst = max(_diffs(a, b)[1] for a, b in zip(logits, ref_logits))
+            del logits
+            secs = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chain(route, ref_tokens)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            ms = statistics.median(secs) / STEPS * 1e3
+            rtol = LOGITS_RTOL[model.cdtype]
+            print(f"  {route:11s} {ms:.4f} ms/step (median of {REPS} decodes of {STEPS} steps: "
+                  f"{', '.join(f'{x * 1e3:.2f}' for x in secs)} ms)  launches {kernel} {n}, lstm_cell {n_cell}  "
+                  f"step logits vs s16_cmxu max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
+            assert n == STEPS and n_cell == STEPS, f"{route}: {kernel} launched {n} times, cell {n_cell}"
+            assert worst <= rtol, f"{route}: step logits disagree with the default route"
+            launches[kernel] = n
+            profile_window(lambda: chain(route, ref_tokens), route, top=5)
     return launches
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Route the model's training-step calls to the plain versions (autograd
+    through plain PyTorch on the card), to hold the kernel path against."""
+    from show_and_tell_tpu_torch.models import show_attend_tell as sat
+    from show_and_tell_tpu_torch.ops import attention, lstm
+
+    saved = sat.fused_additive_attention, sat.lstm_cell
+    sat.fused_additive_attention, sat.lstm_cell = attention.additive_attention, lstm.lstm_cell_reference
+    try:
+        yield
+    finally:
+        sat.fused_additive_attention, sat.lstm_cell = saved
+
+
+def phase_training(images):
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils.vocab import START_ID
+
+    V, T = 10000, 20
+    N = images.shape[0]
+    cfg = Config(dtype="bfloat16")
+    print(f"== 7. training: full width (E={cfg.embed_size} H={cfg.hidden_size} V={V}), {cfg.dtype}, "
+          f"batch {N}, T={T}, uint8 images {tuple(images.shape)}, lr {cfg.learning_rate}")
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    state = make_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    rng = np.random.default_rng(SEED + 2)
+    caps = np.concatenate([np.full((N, 1), START_ID), rng.integers(4, V, (N, T - 1))], 1)
+    batch = {
+        "images": torch.from_numpy(images).cuda(),
+        "captions": torch.from_numpy(caps).cuda(),
+        "lengths": torch.full((N,), T, device="cuda"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = cfg.learning_rate
+    losses = []
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch, lr, generator=gen)
+        losses.append(m["loss"])
+        return m
+
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    print(f"  {WARM_STEPS} warm steps: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        m = one_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img_s = TIMED_STEPS * N / dt
+    print(f"  {TIMED_STEPS} timed steps: {dt * 1e3 / TIMED_STEPS:.2f} ms/step = {img_s:.1f} img/s  "
+          f"(grad_norm {float(m['grad_norm']):.4f}, tokens {float(m['tokens']):.0f})")
+
+    # the split, host clock around synchronised work
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    feats = step.features(batch, gen)
+    mark()
+    loss, _ = step.forward(feats, batch, generator=gen)
+    mark()
+    grads = step.backward(state, loss)
+    mark()
+    state, _ = step.apply(state, grads, lr)
+    mark()
+    losses.append(loss.detach())
+    del grads
+    split = dict(zip(("trunk", "forward", "backward", "optimizer"),
+                     (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    print("  split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
+
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    one_step()
+    torch.cuda.synchronize()
+    counts = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention")}
+    print(f"  launches per step: {counts} (T-1 = {T - 1} each)")
+    assert all(n == T - 1 for n in counts.values()), f"training launches {counts}, expected {T - 1} each"
+    profile_window(one_step, "train step")
+
+    losses = [float(x) for x in losses]
+    print(f"  loss by step: {', '.join(f'{x:.4f}' for x in losses)}")
+    assert all(np.isfinite(losses)), "a training loss is not finite"
+    assert losses[-1] < losses[0], "the training loss did not fall"
+    del state, step, model, feats, loss
+
+    # one fp32 step: gradients through the kernels against the plain path
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    st32 = make_train_state(cfg32, m32)
+    s32 = make_train_step(m32, cfg32)
+    with torch.no_grad():
+        f32 = m32.backbone_features(eval_transform(batch["images"], cfg.crop_size))
+    b32 = dict(batch, features=f32)
+    grads = {}
+    for path in ("kernels", "plain"):
+        cuda_lib.LAUNCHES.clear()
+        with plain_ops() if path == "plain" else contextlib.nullcontext():
+            loss, _ = s32.forward(f32, b32)
+            grads[path] = s32.backward(st32, loss)
+        torch.cuda.synchronize()
+        n = cuda_lib.LAUNCHES["lstm_cell"] + cuda_lib.LAUNCHES["additive_attention"]
+        print(f"  fp32 step, {path} path: loss {float(loss.detach()):.6f}, kernel launches {n}")
+        assert n == (2 * (T - 1) if path == "kernels" else 0)
+    rel = {k: _diffs(grads["kernels"][k], grads["plain"][k])[1] for k in grads["plain"]}
+    worst = max(rel, key=rel.get)
+    print(f"  fp32 gradients, kernels vs plain, max|diff|/max|grad| per parameter: worst {worst} "
+          f"{rel[worst]:.3e} (limit {GRAD_RTOL:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    assert rel[worst] <= GRAD_RTOL, "kernel-path gradients disagree with the plain path"
+    return {"img_s": img_s, "ms_per_step": dt * 1e3 / TIMED_STEPS, "split_ms": split,
+            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel}
 
 
 def main() -> int:
@@ -463,7 +821,10 @@ def main() -> int:
     phase_build()
     errs = phase_check()
     rows = phase_times()
-    launches = phase_end_to_end()
+    launches, model, cfg, images = phase_end_to_end()
+    launches.update(phase_beam_routes(model, cfg, images))
+    del model
+    training = phase_training(images)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -473,7 +834,7 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "kernels": kernels}, fh, indent=1)
+            json.dump({"card": smi, "kernels": kernels, "training": training}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

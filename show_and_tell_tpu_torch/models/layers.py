@@ -70,3 +70,15 @@ def cast_tree(tree, dtype: torch.dtype):
     if torch.is_tensor(tree) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``; the identity at rate 0 or without a
+    generator. The mask comes from ``generator``, which must be on x's
+    device."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

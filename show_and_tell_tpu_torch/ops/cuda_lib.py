@@ -5,7 +5,7 @@ compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
 C interface, loaded with ``ctypes``. The libraries go to
 ``show_and_tell_tpu_torch/_build/`` (git-ignored), named by a hash of the
 source and flags, so an edited source is rebuilt and an unchanged one is
-reused. All sources build in parallel at first use.
+reused. All sources build in parallel at first use, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port, and the CPU host has no ``nvcc``.
@@ -34,7 +34,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_cell.cu", "additive_attention.cu")
+SOURCES = ("lstm_cell.cu", "additive_attention.cu", "beam_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,11 @@ _SIGNATURES = {
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),
         "sat_attention_kmax": (),
+    },
+    "beam_attention.cu": {
+        "sat_attention_scores": (_vp,) * 4 + (_i,) * 6 + (_vp,),
+        "sat_attention_beam_st": (_vp,) * 6 + (_i,) * 5 + (_vp,),
+        "sat_attention_beam_grid2": (_vp,) * 6 + (_i,) * 6 + (_vp,),
     },
 }
 
@@ -161,9 +166,18 @@ def stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def check_operands(what: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Every operand on the CUDA ``device``, contiguous. Raises ValueError."""
+    """Every operand on the CUDA ``device``, contiguous. Raises ValueError.
+    A kernel has no backward of its own: with grad mode on, an operand that
+    requires grad raises RuntimeError instead of giving an output that
+    autograd would silently cut off (training goes through the ops' autograd
+    Functions, which launch the kernels with grad mode off)."""
     if device.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise RuntimeError(
+            f"{what}: an operand requires grad and the kernel has no backward; "
+            "run it under torch.no_grad() or through its autograd Function"
+        )
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")

@@ -1,5 +1,5 @@
-"""Fused additive attention, one row per image: the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""Fused additive attention, one row per image: the CUDA kernel's wrapper, its
+plain PyTorch version, and the autograd Function that training runs.
 
 The chain (see ``ops/attention.py``) for hidden projections hp [B, D]:
 
@@ -10,6 +10,12 @@ runs in one pass of the kernel in ``csrc/additive_attention.cu`` with K = 1:
 ``ctx_enc`` and ``features`` are each read once and no [B, L, D]
 intermediate is written. The h-projection ``hidden @ w_hh + b_hh`` stays a
 matrix product outside the kernel.
+
+Training: ``FusedAttentionFunction`` runs the kernel forward and, in its
+backward, recomputes the plain chain and differentiates it with autograd.
+That is the JAX package's own design (``_fused_bwd``, an XLA recompute under
+``jax.vjp``; it has no Pallas backward), not a fallback: on CUDA tensors the
+forward always launches the kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +27,14 @@ import torch
 from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
+
+# launch-count name -> (source, C entry point). Both entry points take
+# (ce, f, hp, watt, ctx, alpha, B, K, L, D, dtype, vec, stream).
+_ENTRIES = {
+    "additive_attention": ("additive_attention.cu", "sat_additive_attention"),
+    "attention_beam": ("additive_attention.cu", "sat_additive_attention"),
+    "attention_beam_grid2": ("beam_attention.cu", "sat_attention_beam_grid2"),
+}
 
 
 def attention_reference(
@@ -35,38 +49,51 @@ def attention_reference(
     return ctx, alpha
 
 
-def launch_attention(
-    name: str, ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the additive-attention kernel for K rows per image and count
-    the launch under ``name``. ce, f [B, L, D]; hp [B, K, D]; watt [D], all
-    one dtype. Returns (context [B, K, D] in that dtype, alpha [B, K, L]
-    fp32)."""
+def attention_shapes(
+    name: str, ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor,
+    transposed: bool = False,
+) -> Tuple[int, int, int, int]:
+    """Check a beam-attention kernel's operands: ce [B, L, D] (or [B, D, L]
+    with ``transposed``), f [B, L, D], hp [B, K, D], watt [D], one dtype, on
+    one CUDA device, contiguous, and K within the kernels' limit. Returns
+    (B, K, L, D)."""
     cuda_lib.check_operands(name, ce.device, ce=ce, f=f, hp=hp, watt=watt)
-    if ce.dim() != 3 or hp.dim() != 3:
-        raise ValueError(f"{name}: ce must be [B, L, D] and hp [B, K, D]")
-    B, L, D = ce.shape
+    if ce.dim() != 3 or f.dim() != 3 or hp.dim() != 3:
+        raise ValueError(f"{name}: ce and f must be 3-D and hp [B, K, D]")
+    B, L, D = f.shape
     K = hp.shape[1]
-    if tuple(f.shape) != (B, L, D) or tuple(hp.shape) != (B, K, D) or tuple(watt.shape) != (D,):
+    ce_want = (B, D, L) if transposed else (B, L, D)
+    if tuple(ce.shape) != ce_want or tuple(hp.shape) != (B, K, D) or tuple(watt.shape) != (D,):
         raise ValueError(
             f"{name}: shapes ce {tuple(ce.shape)} f {tuple(f.shape)} hp {tuple(hp.shape)} "
             f"watt {tuple(watt.shape)} do not agree"
         )
     if not (ce.dtype == f.dtype == hp.dtype == watt.dtype):
         raise TypeError(f"{name}: ce, f, hp, watt dtypes differ")
-    code = cuda_lib.dtype_code(ce)
-    lib = cuda_lib.library("additive_attention.cu")
-    kmax = lib.sat_attention_kmax()
+    cuda_lib.dtype_code(ce)
+    kmax = cuda_lib.library("additive_attention.cu").sat_attention_kmax()
     if not 1 <= K <= kmax:
-        raise ValueError(f"{name}: K={K} rows per image, the kernel takes 1..{kmax}")
+        raise ValueError(f"{name}: K={K} rows per image, the kernels take 1..{kmax}")
+    return B, K, L, D
+
+
+def launch_attention(
+    name: str, ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the additive-attention kernel ``name`` (a key of ``_ENTRIES``)
+    for K rows per image and count the launch under ``name``. ce, f
+    [B, L, D]; hp [B, K, D]; watt [D], all one dtype. Returns (context
+    [B, K, D] in that dtype, alpha [B, K, L] fp32)."""
+    B, K, L, D = attention_shapes(name, ce, f, hp, watt)
+    src, entry = _ENTRIES[name]
     ctx = torch.empty((B, K, D), dtype=ce.dtype, device=ce.device)
     alpha = torch.empty((B, K, L), dtype=torch.float32, device=ce.device)
     if B == 0 or L == 0:
         return ctx, alpha
     vec = int(cuda_lib.vectorizable((D,), ce))
-    err = lib.sat_additive_attention(
+    err = getattr(cuda_lib.library(src), entry)(
         cuda_lib.ptr(ce), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
-        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, code, vec,
+        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, cuda_lib.dtype_code(ce), vec,
         cuda_lib.stream(ce.device),
     )
     cuda_lib.check(err, name)
@@ -74,15 +101,49 @@ def launch_attention(
     return ctx, alpha
 
 
-def fused_attention(
-    ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain for hp [B, D]: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _attention_forward(ce, f, hp, watt):
     if ce.is_cuda:
         ctx, alpha = launch_attention("additive_attention", ce, f, hp[:, None, :], watt)
         return ctx[:, 0], alpha[:, 0]
     return attention_reference(ce, f, hp, watt)
+
+
+class FusedAttentionFunction(torch.autograd.Function):
+    """The chain with the kernel forward (the plain version on CPU tensors)
+    and a recompute backward: autograd over ``attention_reference`` on the
+    saved ``(ce, f, hp, watt)``, as the JAX package's ``_fused_bwd`` runs
+    ``jax.vjp`` over its XLA reference. Cotangents come back in the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, ce, f, hp, watt):
+        ce, f, hp, watt = (t.contiguous() for t in (ce, f, hp, watt))
+        ctx.save_for_backward(ce, f, hp, watt)
+        return _attention_forward(ce, f, hp, watt)
+
+    @staticmethod
+    def backward(ctx, dctx, dalpha):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            outs = [(o, g) for o, g in zip(attention_reference(*ins), (dctx, dalpha)) if o.requires_grad]
+            wrt = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in outs], wrt, [g for _, g in outs], allow_unused=True
+            ))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def fused_attention(
+    ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain for hp [B, D]: the kernel for CUDA tensors, the plain
+    version for CPU tensors; through ``FusedAttentionFunction`` when an
+    input requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (ce, f, hp, watt)):
+        return FusedAttentionFunction.apply(ce, f, hp, watt)
+    return _attention_forward(ce, f, hp, watt)
 
 
 def fused_additive_attention(

@@ -9,6 +9,13 @@ Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
 ``lstm_cell`` launches the kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
 and runs ``lstm_cell_reference`` for CPU tensors. On a CUDA tensor it never
 falls back: the launch succeeds or it raises.
+
+Training: when an input requires grad, ``lstm_cell`` goes through
+``LSTMCellFunction``, whose forward is that same kernel (or plain cell) and
+whose backward recomputes the gates from the saved inputs and forms the
+gradients in plain PyTorch. That is the JAX package's own design
+(``_fused_cell_bwd``, an XLA recompute; it has no Pallas backward), not a
+fallback.
 """
 
 from __future__ import annotations
@@ -91,11 +98,69 @@ def lstm_cell_cuda(
     return h_out, c_out
 
 
+def _cell_forward(params: Params, x, h, c):
+    if x.is_cuda:
+        return lstm_cell_cuda(params, x, h, c)
+    return lstm_cell_reference(params, x, h, c)
+
+
+class LSTMCellFunction(torch.autograd.Function):
+    """``(w, b, x, h, c) -> (h', c')`` with the kernel forward (the plain
+    cell on CPU tensors) and the recompute backward of the JAX package's
+    ``_fused_cell_bwd``: the gates from the saved ``(w, b, x, h, c, c')``,
+    then ``dz``, ``dz @ w^T``, ``[x, h]^T @ dz`` and the bias sum. Mixed
+    dtypes promote to fp32 as JAX promotes them (bf16 W against the fp32
+    dz), and the cotangents come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, w, b, x, h, c):
+        h_new, c_new = _cell_forward({"w": w, "b": b}, x, h, c)
+        ctx.save_for_backward(w, b, x, h, c, c_new)
+        return h_new, c_new
+
+    @staticmethod
+    def backward(ctx, dh_new, dc_new):
+        w, b, x, h, c, c_new = ctx.saved_tensors
+        I = x.shape[-1]
+        hx = torch.cat([x, h], dim=-1)
+        z = hx @ w + b
+        zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
+        i = torch.sigmoid(zi)
+        f = torch.sigmoid(zf)
+        g = torch.tanh(zg)
+        o = torch.sigmoid(zo)
+        tc = torch.tanh(c_new)
+        do = dh_new * tc
+        dc = dc_new + dh_new * o * (1.0 - tc * tc)
+        dz = torch.cat(
+            [
+                dc * g * i * (1.0 - i),
+                dc * c * f * (1.0 - f),
+                dc * i * (1.0 - g * g),
+                do * o * (1.0 - o),
+            ],
+            dim=-1,
+        )
+        dc_prev = dc * f
+        dhx = dz @ w.to(dz.dtype).t()
+        dw = hx.to(dz.dtype).t() @ dz
+        db = dz.sum(dim=0)
+        return (
+            dw.to(w.dtype),
+            db.to(b.dtype),
+            dhx[:, :I].to(x.dtype),
+            dhx[:, I:].to(h.dtype),
+            dc_prev.to(c.dtype),
+        )
+
+
 def lstm_cell(
     params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTM step: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if x.is_cuda:
-        return lstm_cell_cuda(params, x, h, c)
-    return lstm_cell_reference(params, x, h, c)
+    for CPU tensors; through ``LSTMCellFunction`` when an input requires
+    grad."""
+    w, b = params["w"], params["b"]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (w, b, x, h, c)):
+        return LSTMCellFunction.apply(w, b, x, h, c)
+    return _cell_forward(params, x, h, c)

@@ -10,6 +10,7 @@ import ast
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +27,10 @@ from show_and_tell_tpu_torch.ops import lstm as tlstm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_and_tell_tpu_torch")
-KERNELS = ("lstm_cell", "additive_attention", "attention_beam")
+KERNELS = (
+    "lstm_cell", "additive_attention", "attention_beam",
+    "attention_beam_grid2", "attention_beam_st", "attention_scores",
+)
 
 # (jax dtype, torch dtype, atol)
 F32 = (jnp.float32, torch.float32, None)
@@ -163,6 +167,16 @@ def test_wrappers_take_plain_path_on_cpu():
     got = tfa.fused_attention(t["ce"], t["f"], hp[:2], t["w_att"])
     want = tfa.attention_reference(t["ce"], t["f"], hp[:2], t["w_att"])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    hp3 = hp.reshape(2, 3, 8)
+    for variant in tfda.VARIANTS:
+        got = tfda.attention_beam(t["ce"], t["f"], hp3, t["w_att"], variant=variant)
+        want = tfda.attention_beam_reference(t["ce"], t["f"], hp3, t["w_att"])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), variant
+    got = tfda.attention_beam_st(t["ce"].transpose(1, 2).contiguous(), t["f"], hp3, t["w_att"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for variant in tfda.SCORE_VARIANTS:
+        assert torch.equal(tfda.attention_scores(t["ce"], hp3, t["w_att"], variant),
+                           tfda.attention_scores_reference(t["ce"], hp3, t["w_att"]))
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
 
 
@@ -173,9 +187,150 @@ def test_kernel_launchers_refuse_cpu_tensors():
         tlstm.lstm_cell_cuda(p, x, h, c)
     _, t = _attn_inputs(2, 3, 5, 8, 16, None, torch.float32)
     hp = torch.zeros(2, 3, 8)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tfa.launch_attention("attention_beam", t["ce"], t["f"], hp, t["w_att"])
+    for name in ("attention_beam", "attention_beam_grid2"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tfa.launch_attention(name, t["ce"], t["f"], hp, t["w_att"])
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
+
+
+# --- the variant names of the beam attention (rows 3-6 of the kernel table) --
+
+BEAM_SHAPE = (8, 3, 13, 64)  # B, K, L, D: the JAX package's own test shape
+
+
+def _beam_inputs(jdt, tdt, seed=5):
+    B, K, L, D = BEAM_SHAPE
+    rng = np.random.default_rng(seed)
+    s = np.sqrt(6.0 / (D + 1))  # the model's w_att init scale
+    arrays = (rng.standard_normal((B, L, D)), rng.standard_normal((B, L, D)),
+              rng.standard_normal((B, K, D)), rng.uniform(-s, s, (D,)))
+    pairs = [_both(a, jdt, tdt) for a in arrays]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def test_variant_names_match_jax():
+    assert tfda.VARIANTS == jfda.VARIANTS
+    assert tfda.SCORE_VARIANTS == jfda.SCORE_VARIANTS
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", jfda.VARIANTS)
+def test_attention_beam_variant_matches_jax_pallas(variant, dt):
+    """Every name of VARIANTS against the JAX Pallas kernel of the same name
+    in interpret mode (fp32), or its s32 form (bf16: the TPU's s16 and st
+    forms round products to bf16, which the port does not reproduce)."""
+    jdt, tdt, atol = dt
+    (jce, jf, jhp, jw), (ce, f, hp, w) = _beam_inputs(jdt, tdt)
+    ctx, alpha = tfda.attention_beam(ce, f, hp, w, variant=variant)
+    assert ctx.shape == BEAM_SHAPE[:2] + BEAM_SHAPE[3:] and ctx.dtype == tdt
+    assert alpha.shape == BEAM_SHAPE[:3] and alpha.dtype == torch.float32
+    jlstm.set_pallas_enabled(True, interpret=True)
+    kctx, kalpha = jfda.attention_beam(
+        jce, jf, jhp, jw, variant=variant if tdt == torch.float32 else "s32_cvpu"
+    )
+    _close(kctx, ctx, atol or 2e-5)
+    _close(kalpha, alpha, atol or 2e-5)
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", jfda.SCORE_VARIANTS)
+def test_attention_scores_and_hybrid_match_jax_pallas(variant, dt):
+    """attention_scores and attention_beam_hybrid for every name of
+    SCORE_VARIANTS against the JAX Pallas score kernel in interpret mode (in
+    bf16 against its s32 form)."""
+    jdt, tdt, atol = dt
+    atol = atol or 2e-5
+    (jce, jf, jhp, jw), (ce, f, hp, w) = _beam_inputs(jdt, tdt, seed=6)
+    e = tfda.attention_scores(ce, hp, w, variant)
+    ctx, alpha = tfda.attention_beam_hybrid(ce, f, hp, w, variant)
+    assert e.shape == BEAM_SHAPE[:3] and e.dtype == torch.float32
+    jlstm.set_pallas_enabled(True, interpret=True)
+    jv = variant if tdt == torch.float32 else "s32"
+    _close(jfda.attention_scores(jce, jhp, jw, variant=jv), e, atol)
+    kctx, kalpha = jfda.attention_beam_hybrid(jce, jf, jhp, jw, variant=jv)
+    _close(kctx, ctx, atol)
+    _close(kalpha, alpha, atol)
+
+
+def test_unknown_variant_raises():
+    _, (ce, f, hp, w) = _beam_inputs(None, torch.float32)
+    with pytest.raises(ValueError, match="unknown variant"):
+        tfda.attention_beam(ce, f, hp, w, variant="s64_cvpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tfda.attention_scores(ce, hp, w, variant="st")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tfda.attention_beam_hybrid(ce, f, hp, w, variant="grid2")
+
+
+# --- the autograd Functions that training runs -------------------------------
+
+
+def _torch_leaves(*arrays):
+    return [torch.from_numpy(np.array(a, np.float32)).requires_grad_() for a in arrays]
+
+
+def cell_function_grads(B, I, H=128):
+    """(jax.grad through _fused_cell, LSTMCellFunction's grads) of one
+    weighted sum of (h', c'), inputs (w, b, x, h, c)."""
+    (jp, jx, jh, jc), _ = _cell_inputs(B, I, H, jnp.float32, torch.float32, seed=3)
+    rng = np.random.default_rng(4)
+    rh, rc = rng.standard_normal((B, H)), rng.standard_normal((B, H))
+    jlstm.set_pallas_enabled(True, interpret=True)
+
+    def jloss(w, b, x, h, c):
+        hn, cn = jlstm._fused_cell(w, b, x, h, c)
+        return jnp.sum(hn * rh) + jnp.sum(cn * rc)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(jp["w"], jp["b"], jx, jh, jc)
+    jlstm.set_pallas_enabled(None)
+    leaves = _torch_leaves(jp["w"], jp["b"], jx, jh, jc)
+    w, b, x, h, c = leaves
+    hn, cn = tlstm.lstm_cell({"w": w, "b": b}, x, h, c)
+    assert type(hn.grad_fn).__name__.startswith("LSTMCellFunction")
+    ((hn * torch.from_numpy(rh).float()).sum() + (cn * torch.from_numpy(rc).float()).sum()).backward()
+    return want, [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("B,I", [(5, 40), (3, 17)])
+def test_cell_function_grads_match_jax(B, I):
+    """LSTMCellFunction's input gradients against jax.grad through
+    _fused_cell (the Pallas forward in interpret mode, the XLA recompute
+    backward)."""
+    for jg, tg in zip(*cell_function_grads(B, I)):
+        _close(jg, tg, 1e-5)
+
+
+def attention_function_grads():
+    """(jax.grad through _fused, FusedAttentionFunction's grads through
+    fused_attention) of one weighted sum of (ctx, alpha), inputs
+    (ce, f, hp, w_att)."""
+    B, L, D, H = 6, 13, 64, 24
+    j, _ = _attn_inputs(B, 1, L, D, H, jnp.float32, torch.float32, seed=7)
+    rng = np.random.default_rng(8)
+    rctx, ralpha = rng.standard_normal((B, D)), rng.standard_normal((B, L))
+    jlstm.set_pallas_enabled(True, interpret=True)
+
+    def jloss(ce, f, hp, watt):
+        ctx, alpha = jfa._fused(ce, f, hp, watt)
+        return jnp.sum(ctx * rctx) + jnp.sum(alpha * ralpha)
+
+    jhp = j["hidden"] @ j["w_hh"] + j["b_hh"]
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(j["ce"], j["f"], jhp, j["w_att"])
+    jlstm.set_pallas_enabled(None)
+    leaves = _torch_leaves(j["ce"], j["f"], jhp, j["w_att"])
+    ctx, alpha = tfa.fused_attention(*leaves)
+    assert type(ctx.grad_fn).__name__.startswith("FusedAttentionFunction")
+    loss = (ctx * torch.from_numpy(rctx).float()).sum() + (alpha * torch.from_numpy(ralpha).float()).sum()
+    loss.backward()
+    return want, [t.grad for t in leaves]
+
+
+def test_attention_function_grads_match_jax():
+    """FusedAttentionFunction's input gradients, through fused_attention,
+    against jax.grad through _fused (the Pallas forward in interpret mode,
+    the XLA recompute backward)."""
+    for jg, tg in zip(*attention_function_grads()):
+        _close(jg, tg, 1e-5)
 
 
 def test_cuda_sources_export_the_bound_symbols():

@@ -5,8 +5,13 @@
 Prints the max abs diff per output for the cases that the port's tests hold
 to a tolerance (``tests/test_torch_port_*.py``), from the same inputs: the
 port's plain versions against the JAX references and the JAX Pallas kernels
-in interpret mode, the trunk, the decode step, decoded ids and captions.
-Not a test module: it reports the numbers that the tests only bound.
+in interpret mode, the trunk, the decode step, decoded ids and captions,
+the training forward, the autograd Functions' gradients and the train
+step. Not a test module: it reports the numbers that the tests only bound.
+
+It also holds ``to_jax_params``, the inverse of the port's
+``ckpt.convert.from_jax_params``, which the training tests use to compare
+the port's parameters and optimizer moments with the JAX package's trees.
 """
 
 import os
@@ -32,6 +37,22 @@ from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda  # noqa: 
 from show_and_tell_tpu_torch.ops import lstm as tlstm  # noqa: E402
 
 DT = {"f32": to.F32, "bf16": to.BF16}
+
+
+def to_jax_params(sd):
+    """A port state dict (or any dict keyed by its parameter names, such as
+    the Adam moments) -> the JAX package's ``(trainable, frozen)`` trees as
+    numpy arrays; ``frozen`` is None without encoder weights."""
+    a = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+    trainable = {"att": {k: a[f"att.{k}"] for k in ("w_img", "w_hh", "b_hh", "w_att")}, "embed": a["embed"]}
+    for name in ("init_h", "init_c", "lstm", "c2o", "h2o", "classifier"):
+        trainable[name] = {"w": a[f"{name}.w"], "b": a[f"{name}.b"]}
+    n = len([k for k in a if k.startswith("encoder.convs.") and k.endswith(".w")])
+    frozen = None
+    if n:
+        frozen = {"convs": [{"w": a[f"encoder.convs.{i}.w"].transpose(2, 3, 1, 0),
+                             "b": a[f"encoder.convs.{i}.b"]} for i in range(n)]}
+    return trainable, frozen
 
 
 def _d(j, t) -> float:
@@ -111,11 +132,83 @@ def model():
         scores=float(np.abs(scores[0] - scores[1]).max()))
 
 
+def variants():
+    B, K, L, D = to.BEAM_SHAPE
+    for dn, (jdt, tdt, _) in DT.items():
+        (jce, jf, jhp, jw), (ce, f, hp, w) = to._beam_inputs(jdt, tdt)
+        jlstm.set_pallas_enabled(True, interpret=True)
+        for v in jfda.VARIANTS:
+            ctx, alpha = tfda.attention_beam(ce, f, hp, w, variant=v)
+            jv = v if dn == "f32" else "s32_cvpu"
+            kc, ka = jfda.attention_beam(jce, jf, jhp, jw, variant=jv)
+            row(f"attention_beam {v} B={B} K={K} L={L} D={D} {dn} vs Pallas {jv}",
+                ctx=_d(kc, ctx), alpha=_d(ka, alpha))
+        (jce, jf, jhp, jw), (ce, f, hp, w) = to._beam_inputs(jdt, tdt, seed=6)
+        for v in jfda.SCORE_VARIANTS:
+            jv = v if dn == "f32" else "s32"
+            e = tfda.attention_scores(ce, hp, w, v)
+            ctx, alpha = tfda.attention_beam_hybrid(ce, f, hp, w, v)
+            kc, ka = jfda.attention_beam_hybrid(jce, jf, jhp, jw, variant=jv)
+            row(f"attention_scores/hybrid {v} {dn} vs Pallas {jv}",
+                e=_d(jfda.attention_scores(jce, jhp, jw, variant=jv), e), ctx=_d(kc, ctx), alpha=_d(ka, alpha))
+        jlstm.set_pallas_enabled(None)
+
+
+def functions():
+    for B, I in ((5, 40), (3, 17)):
+        want, got = to.cell_function_grads(B, I)
+        row(f"LSTMCellFunction grads B={B} I={I} H=128 vs jax.grad _fused_cell",
+            **{n: _d(jg, tg) for n, jg, tg in zip(("w", "b", "x", "h", "c"), want, got)})
+    want, got = to.attention_function_grads()
+    row("FusedAttentionFunction grads B=6 L=13 D=64 vs jax.grad _fused",
+        **{n: _d(jg, tg) for n, jg, tg in zip(("ce", "f", "hp", "w_att"), want, got)})
+
+
+def training():
+    import test_torch_port_train as tt
+
+    _, jm, trainable, _, _, tmod = tm._pair()
+    jb, tb = tt._batch()
+    want = jm.decode_train(trainable, jb["features"], jb["captions"], jb["lengths"])
+    got = tmod.decode_train(tb["features"], tb["captions"], tb["lengths"])
+    row("decode_train fast path fp32", logits=_d(want[0], got[0].detach()), alphas=_d(want[2], got[2].detach()))
+    jb, tb = tt._batch(seed=1)
+    for ss in (0.0, 1.0):
+        want = jm.decode_train(trainable, jb["features"], jb["captions"], jb["lengths"],
+                               ss_prob=jnp.asarray(ss, jnp.float32))
+        got = tmod.decode_train(tb["features"], tb["captions"], tb["lengths"], ss_prob=torch.tensor(ss))
+        row(f"decode_train general path ss_prob={ss} fp32",
+            logits=_d(want[0], got[0].detach()), alphas=_d(want[2], got[2].detach()))
+    for case in tt.CASES:
+        jstate, state, metrics = tt.train_both(case)
+        diffs = jax.tree.leaves(jax.tree.map(
+            lambda w, g: float(np.abs(np.asarray(w) - g).max()),
+            jstate.params, to_jax_params(state.params)[0]))
+        adam = tt._adam_state(jstate.opt_state)
+        mu = jax.tree.leaves(jax.tree.map(lambda w, g: float(np.abs(np.asarray(w) - g).max()),
+                                          adam.mu, to_jax_params(state.opt_state["mu"])[0]))
+        nu = jax.tree.leaves(jax.tree.map(lambda w, g: float(np.abs(np.asarray(w) - g).max()),
+                                          adam.nu, to_jax_params(state.opt_state["nu"])[0]))
+        loss = max(abs(float(jm_["loss"]) - float(m["loss"])) for jm_, m in metrics if np.isfinite(float(m["loss"])))
+        row(f"3 train steps lr {tt.LR} [{case}]", params=max(diffs), mu=max(mu), nu=max(nu), loss=loss)
+    imgs = np.random.default_rng(7).integers(0, 256, (2, 40, 36, 3), dtype=np.uint8)
+    from show_and_tell_tpu.data import transforms as jtransforms
+    from show_and_tell_tpu_torch.data import transforms
+
+    for size in (16, 64):
+        row(f"resize_bilinear 40x36 -> {size} (values 0..255)",
+            out=_d(jtransforms.resize_bilinear(jnp.asarray(imgs), size),
+                   transforms.resize_bilinear(torch.from_numpy(imgs), size)))
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
     attention()
+    variants()
+    functions()
     model()
+    training()
 
 
 if __name__ == "__main__":
