@@ -11,7 +11,10 @@ Phases, each printing its own lines:
 2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``,
    one ``nvcc`` per source, all started together;
 3. each of the six kernels against its plain PyTorch version on the card, at
-   the serving shapes and at unaligned ones, in fp32 and bf16: every output
+   the serving shapes and at unaligned and ragged ones (the cell: B=300,
+   I=H=1000, B=1; the beam attention: K=2, 4 and 8, L=1, B=1), in fp32 and
+   bf16, each line naming the design that ran (the cell's ``wgmma`` or
+   ``tiled`` kernel, the beam attention's cluster size and loads): every output
    within an absolute tolerance and, relative to the output's own scale (max
    |diff| / max |plain|), within a relative one, so that small outputs such
    as the context (a mean over L) are held as tightly as large ones; every
@@ -25,12 +28,14 @@ Phases, each printing its own lines:
    queued the whole call before it starts: device time, not the host's
    launch pace; median), beside its bound, the plain version's time (also
    printed host-paced, without the head start) and, for the cell,
-   ``torch.lstm_cell``'s as a yardstick; the ce transpose that the ``st_*``
-   variants pay per call is timed apart;
+   ``torch.lstm_cell``'s as a yardstick, with the design that ran; the ce
+   transpose that the ``st_*`` variants pay per call is timed apart;
 5. serving: ``Captioner`` at the model's full width (VGG16 at 224 px,
    E=512, H=1024, V=10000, random weights from a seed, bf16) captions 256
    uint8 images by beam-3 and by greedy decoding; the kernel launch counts
-   are reset before and read after each mode; the time splits into trunk
+   are reset before and read after each mode, and each batch must have
+   launched the cell's ``wgmma`` design and its attention kernel once per
+   step (20 each); the time splits into trunk
    and decode, and one decode per mode is traced with torch.profiler
    (device busy share, top kernels); the decode step's logits through the
    kernels are held against the plain path (the same weights on the CPU,
@@ -46,8 +51,9 @@ Phases, each printing its own lines:
    T=20, uint8 images with synthetic captions from the seed): warm steps,
    then timed steps on one fixed batch (img/s), the split into trunk,
    forward, backward and optimizer, one traced step (device busy share, top
-   kernels), the launches per step (19 of the cell and of the per-row
-   attention), the loss finite and falling, and one fp32 step whose
+   kernels), the launches per step (19 of the cell, all by its ``wgmma``
+   design, and 19 of the per-row attention), the loss finite and falling,
+   and one fp32 step whose
    gradients through the kernels are held against the plain path's on the
    card.
 
@@ -107,7 +113,7 @@ _BEAM_CU = "show_and_tell_tpu_torch/csrc/beam_attention.cu"
 SOURCES = {
     "lstm_cell": "show_and_tell_tpu_torch/csrc/lstm_cell.cu",
     "additive_attention": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
-    "attention_beam": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
+    "attention_beam": "show_and_tell_tpu_torch/csrc/decode_attention.cu",
     "attention_beam_grid2": _BEAM_CU,
     "attention_beam_st": _BEAM_CU,
     "attention_scores": _BEAM_CU,
@@ -280,7 +286,15 @@ def phase_build():
               f"spill stores at most {max(spills)} bytes (ptxas -v)")
 
 
+def _design(name: str) -> str:
+    """The designs of kernel ``name`` launched since the counts were cleared."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    return ",".join(cuda_lib.designs(name)) or "-"
+
+
 def phase_check():
+    from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.ops import fused_attention as fa
     from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
     from show_and_tell_tpu_torch.ops import lstm
@@ -289,7 +303,7 @@ def phase_check():
     errs = {}  # name -> max abs err at the serving shape in bf16
     failures = []
 
-    def report(name, shape, dtype, pairs, tol, serving):
+    def report(name, shape, dtype, pairs, tol, serving, design=""):
         """pairs: output name -> (kernel's output, plain version's)."""
         diffs = {k: _diffs(out, ref) for k, (out, ref) in pairs.items()}
         worst = max(d for d, _ in diffs.values())
@@ -298,7 +312,7 @@ def phase_check():
         ok = worst <= tol and worst_rel <= rtol
         dname = str(dtype).replace("torch.", "")
         parts = " ".join(f"{k}={d:.3e} (rel {r:.2e})" for k, (d, r) in diffs.items())
-        print(f"  {name:19s} {shape:26s} {dname:8s} max|diff| {parts}  tol {tol:g} rel {rtol:g}  "
+        print(f"  {name:19s} {shape:26s} {dname:8s} {design:15s} max|diff| {parts}  tol {tol:g} rel {rtol:g}  "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {shape} {dname}")
@@ -306,33 +320,48 @@ def phase_check():
             errs[name] = max(errs.get(name, 0.0), worst)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # the last three: ragged H, I+H not a multiple of the k-tile, and
-        # I not a multiple of the vector width (element-wise loads)
+        # then: ragged B, ragged H and k-tiles on the TMA path, one row; ragged
+        # H, I+H not a multiple of the k-tile, and I not a multiple of the
+        # vector width (element-wise loads)
         for B, I, H, serving in ((768, 1024, 1024, True), (256, 1024, 1024, True),
-                                 (13, 40, 24, False), (9, 48, 40, False), (5, 17, 20, False)):
+                                 (300, 1024, 1024, False), (64, 1000, 1000, False),
+                                 (1, 1024, 1024, False), (13, 40, 24, False), (9, 48, 40, False),
+                                 (5, 17, 20, False)):
             p, x, h, c = cell_inputs(B, I, H, dtype, SEED)
+            cuda_lib.LAUNCHES.clear()
             hk, ck = lstm.lstm_cell_cuda(p, x, h, c)
+            design = _design("lstm_cell")
             hr, cr = lstm.lstm_cell_reference(p, x, h, c)
             assert hk.dtype == dtype and ck.dtype == torch.float32
             report("lstm_cell", f"B={B} I={I} H={H}", dtype,
-                   {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving)
+                   {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving, design)
+        # the beam attention: K = 2..8, one patch row, one image, rows longer
+        # than one pass of registers (D=1024), L=13, D=36
         for name, B, K, L, D, serving in (
             ("additive_attention", 256, 1, 196, 512, True),
             ("additive_attention", 7, 1, 13, 40, False),
             ("attention_beam", 256, 3, 196, 512, True),
+            ("attention_beam", 256, 2, 196, 512, False),
+            ("attention_beam", 256, 4, 196, 512, False),
+            ("attention_beam", 256, 8, 196, 512, False),
+            ("attention_beam", 256, 3, 1, 512, False),
+            ("attention_beam", 1, 3, 196, 512, False),
+            ("attention_beam", 16, 3, 49, 1024, False),
             ("attention_beam", 256, 3, 13, 512, False),
             ("attention_beam", 5, 3, 13, 36, False),
         ):
             ce, f, hp, watt = attention_inputs(B, K, L, D, dtype, SEED + 1)
+            cuda_lib.LAUNCHES.clear()
             if K == 1:
                 ck, ak = fa.fused_attention(ce, f, hp[:, 0], watt)
                 cr, ar = fa.attention_reference(ce, f, hp[:, 0], watt)
             else:
                 ck, ak = fda.attention_beam(ce, f, hp, watt)
                 cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
+            design = _design(name)
             assert ck.dtype == dtype and ak.dtype == torch.float32
             report(name, f"B={B} K={K} L={L} D={D}", dtype,
-                   {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], serving)
+                   {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], serving, design)
         # rows 4-6, through the public API by variant name; the scores are
         # held like alpha, and the hybrid's plain softmax and context beside
         for B, K, L, D, serving in ((256, 3, 196, 512, True), (256, 3, 13, 512, False),
@@ -422,6 +451,7 @@ def check_functions():
 
 
 def phase_times():
+    from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.ops import fused_attention as fa
     from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
     from show_and_tell_tpu_torch.ops import lstm
@@ -431,13 +461,19 @@ def phase_times():
     dt = torch.bfloat16
     rows = {}
 
-    def show(name, shape, kernel_ms, plain, bound, library_ms):
+    def show(name, shape, kernel, plain, bound, library=None):
+        """Times ``kernel``, ``plain`` and ``library`` (callables) and prints
+        them with the design that the kernel's launches took."""
         bound_ms, bound_by = bound
+        cuda_lib.LAUNCHES.clear()
+        kernel_ms = time_cold(kernel)
+        design = _design(name)
         plain_ms = time_cold(plain)
         host_paced_ms = time_cold(plain, head_start=False)
+        library_ms = time_cold(library) if library is not None else None
         lib = f"{library_ms:.4f}" if library_ms is not None else "null"
         print(
-            f"  {name:19s} {shape:24s} kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} "
+            f"  {name:19s} {shape:24s} {design:15s} kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} "
             f"({bound_by}, {bound_ms / kernel_ms:.1%} of it)  plain_ms {plain_ms:.4f} "
             f"(host-paced {host_paced_ms:.4f})  library_ms {lib}"
         )
@@ -454,10 +490,10 @@ def phase_times():
         c_lib = c.to(dt)
         row = show(
             "lstm_cell", f"B={B} I={I} H={H}",
-            time_cold(lambda: lstm.lstm_cell_cuda(p, x, h, c)),
+            lambda: lstm.lstm_cell_cuda(p, x, h, c),
             lambda: lstm.lstm_cell_reference(p, x, h, c),
             cell_bound(B, I, H, dt),
-            time_cold(lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh)),
+            lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh),
         )
         if B == 768:  # the beam-3 serving batch, 256 images x 3 beams
             rows["lstm_cell"] = row
@@ -466,23 +502,23 @@ def phase_times():
     hp1 = hp[:, 0].contiguous()
     rows["additive_attention"] = show(
         "additive_attention", f"B={B} K=1 L={L} D={D}",
-        time_cold(lambda: fa.fused_attention(ce, f, hp1, watt)),
+        lambda: fa.fused_attention(ce, f, hp1, watt),
         lambda: fa.attention_reference(ce, f, hp1, watt),
-        attention_bound(B, 1, L, D, dt), None,
+        attention_bound(B, 1, L, D, dt),
     )
     ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
     shape = f"B={B} K=3 L={L} D={D}"
     rows["attention_beam"] = show(
         "attention_beam", shape,
-        time_cold(lambda: fda.attention_beam(ce, f, hp, watt)),
+        lambda: fda.attention_beam(ce, f, hp, watt),
         lambda: fda.attention_beam_reference(ce, f, hp, watt),
-        attention_bound(B, 3, L, D, dt), None,
+        attention_bound(B, 3, L, D, dt),
     )
     rows["attention_beam_grid2"] = show(
         "attention_beam_grid2", shape,
-        time_cold(lambda: fda.attention_beam(ce, f, hp, watt, variant="grid2")),
+        lambda: fda.attention_beam(ce, f, hp, watt, variant="grid2"),
         lambda: fda.attention_beam_reference(ce, f, hp, watt),
-        attention_bound(B, 3, L, D, dt), None,
+        attention_bound(B, 3, L, D, dt),
     )
     # the kernel on a ce^T made beforehand: a decode transposes the
     # step-invariant ce once; attention_beam(variant="st_*") pays the
@@ -490,9 +526,9 @@ def phase_times():
     cet = ce.transpose(1, 2).contiguous()
     rows["attention_beam_st"] = show(
         "attention_beam_st", shape,
-        time_cold(lambda: fda.attention_beam_st(cet, f, hp, watt)),
+        lambda: fda.attention_beam_st(cet, f, hp, watt),
         lambda: fda.attention_beam_st_reference(cet, f, hp, watt),
-        attention_bound(B, 3, L, D, dt), None,
+        attention_bound(B, 3, L, D, dt),
     )
     t_ms = time_cold(lambda: ce.transpose(1, 2).contiguous())
     t_bound = 2 * ce.numel() * ce.element_size() / PEAK_BYTES_PER_S * 1e3
@@ -500,9 +536,9 @@ def phase_times():
           f"(bytes): paid per call by attention_beam(variant='st_*')")
     rows["attention_scores"] = show(
         "attention_scores", shape,
-        time_cold(lambda: fda.attention_scores(ce, hp, watt, "s16")),
+        lambda: fda.attention_scores(ce, hp, watt, "s16"),
         lambda: fda.attention_scores_reference(ce, hp, watt),
-        scores_bound(B, 3, L, D, dt), None,
+        scores_bound(B, 3, L, D, dt),
     )
     return rows
 
@@ -552,6 +588,16 @@ def phase_end_to_end():
         assert len(caps) == N and all(isinstance(s, str) for s in caps)
         missing = [k for k in kernels if counts[k] == 0]
         assert not missing, f"{mode}: kernels of the path never launched: {missing}"
+        # random weights never emit <end>: every batch runs every step, one
+        # launch of each kernel per step, the cell by its Hopper design
+        per_batch = {k: counts[k] / REPS for k in kernels}
+        designs = {k: cuda_lib.designs(k) for k in kernels}
+        print(f"  {mode:6s} launches per batch {per_batch}, designs {designs}")
+        assert all(n == cfg.max_decode_len for n in per_batch.values()), \
+            f"{mode}: launches per batch {per_batch}, expected {cfg.max_decode_len} each"
+        assert designs["lstm_cell"] == {"wgmma": REPS * cfg.max_decode_len}, designs
+        if mode == "beam":  # the cluster kernel with f by bulk copy
+            assert all(d.endswith("-f_bulk") for d in designs["attention_beam"]), designs
 
     # where the time goes: trunk vs decode, host clock around synchronised work
     with torch.inference_mode():
@@ -659,6 +705,7 @@ def phase_beam_routes(model, cfg, images):
             logits, _ = chain(route, ref_tokens)
             torch.cuda.synchronize()
             n, n_cell = cuda_lib.LAUNCHES[kernel], cuda_lib.LAUNCHES["lstm_cell"]
+            assert cuda_lib.designs("lstm_cell") == {"wgmma": STEPS}, cuda_lib.designs("lstm_cell")
             worst = max(_diffs(a, b)[1] for a, b in zip(logits, ref_logits))
             del logits
             secs = []
@@ -769,8 +816,10 @@ def phase_training(images):
     one_step()
     torch.cuda.synchronize()
     counts = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention")}
-    print(f"  launches per step: {counts} (T-1 = {T - 1} each)")
+    cell_designs = cuda_lib.designs("lstm_cell")
+    print(f"  launches per step: {counts} (T-1 = {T - 1} each), cell designs {cell_designs}")
     assert all(n == T - 1 for n in counts.values()), f"training launches {counts}, expected {T - 1} each"
+    assert cell_designs == {"wgmma": T - 1}, f"training cell designs {cell_designs}"
     profile_window(one_step, "train step")
 
     losses = [float(x) for x in losses]

@@ -1,11 +1,10 @@
-// Additive (Bahdanau) attention over an image's patch grid, for K rows that
-// share the image, on Hopper (sm_90a).
+// Additive (Bahdanau) attention over an image's patch grid, one row per
+// image (K = 1), on Hopper (sm_90a).
 //
-// Replaces two TPU kernels that compute one function:
-//   - show_and_tell_tpu/ops/fused_attention.py `_attn_kernel` (K = 1, one row
-//     per image: greedy decoding);
-//   - show_and_tell_tpu/ops/fused_decode_attention.py `_kernel` with
-//     `_cmxu_context` (K beams per image: beam search).
+// Replaces: show_and_tell_tpu/ops/fused_attention.py `_attn_kernel` (greedy
+// decoding, and the forward of training's attention). The beam-shared form
+// (K beams per image) is csrc/decode_attention.cu's; the kernel below is
+// written for any K, and only its K = 1 instance is built.
 //
 // For image b and beam k:
 //     e[k, l]   = sum_d tanh(ce[b, l, d] + hp[b, k, d]) * w_att[d]   (fp32)
@@ -41,7 +40,6 @@
 namespace {
 
 constexpr int NT = 256;   // threads per block (8 warps)
-constexpr int KMAX = 8;   // largest K (beam width) instantiated
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -182,21 +180,11 @@ cudaError_t launch_k(const void* ce, const void* f, const void* hp, const void* 
 template <typename T, int VEC>
 cudaError_t launch(const void* ce, const void* f, const void* hp, const void* watt, void* ctx,
                    float* alpha, int B, int K, int L, int D, cudaStream_t s) {
-  switch (K) {
-#define SAT_CASE(KK) \
-  case KK:           \
-    return launch_k<T, KK, VEC>(ce, f, hp, watt, ctx, alpha, B, L, D, s);
-    SAT_CASE(1) SAT_CASE(2) SAT_CASE(3) SAT_CASE(4)
-    SAT_CASE(5) SAT_CASE(6) SAT_CASE(7) SAT_CASE(8)
-#undef SAT_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (K != 1) return cudaErrorInvalidValue;
+  return launch_k<T, 1, VEC>(ce, f, hp, watt, ctx, alpha, B, L, D, s);
 }
 
 }  // namespace
-
-extern "C" int sat_attention_kmax() { return KMAX; }
 
 // dtype: 0 = float32, 1 = bfloat16. vec: 1 when D is a multiple of the
 // 16-byte vector width and ce is 16-byte aligned. Returns a cudaError_t.
@@ -204,7 +192,7 @@ extern "C" int sat_additive_attention(const void* ce, const void* f, const void*
                                       const void* watt, void* ctx, float* alpha, int B, int K,
                                       int L, int D, int dtype, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || D <= 0 || K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || D <= 0 || K != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     return (int)(vec ? launch<float, 4>(ce, f, hp, watt, ctx, alpha, B, K, L, D, s)
                      : launch<float, 1>(ce, f, hp, watt, ctx, alpha, B, K, L, D, s));

@@ -12,7 +12,9 @@ port, and the CPU host has no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one right
 after its kernel launched, and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels. A kernel with more than one design also counts the
+launch under ``"<name>/<design>"`` (``count``), so a run can show which
+design its shapes took (``designs``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_cell.cu", "additive_attention.cu", "beam_attention.cu")
+SOURCES = ("lstm_cell.cu", "additive_attention.cu", "beam_attention.cu", "decode_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,15 +47,19 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lstm_cell.cu": {
         "sat_lstm_cell": (_vp,) * 7 + (_i,) * 5 + (_vp,),
+        "sat_lstm_cell_sm90": (_vp,) * 7 + (_i,) * 4 + (_vp,),
     },
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),
-        "sat_attention_kmax": (),
     },
     "beam_attention.cu": {
         "sat_attention_scores": (_vp,) * 4 + (_i,) * 6 + (_vp,),
         "sat_attention_beam_st": (_vp,) * 6 + (_i,) * 5 + (_vp,),
         "sat_attention_beam_grid2": (_vp,) * 6 + (_i,) * 6 + (_vp,),
+    },
+    "decode_attention.cu": {
+        "sat_decode_attention": (_vp,) * 6 + (_i,) * 7 + (_vp,),
+        "sat_attention_kmax": (),
     },
 }
 
@@ -135,6 +141,18 @@ def library(src: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[src] = lib
         return _libs[src]
+
+
+def count(name: str, design: str) -> None:
+    """One launch of kernel ``name`` by ``design``."""
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}/{design}"] += 1
+
+
+def designs(name: str) -> Dict[str, int]:
+    """Launches of kernel ``name`` by design since ``LAUNCHES`` was cleared."""
+    prefix = name + "/"
+    return {k[len(prefix):]: n for k, n in LAUNCHES.items() if k.startswith(prefix) and n}
 
 
 def check(err: int, what: str) -> None:

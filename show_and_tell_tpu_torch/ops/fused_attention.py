@@ -29,10 +29,10 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 Params = Dict[str, torch.Tensor]
 
 # launch-count name -> (source, C entry point). Both entry points take
-# (ce, f, hp, watt, ctx, alpha, B, K, L, D, dtype, vec, stream).
+# (ce, f, hp, watt, ctx, alpha, B, K, L, D, dtype, vec, stream); the
+# beam-shared kernel has its own wrapper (``fused_decode_attention``).
 _ENTRIES = {
     "additive_attention": ("additive_attention.cu", "sat_additive_attention"),
-    "attention_beam": ("additive_attention.cu", "sat_additive_attention"),
     "attention_beam_grid2": ("beam_attention.cu", "sat_attention_beam_grid2"),
 }
 
@@ -71,7 +71,7 @@ def attention_shapes(
     if not (ce.dtype == f.dtype == hp.dtype == watt.dtype):
         raise TypeError(f"{name}: ce, f, hp, watt dtypes differ")
     cuda_lib.dtype_code(ce)
-    kmax = cuda_lib.library("additive_attention.cu").sat_attention_kmax()
+    kmax = cuda_lib.library("decode_attention.cu").sat_attention_kmax()
     if not 1 <= K <= kmax:
         raise ValueError(f"{name}: K={K} rows per image, the kernels take 1..{kmax}")
     return B, K, L, D

@@ -14,8 +14,8 @@ The names are the JAX package's (``VARIANTS``, ``SCORE_VARIANTS``); each
 runs one of four kernels:
 
 - every ``s*_c*`` name (the default ``s16_cmxu``): the fused kernel of
-  ``csrc/additive_attention.cu``, one block per image, ce and f read once
-  for all K beams;
+  ``csrc/decode_attention.cu``, a cluster of ``beam_plan`` blocks per
+  image, ce and f read once for all K beams;
 - ``grid2``: ``csrc/beam_attention.cu``, one block per (image, beam);
 - ``st_cmxu``, ``st_cvpu``: ``csrc/beam_attention.cu`` on ce transposed to
   [B, D, L], transposed once per call by the wrapper (a caller that decodes
@@ -47,6 +47,40 @@ VARIANTS = (
     "grid2", "st_cmxu", "st_cvpu",
 )
 SCORE_VARIANTS = ("s32", "s16", "smxu")
+
+# csrc/decode_attention.cu: a block's dynamic shared memory on Hopper, its
+# barrier area, the largest cluster, the patch rows that call for one more
+# block per image, and how a block gets its ce and f rows (``Mode`` there)
+SMEM_LIMIT = 227 * 1024
+_BAR_BYTES = 128
+_CLUSTER_MAX = 8
+_ROWS_PER_BLOCK = 64
+BEAM_MODES = ("direct", "f_bulk")
+
+
+def beam_smem_bytes(K: int, L: int, D: int, C: int, itemsize: int, mode: str) -> int:
+    """Shared memory of one block of the beam kernel, C blocks per image;
+    the layout of ``smem_bytes`` in ``csrc/decode_attention.cu``."""
+    Lc = -(-L // C)
+    rows = Lc * D * itemsize if mode == "f_bulk" else 0  # f
+    return _BAR_BYTES + rows + 4 * (K * D + D + K * Lc + 2 * K)
+
+
+def beam_plan(K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[int, str]:
+    """(C, mode) for the beam kernel: C blocks per image in a cluster, each
+    holding ceil(L / C) patch rows, and how a block gets its rows. C is
+    ceil(L / 64), 1 to 4 (4 at L=196), doubled up to 8 while a block's f
+    rows overflow shared memory. f arrives by bulk copy into shared memory
+    and ce, hp and w_att in 16-byte vectors (``f_bulk``) when rows are
+    16-byte multiples, the operands are ``aligned`` and the share fits;
+    otherwise the kernel reads them element by element (``direct``)."""
+    C = min(4, max(1, -(-L // _ROWS_PER_BLOCK)))
+    if not aligned or (D * itemsize) % 16:
+        return C, "direct"
+    while C < _CLUSTER_MAX and beam_smem_bytes(K, L, D, C, itemsize, "f_bulk") > SMEM_LIMIT:
+        C *= 2
+    fits = beam_smem_bytes(K, L, D, C, itemsize, "f_bulk") <= SMEM_LIMIT
+    return C, "f_bulk" if fits else "direct"
 
 
 def attention_beam_reference(
@@ -106,6 +140,29 @@ def attention_beam_st(
     return ctx, alpha
 
 
+def attention_beam_cluster(
+    ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the cluster kernel of ``csrc/decode_attention.cu`` on CUDA
+    tensors and count it under ``attention_beam``, by design
+    ``cluster<C>-<mode>``."""
+    name = "attention_beam"
+    B, K, L, D = attention_shapes(name, ce, f, hp, watt)
+    ctx = torch.empty((B, K, D), dtype=ce.dtype, device=ce.device)
+    alpha = torch.empty((B, K, L), dtype=torch.float32, device=ce.device)
+    if B == 0 or L == 0:
+        return ctx, alpha
+    C, mode = beam_plan(K, L, D, ce.element_size(), cuda_lib.vectorizable((D,), ce, f, hp, watt))
+    err = cuda_lib.library("decode_attention.cu").sat_decode_attention(
+        cuda_lib.ptr(ce), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
+        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, cuda_lib.dtype_code(ce), C, BEAM_MODES.index(mode),
+        cuda_lib.stream(ce.device),
+    )
+    cuda_lib.check(err, name)
+    cuda_lib.count(name, f"cluster{C}-{mode}")
+    return ctx, alpha
+
+
 def attention_beam(
     ce: torch.Tensor,  # [B, L, D] per-image encoded context
     f: torch.Tensor,  # [B, L, D] per-image features
@@ -122,7 +179,7 @@ def attention_beam(
         return launch_attention("attention_beam_grid2", ce, f, hp, watt)
     if variant.startswith("st_"):
         return attention_beam_st(ce.transpose(1, 2).contiguous(), f, hp, watt)
-    return launch_attention("attention_beam", ce, f, hp, watt)
+    return attention_beam_cluster(ce, f, hp, watt)
 
 
 def attention_scores(

@@ -6,9 +6,12 @@ Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
     i, f, o = sigmoid(z_i, z_f, z_o);  g = tanh(z_g)
     c' = f*c + i*g;  h' = o*tanh(c')
 
-``lstm_cell`` launches the kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
-and runs ``lstm_cell_reference`` for CPU tensors. On a CUDA tensor it never
-falls back: the launch succeeds or it raises.
+``lstm_cell`` launches a kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
+and runs ``lstm_cell_reference`` for CPU tensors. ``cell_design`` picks the
+kernel from the shape, the type and the alignment before the launch: the
+Hopper design (``wgmma`` fed by TMA) for bf16 shapes that TMA can take, the
+shared-memory tiled GEMM for the rest. On a CUDA tensor it never falls back:
+the launch succeeds or it raises.
 
 Training: when an input requires grad, ``lstm_cell`` goes through
 ``LSTMCellFunction``, whose forward is that same kernel (or plain cell) and
@@ -20,6 +23,7 @@ fallback.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -28,6 +32,38 @@ import torch
 from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
+
+CELL_DESIGNS = ("wgmma", "tiled")
+H100_SMS = 132
+_WGMMA_BM = (64, 128, 192)  # batch rows per block: one to three consumer warpgroups
+_WGMMA_BN = 32  # hidden columns per gate per block
+
+
+def cell_design(
+    B: int, I: int, H: int, dtype: torch.dtype, aligned: bool, sms: int = H100_SMS
+) -> Tuple[str, int]:
+    """Which kernel of ``csrc/lstm_cell.cu`` runs a cell of this shape, and its
+    batch rows per block: ``("wgmma", BM)`` for bf16 with I and H multiples of
+    8 and 16-byte aligned operands (what TMA takes), else ``("tiled", 64)``.
+
+    BM is the one of 64, 128 and 192 whose blocks fill ``sms`` SMs in the
+    fewest rows of work per SM (waves x BM), the larger on a tie: the larger
+    the tile, the fewer times W is read. B=768: 192 (128 blocks, one wave);
+    B=256: 64 (128 blocks)."""
+    if dtype != torch.bfloat16 or I <= 0 or I % 8 or H % 8 or not aligned:
+        return "tiled", 64
+    n_tiles = -(-H // _WGMMA_BN)
+
+    def rows_per_sm(bm: int) -> int:
+        blocks = -(-B // bm) * n_tiles
+        return -(-blocks // sms) * bm
+
+    return "wgmma", min(_WGMMA_BM, key=lambda bm: (rows_per_sm(bm), -bm))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def init_lstm_params(
@@ -87,14 +123,19 @@ def lstm_cell_cuda(
     if B == 0:
         return h_out, c_out
     lib = cuda_lib.library("lstm_cell.cu")
-    vec = int(cuda_lib.vectorizable((I, H), x, h, w))
-    err = lib.sat_lstm_cell(
+    aligned = cuda_lib.vectorizable((I, H), x, h, w) and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+    design, bm = cell_design(B, I, H, x.dtype, aligned, _sm_count(x.device.index or 0))
+    operands = (
         cuda_lib.ptr(x), cuda_lib.ptr(h), cuda_lib.ptr(w), cuda_lib.ptr(b),
-        cuda_lib.ptr(c), cuda_lib.ptr(h_out), cuda_lib.ptr(c_out),
-        B, I, H, code, vec, cuda_lib.stream(x.device),
+        cuda_lib.ptr(c), cuda_lib.ptr(h_out), cuda_lib.ptr(c_out), B, I, H,
     )
+    if design == "wgmma":
+        err = lib.sat_lstm_cell_sm90(*operands, bm, cuda_lib.stream(x.device))
+    else:
+        vec = int(cuda_lib.vectorizable((I, H), x, h, w))
+        err = lib.sat_lstm_cell(*operands, code, vec, cuda_lib.stream(x.device))
     cuda_lib.check(err, what)
-    cuda_lib.LAUNCHES["lstm_cell"] += 1
+    cuda_lib.count(what, design)
     return h_out, c_out
 
 

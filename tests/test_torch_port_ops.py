@@ -187,9 +187,11 @@ def test_kernel_launchers_refuse_cpu_tensors():
         tlstm.lstm_cell_cuda(p, x, h, c)
     _, t = _attn_inputs(2, 3, 5, 8, 16, None, torch.float32)
     hp = torch.zeros(2, 3, 8)
-    for name in ("attention_beam", "attention_beam_grid2"):
+    for name in ("additive_attention", "attention_beam_grid2"):
         with pytest.raises(ValueError, match="CUDA tensors"):
             tfa.launch_attention(name, t["ce"], t["f"], hp, t["w_att"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfda.attention_beam_cluster(t["ce"], t["f"], hp, t["w_att"])
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
 
 
