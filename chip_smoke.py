@@ -10,11 +10,15 @@ Phases, each printing its own lines:
    in full fp32 (cuDNN convolutions default to TF32);
 2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``,
    one ``nvcc`` per source, all started together;
-3. each of the six kernels against its plain PyTorch version on the card, at
+3. each of the seven kernels against its plain PyTorch version on the card, at
    the serving shapes and at unaligned and ragged ones (the cell: B=300,
-   I=H=1000, B=1; the beam attention: K=2, 4 and 8, L=1, B=1), in fp32 and
-   bf16, each line naming the design that ran (the cell's ``wgmma`` or
-   ``tiled`` kernel, the beam attention's cluster size and loads): every output
+   I=H=1000, B=1; the attentions and the scores: K=2, 4 and 8, B=1, L=1, 13
+   and 197, D=1000 and 1024, an unaligned view), in fp32 and bf16, each line
+   naming the design that ran (the cell's ``wgmma`` or ``tiled`` kernel, the
+   beam attention's cluster size and loads, the per-row attention's
+   ``onepass<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
+   probe's tanh form; the forms of the probe that do not meet the tolerance
+   are printed, not held): every output
    within an absolute tolerance and, relative to the output's own scale (max
    |diff| / max |plain|), within a relative one, so that small outputs such
    as the context (a mean over L) are held as tightly as large ones; every
@@ -26,16 +30,25 @@ Phases, each printing its own lines:
 4. each kernel's time at the serving shapes in bf16 (CUDA events, L2 flushed
    and the card held busy ~1 ms before every call so that the host has
    queued the whole call before it starts: device time, not the host's
-   launch pace; median), beside its bound, the plain version's time (also
-   printed host-paced, without the head start) and, for the cell,
+   launch pace; median), beside its bound (the largest of the bytes at the
+   memory rate, the plain operations at the fp32 rate and the tanh and exp
+   at the special-function rate, each printed), the plain version's time
+   (also printed host-paced, without the head start) and, for the cell,
    ``torch.lstm_cell``'s as a yardstick, with the design that ran; the ce
-   transpose that the ``st_*`` variants pay per call is timed apart;
+   transpose that the ``st_*`` variants pay per call is timed apart; the
+   first (``direct``) kernels of the per-row attention and of the scores,
+   and the cluster kernel at K=1, are timed beside the design the plan
+   picks; the tanh probe is timed per tanh form, with its tanh per second
+   beside the special-function rate assumed in the bounds and a plain read
+   of the same ce, and then runs the JAX benchmark's probe loop (20 steps,
+   each feeding the next step's hp), its launches counted;
 5. serving: ``Captioner`` at the model's full width (VGG16 at 224 px,
    E=512, H=1024, V=10000, random weights from a seed, bf16) captions 256
    uint8 images by beam-3 and by greedy decoding; the kernel launch counts
    are reset before and read after each mode, and each batch must have
    launched the cell's ``wgmma`` design and its attention kernel once per
-   step (20 each); the time splits into trunk
+   step (20 each; greedy by the per-row attention's one-pass design); the
+   time splits into trunk
    and decode, and one decode per mode is traced with torch.profiler
    (device busy share, top kernels); the decode step's logits through the
    kernels are held against the plain path (the same weights on the CPU,
@@ -45,14 +58,17 @@ Phases, each printing its own lines:
    features of the same images, 20 steps of h-projection, beam attention by
    one route (``s16_cmxu``, ``grid2``, ``st_cmxu``, ``hybrid-s16``), the
    cell and the head, the argmax feeding the next step; per route the ms per
-   step, its kernel's launches (20), its step logits against the default
-   route's, and one traced decode (device busy share, top kernels);
+   step (least and median of 10 decodes, and how much of it the host spends
+   queueing the launches), its kernel's launches (20; ``hybrid-s16`` by the
+   scores' streaming design), its step logits against the default route's,
+   and one traced decode (device busy share, top kernels);
 7. training: the Show-Attend-Tell train step at full width (bf16, batch 256,
    T=20, uint8 images with synthetic captions from the seed): warm steps,
    then timed steps on one fixed batch (img/s), the split into trunk,
    forward, backward and optimizer, one traced step (device busy share, top
    kernels), the launches per step (19 of the cell, all by its ``wgmma``
-   design, and 19 of the per-row attention), the loss finite and falling,
+   design, and 19 of the per-row attention, all by its one-pass design), the
+   loss finite and falling,
    and one fp32 step whose
    gradients through the kernels are held against the plain path's on the
    card.
@@ -80,6 +96,14 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
+# tanh, exp and reciprocal run on the special-function units: 16 operations
+# per clock per SM, 132 SMs, at the 1.98 GHz boost clock
+PEAK_SFU_PER_S = 16 * 132 * 1.98e9
+# special-function operations per tanh by the probe's form: tanh.approx.bf16x2
+# runs as two MUFU.TANH.BF16, one per half (phase 2 counts them in the
+# probe's machine code), so no form does better than one per tanh; the
+# precise tanhf is a sequence the compiler picks and is not counted
+SFU_PER_TANH = {"bf16x2": 1.0, "approx_f32": 1.0, "ex2_rcp": 2.0, "precise": None}
 
 SEED = 0
 # kernel vs plain version: max |diff| per output, absolute ...
@@ -87,6 +111,14 @@ TOL = {torch.float32: {"lstm_cell": 1e-5, "attention": 2e-5},
        torch.bfloat16: {"lstm_cell": 2e-2, "attention": 2e-2}}
 # ... and relative to the output's scale, max |diff| / max |plain|
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the probe's output is a sum of K * L tanh (588 at the serving shape, up to
+# ~540 in size), so it is held relative to its scale and, in fp32, within
+# 2e-3: 588 terms of size <= 1 summed in another order, each tanh within 5e-7.
+# In bf16 each tanh.approx.bf16x2 may sit one bf16 step (2^-8) from the plain
+# version's and the sum reads up to 4e-3 of its scale; 5e-3 of the scale is
+# 2.7 at the serving shape, under the 3 that one dropped patch row can cost.
+PROBE_TOL = {torch.float32: 2e-3, torch.bfloat16: float("inf")}
+PROBE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 REPS = 3  # timed Captioner calls per decode mode
 # decode-step logits of the kernel path vs the plain path, relative to the
 # logit scale
@@ -98,7 +130,12 @@ HEAD_START_CYCLES = 2_000_000
 # autograd Functions: input gradients through the kernel path against
 # autograd through the plain path, max |diff| / max |plain grad|
 GRAD_RTOL = 1e-4
-STEPS = 20  # decode steps of the beam-route chain
+STEPS = 20  # decode steps of the beam-route chain, and of the probe's loop
+# the tanh forms of the probe held against the plain version; tanh.approx.f32
+# (~2^-11 relative error) is printed, and held only where bf16 rounds it away
+PROBE_HELD = {torch.float32: ("ex2_rcp", "precise"),
+              torch.bfloat16: ("bf16x2", "approx_f32", "ex2_rcp", "precise")}
+CHAIN_REPS = 10  # timed decodes per route of the beam-route chain
 WARM_STEPS, TIMED_STEPS = 2, 10  # training steps
 
 REPLACES = {
@@ -108,6 +145,7 @@ REPLACES = {
     "attention_beam_grid2": "show_and_tell_tpu/ops/fused_decode_attention.py:140",
     "attention_beam_st": "show_and_tell_tpu/ops/fused_decode_attention.py:108",
     "attention_scores": "show_and_tell_tpu/ops/fused_decode_attention.py:339",
+    "tanh_probe": "benchmarks/attn_kernel_bench.py:149",
 }
 _BEAM_CU = "show_and_tell_tpu_torch/csrc/beam_attention.cu"
 SOURCES = {
@@ -117,6 +155,7 @@ SOURCES = {
     "attention_beam_grid2": _BEAM_CU,
     "attention_beam_st": _BEAM_CU,
     "attention_scores": _BEAM_CU,
+    "tanh_probe": "show_and_tell_tpu_torch/csrc/tanh_probe.cu",
 }
 
 
@@ -177,43 +216,69 @@ def cell_bound(B, I, H, dtype):
 
 def attention_bound(B, K, L, D, dtype):
     es = torch.tensor([], dtype=dtype).element_size()
-    # per (b, k, l, d): add, tanh, multiply-add for the score (tanh counted
-    # as one operation) and a multiply-add for the context, all in fp32
-    ops = 6.0 * B * K * L * D
+    # per (b, k, l, d): an add and a multiply-add for the score and a
+    # multiply-add for the context on the fp32 pipe; a tanh, and per
+    # (b, k, l) an exp, on the special-function units, one operation each
+    # (no form of the tanh does better: SFU_PER_TANH)
+    ops = 5.0 * B * K * L * D
+    sfu = 1.0 * B * K * L * D + B * K * L
     nbytes = (2 * B * L * D + B * K * D + D) * es  # in: ce f hp w_att
     nbytes += B * K * D * es + B * K * L * 4  # out: ctx alpha
-    return _bound(ops, nbytes, torch.float32)
+    return _bound(ops, nbytes, torch.float32, sfu)
 
 
 def scores_bound(B, K, L, D, dtype):
     es = torch.tensor([], dtype=dtype).element_size()
-    ops = 4.0 * B * K * L * D  # add, tanh, multiply-add per (b, k, l, d), fp32
+    ops = 3.0 * B * K * L * D  # add, multiply-add per (b, k, l, d), fp32
     nbytes = (B * L * D + B * K * D + D) * es + B * K * L * 4  # in: ce hp w_att; out: e
-    return _bound(ops, nbytes, torch.float32)
+    return _bound(ops, nbytes, torch.float32, 1.0 * B * K * L * D)
 
 
-def _bound(ops, nbytes, op_dtype):
+def probe_bound(B, K, L, D, dtype):
+    es = torch.tensor([], dtype=dtype).element_size()
+    ops = 2.0 * B * K * L * D  # add, accumulate per (b, k, l, d), fp32
+    nbytes = (B * L * D + B * K * D) * es + B * D * 4  # in: ce hp; out
+    return _bound(ops, nbytes, torch.float32, 1.0 * B * K * L * D)
+
+
+def _bound(ops, nbytes, op_dtype, sfu=0.0):
+    """(ms, "bytes" or "operations", which operations, the three times as
+    text): the largest of the bytes at the memory rate, the plain operations
+    at their pipe's rate and the special-function operations at theirs."""
     t_ops = ops / PEAK_FLOPS[op_dtype] * 1e3
+    t_sfu = sfu / PEAK_SFU_PER_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    parts = f"bytes {t_bytes:.4f}, operations {t_ops:.4f}" + (f", special-function {t_sfu:.4f}" if sfu else "")
+    if t_bytes >= max(t_ops, t_sfu):
+        return t_bytes, "bytes", None, parts
+    if t_sfu > t_ops:
+        return t_sfu, "operations", "special-function", parts
+    return t_ops, "operations", str(op_dtype).replace("torch.", ""), parts
 
 
 # --- timing -----------------------------------------------------------------
 
 
-def time_cold(fn, iters=30, warmup=3, head_start=True) -> float:
+def time_cold(fn, iters=30, warmup=3, head_start=True, flush_by="write") -> float:
     """Median ms of one call, with L2 flushed before each: in the decode
     loop the attention streams ~100 MB between two calls of any kernel.
     With ``head_start`` the card spins before each call, so that the host
     has queued all of the call's launches when the first event fires and
     the time is the device's; without it a call of many small launches is
-    timed at the pace at which the host issues them."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timed at the pace at which the host launches them. ``flush_by``: "write"
+    zeroes 256 MB, which leaves L2 full of dirty lines that the timed call
+    has to write back as it evicts them (the times of every table); "read"
+    reads 256 MB, which leaves clean lines."""
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    words = flush.view(torch.int32)
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if flush_by == "write":
+            flush.zero_()
+        else:
+            words.max()
         if head_start:
             torch.cuda._sleep(HEAD_START_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
@@ -284,6 +349,34 @@ def phase_build():
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"  {src}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"spill stores at most {max(spills)} bytes (ptxas -v)")
+    print(f"  {mufu_per_pair()}")
+
+
+def mufu_per_pair() -> str:
+    """How many special-function instructions ``tanh.approx.bf16x2`` became:
+    the MUFU.TANH in the machine code of the probe's bf16x2 kernel (16-byte
+    vectors) over the pairs of elements its source forms a tanh of (two
+    batches of U rows of 4 pairs, the loop over k not unrolled). The bounds
+    count one operation per tanh (SFU_PER_TANH), two per pair: where the
+    toolkit has ``cuobjdump``, any other count raises."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    what = "tanh.approx.bf16x2 in the probe's machine code"
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return f"{what}: no cuobjdump (not measured)"
+    with open(os.path.join(cuda_lib.CSRC, "tanh_probe.cu")) as fh:
+        pairs = 2 * int(re.search(r"constexpr int U = (\d+);", fh.read()).group(1)) * 4
+    sass = subprocess.run([tool, "-sass", cuda_lib._lib_path("tanh_probe.cu")],
+                          capture_output=True, text=True, timeout=120).stdout
+    for fn in sass.split("Function : ")[1:]:
+        if "Li8ELi0E" in fn.split("\n", 1)[0]:  # <bf16, VEC = 8, FORM = BF16X2>
+            n = len(re.findall(r"MUFU\.TANH", fn))
+            assert n == 2 * SFU_PER_TANH["bf16x2"] * pairs, \
+                f"{what}: {n} MUFU.TANH for {pairs} pairs; the bounds assume {SFU_PER_TANH['bf16x2']:g} per tanh"
+            return (f"{what}: {n} MUFU.TANH for {pairs} pairs of elements = "
+                    f"{n / pairs:g} special-function operations per pair of tanh")
+    raise AssertionError(f"{what}: the bf16x2 kernel is not in the library")
 
 
 def _design(name: str) -> str:
@@ -298,24 +391,27 @@ def phase_check():
     from show_and_tell_tpu_torch.ops import fused_attention as fa
     from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
     from show_and_tell_tpu_torch.ops import lstm
+    from show_and_tell_tpu_torch.ops import tanh_probe as tp
 
     print("== 3. kernels against their plain versions")
     errs = {}  # name -> max abs err at the serving shape in bf16
     failures = []
 
-    def report(name, shape, dtype, pairs, tol, serving, design=""):
-        """pairs: output name -> (kernel's output, plain version's)."""
+    def report(name, shape, dtype, pairs, tol, serving, design="", held=True, rtol=None):
+        """pairs: output name -> (kernel's output, plain version's). A line
+        that is not ``held`` is printed and cannot fail."""
         diffs = {k: _diffs(out, ref) for k, (out, ref) in pairs.items()}
         worst = max(d for d, _ in diffs.values())
         worst_rel = max(r for _, r in diffs.values())
-        rtol = RTOL[dtype]
+        rtol = RTOL[dtype] if rtol is None else rtol
         ok = worst <= tol and worst_rel <= rtol
         dname = str(dtype).replace("torch.", "")
         parts = " ".join(f"{k}={d:.3e} (rel {r:.2e})" for k, (d, r) in diffs.items())
+        verdict = ("ok" if ok else "FAIL") if held else "(printed)"
         print(f"  {name:19s} {shape:26s} {dname:8s} {design:15s} max|diff| {parts}  tol {tol:g} rel {rtol:g}  "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{name} {shape} {dname}")
+              f"{verdict}")
+        if held and not ok:
+            failures.append(f"{name} {shape} {dname} {design}")
         if serving and dtype == torch.bfloat16:
             errs[name] = max(errs.get(name, 0.0), worst)
 
@@ -335,11 +431,20 @@ def phase_check():
             assert hk.dtype == dtype and ck.dtype == torch.float32
             report("lstm_cell", f"B={B} I={I} H={H}", dtype,
                    {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving, design)
-        # the beam attention: K = 2..8, one patch row, one image, rows longer
-        # than one pass of registers (D=1024), L=13, D=36
+        # the attentions: K = 2..8, one patch row, one image, rows longer
+        # than one pass of registers (D=1024), L=13, D=36; the per-row
+        # attention also at L=197 (three blocks per image), D=1000 and a
+        # shape its one-pass design does not take (72-byte rows)
         for name, B, K, L, D, serving in (
             ("additive_attention", 256, 1, 196, 512, True),
             ("additive_attention", 7, 1, 13, 40, False),
+            ("additive_attention", 1, 1, 196, 512, False),
+            ("additive_attention", 256, 1, 1, 512, False),
+            ("additive_attention", 256, 1, 13, 512, False),
+            ("additive_attention", 64, 1, 197, 512, False),
+            ("additive_attention", 16, 1, 196, 1000, False),
+            ("additive_attention", 16, 1, 196, 1024, False),
+            ("additive_attention", 5, 1, 13, 36, False),
             ("attention_beam", 256, 3, 196, 512, True),
             ("attention_beam", 256, 2, 196, 512, False),
             ("attention_beam", 256, 4, 196, 512, False),
@@ -362,10 +467,38 @@ def phase_check():
             assert ck.dtype == dtype and ak.dtype == torch.float32
             report(name, f"B={B} K={K} L={L} D={D}", dtype,
                    {"ctx": (ck, cr), "alpha": (ak, ar)}, TOL[dtype]["attention"], serving, design)
+        # the per-row attention at the serving shape by the kernels that phase
+        # 4 times beside the plan's (the first kernel, and the cluster kernel
+        # at K=1), and on an unaligned view, which must take the direct design
+        B, L, D = 256, 196, 512
+        ce, f, hp, watt = attention_inputs(B, 1, L, D, dtype, SEED + 1)
+        hp1 = hp[:, 0].contiguous()
+        cr, ar = fa.attention_reference(ce, f, hp1, watt)
+        shape, tol = f"B={B} K=1 L={L} D={D}", TOL[dtype]["attention"]
+        cuda_lib.LAUNCHES.clear()
+        ck, ak = fa.launch_attention("additive_attention", ce, f, hp, watt)
+        report("additive_attention", shape, dtype, {"ctx": (ck[:, 0], cr), "alpha": (ak[:, 0], ar)}, tol, False,
+               _design("additive_attention"))
+        cuda_lib.LAUNCHES.clear()
+        ck, ak = fda.attention_beam_cluster(ce, f, hp, watt)
+        report("attention_beam", shape, dtype, {"ctx": (ck[:, 0], cr), "alpha": (ak[:, 0], ar)}, tol, False,
+               _design("attention_beam"))
+        off = _randn((B * L * D + 8,), _gen(SEED + 6), dtype)[1:1 + B * L * D].view(B, L, D)
+        assert off.is_contiguous() and off.data_ptr() % 16
+        cro, aro = fa.attention_reference(off, f, hp1, watt)
+        cuda_lib.LAUNCHES.clear()
+        ck, ak = fa.fused_attention(off, f, hp1, watt)
+        design = _design("additive_attention")
+        assert design == "direct", design
+        report("additive_attention", shape + " view", dtype, {"ctx": (ck, cro), "alpha": (ak, aro)}, tol, False,
+               design)
         # rows 4-6, through the public API by variant name; the scores are
         # held like alpha, and the hybrid's plain softmax and context beside
         for B, K, L, D, serving in ((256, 3, 196, 512, True), (256, 3, 13, 512, False),
-                                    (5, 3, 13, 36, False)):
+                                    (5, 3, 13, 36, False), (1, 3, 196, 512, False),
+                                    (256, 3, 1, 512, False), (64, 3, 197, 512, False),
+                                    (16, 3, 196, 1000, False), (16, 3, 196, 1024, False),
+                                    (256, 1, 196, 512, False), (64, 8, 196, 512, False)):
             ce, f, hp, watt = attention_inputs(B, K, L, D, dtype, SEED + 1)
             cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
             shape, tol = f"B={B} K={K} L={L} D={D}", TOL[dtype]["attention"]
@@ -373,10 +506,20 @@ def phase_check():
                 ck, ak = fda.attention_beam(ce, f, hp, watt, variant=variant)
                 assert ck.dtype == dtype and ak.dtype == torch.float32
                 report(name, shape, dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, serving)
+            er = fda.attention_scores_reference(ce, hp, watt)
+            cuda_lib.LAUNCHES.clear()
             e = fda.attention_scores(ce, hp, watt, "s16")
             assert e.shape == (B, K, L) and e.dtype == torch.float32
-            report("attention_scores", shape, dtype,
-                   {"e": (e, fda.attention_scores_reference(ce, hp, watt))}, tol, serving)
+            report("attention_scores", shape, dtype, {"e": (e, er)}, tol, serving, _design("attention_scores"))
+            if serving:  # the first kernel; an unaligned view takes it by the plan
+                report("attention_scores", shape, dtype, {"e": (fda.attention_scores_direct(ce, hp, watt), er)},
+                       tol, False, "direct")
+                off = _randn((B * L * D + 8,), _gen(SEED + 6), dtype)[1:1 + B * L * D].view(B, L, D)
+                cuda_lib.LAUNCHES.clear()
+                e = fda.attention_scores(off, hp, watt, "s16")
+                assert _design("attention_scores") == "direct"
+                report("attention_scores", shape + " view", dtype,
+                       {"e": (e, fda.attention_scores_reference(off, hp, watt))}, tol, False, "direct")
             ch, ah = fda.attention_beam_hybrid(ce, f, hp, watt, "s16")
             report("  hybrid-s16", shape, dtype, {"ctx": (ch, cr), "alpha": (ah, ar)}, tol, False)
         # every variant name runs its kernel and agrees with the plain version
@@ -390,6 +533,23 @@ def phase_check():
             ch, ah = fda.attention_beam_hybrid(ce, f, hp, watt, variant)
             report(f"  hybrid-{variant}", "B=5 K=3 L=13 D=36", dtype,
                    {"ctx": (ch, cr), "alpha": (ah, ar)}, TOL[dtype]["attention"], False)
+        # the probe: the serving shape by every tanh form (held: the forms
+        # that meet the dtype's tolerance), and edge shapes by the default:
+        # rows without 16-byte vectors (one element per thread), L=197 and
+        # D=1000 (a ragged last batch of rows and last block), one patch row
+        for B, K, L, D, serving in ((256, 3, 196, 512, True), (5, 3, 13, 36, False),
+                                    (3, 2, 197, 1000, False), (2, 8, 1, 520, False)):
+            g = _gen(SEED + 7)
+            ce, hp = _randn((B, L, D), g, dtype), _randn((B, K, D), g, dtype)
+            forms = [n for n in tp.TANH_FORMS if n != "bf16x2" or dtype == torch.bfloat16] if serving else [None]
+            for form in forms:
+                ref = tp.tanh_probe_reference(ce, hp)
+                out = tp.tanh_probe(ce, hp, form)
+                assert out.shape == (B, D) and out.dtype == torch.float32
+                held = form is None or form in PROBE_HELD[dtype]
+                report("tanh_probe", f"B={B} K={K} L={L} D={D}", dtype, {"out": (out, ref)}, PROBE_TOL[dtype],
+                       serving and form == tp.DEFAULT_FORM[dtype], form or tp.DEFAULT_FORM[dtype], held,
+                       PROBE_RTOL[dtype])
     torch.cuda.synchronize()
     failures += check_functions()
     if failures:
@@ -455,6 +615,7 @@ def phase_times():
     from show_and_tell_tpu_torch.ops import fused_attention as fa
     from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
     from show_and_tell_tpu_torch.ops import lstm
+    from show_and_tell_tpu_torch.ops import tanh_probe as tp
 
     print("== 4. times at the serving shapes, bf16 (median ms, L2 flushed and the card "
           "given a head start before each call)")
@@ -464,21 +625,24 @@ def phase_times():
     def show(name, shape, kernel, plain, bound, library=None):
         """Times ``kernel``, ``plain`` and ``library`` (callables) and prints
         them with the design that the kernel's launches took."""
-        bound_ms, bound_by = bound
+        bound_ms, bound_by, bound_ops, bound_parts = bound
+        by = bound_by + (f": {bound_ops}" if bound_ops else "")
         cuda_lib.LAUNCHES.clear()
         kernel_ms = time_cold(kernel)
         design = _design(name)
+        clean_ms = time_cold(kernel, flush_by="read")
         plain_ms = time_cold(plain)
         host_paced_ms = time_cold(plain, head_start=False)
         library_ms = time_cold(library) if library is not None else None
         lib = f"{library_ms:.4f}" if library_ms is not None else "null"
         print(
-            f"  {name:19s} {shape:24s} {design:15s} kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} "
-            f"({bound_by}, {bound_ms / kernel_ms:.1%} of it)  plain_ms {plain_ms:.4f} "
+            f"  {name:19s} {shape:24s} {design:15s} kernel_ms {kernel_ms:.4f} (after a read flush "
+            f"{clean_ms:.4f})  bound_ms {bound_ms:.4f} "
+            f"({by}, {bound_ms / kernel_ms:.1%} of it; {bound_parts})  plain_ms {plain_ms:.4f} "
             f"(host-paced {host_paced_ms:.4f})  library_ms {lib}"
         )
         return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "bound_operations": bound_ops, "library_ms": library_ms}
 
     for B in (768, 256):
         I = H = 1024
@@ -506,6 +670,21 @@ def phase_times():
         lambda: fa.attention_reference(ce, f, hp1, watt),
         attention_bound(B, 1, L, D, dt),
     )
+    # the first kernel, and for the per-row attention the cluster kernel at
+    # K=1 (the baseline its one-pass design has to beat), then the plan's again
+    def beside(name, others, planned):
+        for label, fn in others:
+            print(f"    {label}: {time_cold(fn):.4f} ms")
+        cuda_lib.LAUNCHES.clear()
+        ms = time_cold(planned)
+        print(f"    {name} by the plan's {_design(name)}, again: {ms:.4f} ms")
+
+    beside("additive_attention",
+           [("additive_attention by direct (the first kernel)",
+             lambda: fa.launch_attention("additive_attention", ce, f, hp, watt)),
+            ("attention_beam at K=1 (cluster kernel, " + "-".join(map(str, fda.beam_plan(1, L, D, 2, True))) + ")",
+             lambda: fda.attention_beam_cluster(ce, f, hp, watt))],
+           lambda: fa.fused_attention(ce, f, hp1, watt))
     ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
     shape = f"B={B} K=3 L={L} D={D}"
     rows["attention_beam"] = show(
@@ -540,7 +719,93 @@ def phase_times():
         lambda: fda.attention_scores_reference(ce, hp, watt),
         scores_bound(B, 3, L, D, dt),
     )
+    beside("attention_scores",
+           [("attention_scores by direct (the first kernel)", lambda: fda.attention_scores_direct(ce, hp, watt))],
+           lambda: fda.attention_scores(ce, hp, watt, "s16"))
+
+    # the probe: one line in the table by the default form, then every form
+    # with its tanh per second beside the special-function rate assumed above
+    rows["tanh_probe"] = show(
+        "tanh_probe", shape,
+        lambda: tp.tanh_probe(ce, hp),
+        lambda: tp.tanh_probe_reference(ce, hp),
+        probe_bound(B, 3, L, D, dt),
+    )
+    # K=3 is the serving shape; K=8 reads the same ce for 2.7 times the tanh,
+    # which takes the memory out of the way of the tanh rate
+    for dtype, K in ((dt, 3), (dt, 8), (torch.float32, 3), (torch.float32, 8)):
+        g = _gen(SEED + 7)
+        pce, php = _randn((B, L, D), g, dtype), _randn((B, K, D), g, dtype)
+        n_tanh = B * K * L * D
+        ce_ms = pce.numel() * pce.element_size() / PEAK_BYTES_PER_S * 1e3
+        print(f"    tanh_probe {str(dtype).replace('torch.', '')} K={K}: {n_tanh / 1e6:.1f} M tanh, "
+              f"ce's bytes at 3.35 TB/s {ce_ms:.4f} ms")
+        for form in tp.TANH_FORMS:
+            if form == "bf16x2" and dtype != torch.bfloat16:
+                continue
+            ms = time_cold(lambda: tp.tanh_probe(pce, php, form))
+            clean = time_cold(lambda: tp.tanh_probe(pce, php, form), flush_by="read")
+            per = SFU_PER_TANH[form]
+            floor = (f"{n_tanh * per / PEAK_SFU_PER_S * 1e3:.4f} ms at {per:g} operations per tanh"
+                     if per else "not counted")
+            print(f"      {form:10s} {ms:.4f} ms = {n_tanh / ms / 1e9:.2f} T tanh/s, after a read flush "
+                  f"{clean:.4f} ms = {n_tanh / clean / 1e9:.2f} T tanh/s  (special-function floor assumed: {floor})")
+    # what the harness itself reads for a call that does next to nothing, and
+    # for a plain read of the serving shape's ce (a sum over L: no tanh)
+    tce, thp = _randn((1, 1, 8), _gen(SEED), dt), _randn((1, 1, 8), _gen(SEED), dt)
+    print(f"    harness floor, a probe call on 8 elements: {time_cold(lambda: tp.tanh_probe(tce, thp)):.4f} ms")
+
+    def read():
+        return ce.sum(dim=1, dtype=torch.float32)
+
+    print(f"    harness floor, a plain sum over L of ce ({ce.numel() * 2 / 1e6:.1f} MB): {time_cold(read):.4f} ms, "
+          f"after a read flush {time_cold(read, flush_by='read'):.4f} ms")
+    # the clocks while the card runs the probe back to back for ~0.5 s
+    for _ in range(12000):
+        tp.tanh_probe(ce, hp)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    print(f"    clocks under load (sm, max sm, mem, power draw): {clocks}")
     return rows
+
+
+def phase_probe():
+    """The JAX attention benchmark's probe loop (``micro_tanh``) on the port:
+    20 steps of the probe at the serving shape in bf16, each step's output
+    nudging the next step's hp, as the benchmark chains its steps so that none
+    can be dropped. Returns the probe's launches."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops import tanh_probe as tp
+
+    B, K, L, D = 256, 3, 196, 512
+    rng = np.random.default_rng(SEED)
+    ce = torch.from_numpy(rng.standard_normal((B, L, D), dtype=np.float32)).cuda().bfloat16()
+    hp0 = torch.from_numpy(rng.standard_normal((B, K, D), dtype=np.float32)).cuda().bfloat16()
+
+    def loop():
+        c, total = hp0, 0.0
+        for _ in range(STEPS):
+            o = tp.tanh_probe(ce, c)
+            c = c + o[:, None, :].to(c.dtype) * 1e-3
+            total = total + o.sum()
+        return total, o
+
+    loop()
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    total, o = loop()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STEPS * 1e3
+    n = cuda_lib.LAUNCHES["tanh_probe"]
+    print(f"  tanh probe loop: {STEPS} steps, {ms:.4f} ms/step (host clock), launches {n} "
+          f"({_design('tanh_probe')}), sum {float(total):.1f}")
+    assert n == STEPS, f"the probe loop launched the probe {n} times"
+    assert o.shape == (B, D) and torch.isfinite(o).all() and np.isfinite(float(total))
+    return {"tanh_probe": n}
 
 
 def phase_end_to_end():
@@ -549,6 +814,7 @@ def phase_end_to_end():
     from show_and_tell_tpu_torch.decode.dispatch import decode_ids
     from show_and_tell_tpu_torch.models.registry import build_model
     from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops.fused_attention import attention_plan
     from show_and_tell_tpu_torch.serve import Captioner
     from show_and_tell_tpu_torch.utils.vocab import Vocabulary
 
@@ -598,6 +864,10 @@ def phase_end_to_end():
         assert designs["lstm_cell"] == {"wgmma": REPS * cfg.max_decode_len}, designs
         if mode == "beam":  # the cluster kernel with f by bulk copy
             assert all(d.endswith("-f_bulk") for d in designs["attention_beam"]), designs
+        else:  # the one-pass design, at the split the plan gives 196 patch rows of 512 bf16
+            plan = attention_plan(N, 196, 512, 2, True)
+            assert plan[0] == "onepass", plan
+            assert designs["additive_attention"] == {f"onepass{plan[1]}": REPS * cfg.max_decode_len}, designs
 
     # where the time goes: trunk vs decode, host clock around synchronised work
     with torch.inference_mode():
@@ -705,22 +975,33 @@ def phase_beam_routes(model, cfg, images):
             logits, _ = chain(route, ref_tokens)
             torch.cuda.synchronize()
             n, n_cell = cuda_lib.LAUNCHES[kernel], cuda_lib.LAUNCHES["lstm_cell"]
+            kernel_designs = cuda_lib.designs(kernel)
             assert cuda_lib.designs("lstm_cell") == {"wgmma": STEPS}, cuda_lib.designs("lstm_cell")
             worst = max(_diffs(a, b)[1] for a, b in zip(logits, ref_logits))
             del logits
-            secs = []
-            for _ in range(REPS):
+            # the host clock around a synchronised decode, and how much of it
+            # had passed when the host had queued the last launch: where the
+            # two agree the host sets the pace and the card waits for it
+            secs, queued = [], []
+            for _ in range(CHAIN_REPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 chain(route, ref_tokens)
+                t1 = time.perf_counter()
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
+                queued.append(t1 - t0)
             ms = statistics.median(secs) / STEPS * 1e3
             rtol = LOGITS_RTOL[model.cdtype]
-            print(f"  {route:11s} {ms:.4f} ms/step (median of {REPS} decodes of {STEPS} steps: "
-                  f"{', '.join(f'{x * 1e3:.2f}' for x in secs)} ms)  launches {kernel} {n}, lstm_cell {n_cell}  "
+            print(f"  {route:11s} {ms:.4f} ms/step (median of {CHAIN_REPS} decodes of {STEPS} steps, least "
+                  f"{min(secs) / STEPS * 1e3:.4f}, most {max(secs) / STEPS * 1e3:.4f}; the host queueing "
+                  f"{sum(queued) / sum(secs):.1%} of it)  launches {kernel} {n}, lstm_cell {n_cell}  "
                   f"step logits vs s16_cmxu max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
             assert n == STEPS and n_cell == STEPS, f"{route}: {kernel} launched {n} times, cell {n_cell}"
+            if route == "hybrid-s16":  # the streaming design, at the plan's split of 196 rows
+                plan = fda.scores_plan(K, 196, D, 2, True)
+                assert plan[0] == "stream", plan
+                assert kernel_designs == {f"stream{plan[1]}": STEPS}, kernel_designs
             assert worst <= rtol, f"{route}: step logits disagree with the default route"
             launches[kernel] = n
             profile_window(lambda: chain(route, ref_tokens), route, top=5)
@@ -747,6 +1028,7 @@ def phase_training(images):
     from show_and_tell_tpu_torch.data.transforms import eval_transform
     from show_and_tell_tpu_torch.models.registry import build_model
     from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops.fused_attention import attention_plan
     from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
     from show_and_tell_tpu_torch.utils.vocab import START_ID
 
@@ -817,9 +1099,14 @@ def phase_training(images):
     torch.cuda.synchronize()
     counts = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention")}
     cell_designs = cuda_lib.designs("lstm_cell")
-    print(f"  launches per step: {counts} (T-1 = {T - 1} each), cell designs {cell_designs}")
+    attn_designs = cuda_lib.designs("additive_attention")
+    print(f"  launches per step: {counts} (T-1 = {T - 1} each), cell designs {cell_designs}, "
+          f"attention designs {attn_designs}")
     assert all(n == T - 1 for n in counts.values()), f"training launches {counts}, expected {T - 1} each"
     assert cell_designs == {"wgmma": T - 1}, f"training cell designs {cell_designs}"
+    plan = attention_plan(N, 196, 512, 2, True)
+    assert plan[0] == "onepass" and attn_designs == {f"onepass{plan[1]}": T - 1}, \
+        f"training attention designs {attn_designs}"
     profile_window(one_step, "train step")
 
     losses = [float(x) for x in losses]
@@ -870,7 +1157,9 @@ def main() -> int:
     phase_build()
     errs = phase_check()
     rows = phase_times()
+    probe_launches = phase_probe()
     launches, model, cfg, images = phase_end_to_end()
+    launches.update(probe_launches)
     launches.update(phase_beam_routes(model, cfg, images))
     del model
     training = phase_training(images)

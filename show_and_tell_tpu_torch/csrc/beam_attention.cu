@@ -1,8 +1,9 @@
 // The three other forms of the beam-shared decode attention, on Hopper
 // (sm_90a). Each replaces one TPU kernel of
 // show_and_tell_tpu/ops/fused_decode_attention.py:
-//   - attention_scores_kernel: `_score_kernel` (scores only, the first half of
-//     `attention_beam_hybrid`);
+//   - attention_scores_stream_kernel, and attention_scores_kernel for the
+//     shapes it does not take: `_score_kernel` (scores only, the first half
+//     of `attention_beam_hybrid`);
 //   - attention_st_kernel: `_kernel_st` (ce transposed to [B, D, L]);
 //   - attention_grid2_kernel: `_kernel_grid2` (an (image, beam) grid).
 //
@@ -11,7 +12,8 @@
 //     alpha[k]  = softmax_l(e[k]);  ctx[k, d] = sum_l alpha[k, l] f[b, l, d] / L
 // with every product and sum in fp32. The TPU kernels' bf16 products and
 // sums (the `s16` and `st` score forms) are not reproduced: on Hopper the
-// score forms are one function.
+// score forms are one function. The streaming scores kernel forms ce + hp
+// and its tanh in the input type, as `_score_kernel` does.
 //
 // Bounds on an H100 at the serving shape (B=256, K=3, L=196, D=512, bf16):
 // the 77.1 M tanh of the scores, at tens of instructions each for the precise
@@ -20,10 +22,25 @@
 // between the two bounds, like the fused kernel.
 //
 // Design:
-//   - scores only: one block per image; the score phase of the fused kernel
-//     (a warp per patch row, ce[b] read once for all K beams, hp and w_att in
-//     shared memory as fp32), with the scores written straight to e. f is
-//     never read.
+//   - scores only, `stream` (ops/fused_decode_attention.py `scores_plan`; rows
+//     of 16-byte multiples, aligned operands): a patch row's scores depend on
+//     no other row, so the grid is (image, slice of L) with no barrier after
+//     the operands are in place. A warp takes every NW-th row of its slice,
+//     keeps its next eight rows on their way into a ring in shared memory
+//     (`cp.async`, 16 bytes per lane per vector: 8 KB per warp in flight),
+//     and forms the K scores from the oldest; w_att stays in registers, and hp too where
+//     it fits (K vectors per lane: K = 3 at D = 512), else in shared memory
+//     as it is. bf16 forms ce + hp and its tanh two at a time in bf16
+//     (`tanh.approx.bf16x2`), fp32 uses `ex2.approx` + `rcp.approx`
+//     (sat_common.cuh). f is never read. The tanh set the pace: one
+//     special-function operation each (the bf16x2 form runs as two), 18.4
+//     us of them at the serving shape at 16 per clock per SM, over the 15.3
+//     us of bytes; so the blocks are short and many, which keeps more warps
+//     on an SM and its special-function units busier.
+//   - scores only, `direct`: one block per image; the score phase of the
+//     fused kernel (a warp per patch row, ce[b] read once for all K beams,
+//     hp and w_att in shared memory as fp32, the precise tanhf), with the
+//     scores written straight to e.
 //   - transposed: one block per image; threads run along l, so each row
 //     ce^T[b, d, :] is a coalesced read, and each thread loops over d with
 //     its K scores in registers: the score needs no warp reduction, which is
@@ -47,6 +64,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include "sat_common.cuh"
 
 namespace {
 
@@ -270,6 +289,141 @@ cudaError_t launch_scores_k(const void* ce, const void* hp, const void* watt, fl
   return cudaGetLastError();
 }
 
+// --- scores only, the streaming design ---------------------------------------
+
+// Rows per warp in flight (a power of two): 8 rows of up to 1 KB, 4 of 2 KB.
+__host__ __device__ constexpr int stream_stages(int NV) { return NV == 4 ? 4 : 8; }
+
+// NV: 16-byte vectors per lane that cover a row (D <= NV * 32 * VEC). hp
+// stays in registers where K * NV vectors per lane are at most 8.
+template <typename T, int K, int NV>
+__global__ void __launch_bounds__(NT)
+attention_scores_stream_kernel(const T* __restrict__ ce, const T* __restrict__ hp,
+                               const T* __restrict__ watt, float* __restrict__ e, int S, int L,
+                               int D) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int P = stream_stages(NV);
+  constexpr bool HP_REGS = K * NV <= 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(sm_raw);  // [nw][P][NV][32]
+  uint4* s_hp = ring + (size_t)nw * P * NV * 32;   // [K][D / VEC] (not HP_REGS)
+
+  const int b = blockIdx.x / S, r = blockIdx.x % S;
+  const int Lc = (L + S - 1) / S;
+  const int l0 = r * Lc;
+  const int nl = max(0, min(L, l0 + Lc) - l0);  // rows of this block
+  const int nvec = D / VEC;
+  const T* ce_b = ce + ((size_t)b * L + l0) * D;
+  const T* hp_b = hp + (size_t)b * K * D;
+
+  // this warp's first P rows on their way into its ring, while hp and
+  // w_att arrive
+  uint4* my = ring + (size_t)warp * P * NV * 32 + lane;  // stage p: my + p * NV * 32
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int lr = warp + p * nw;
+    if (lr < nl) sat::copy_row<T, NV>(my + p * NV * 32, ce_b + (size_t)lr * D, lane, D);
+    sat::cp_async_commit();
+  }
+
+  float wv[NV][VEC];
+  uint4 hv[HP_REGS ? K : 1][NV];
+  {
+    uint4 wraw[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) wraw[i] = make_uint4(0, 0, 0, 0);
+    sat::load_row<T, NV>(wraw, watt, lane, D);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) sat::unpack<T>(wraw[i], wv[i]);
+  }
+  if constexpr (HP_REGS) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) hv[k][i] = make_uint4(0, 0, 0, 0);
+      sat::load_row<T, NV>(hv[k], hp_b + (size_t)k * D, lane, D);
+    }
+  } else {
+    const uint4* src = reinterpret_cast<const uint4*>(hp_b);
+    for (int j = tid; j < K * nvec; j += blockDim.x) s_hp[j] = src[j];
+    __syncthreads();
+  }
+
+  int p = 0;
+  for (int lr = warp; lr < nl; lr += nw) {
+    sat::cp_async_wait<P - 1>();  // the oldest stage has landed
+    uint4* stage = my + p * NV * 32;
+    uint4 cv[NV];
+    sat::read_row<NV>(cv, stage);
+    float acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * 32 + lane;
+      if (j < nvec) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if constexpr (HP_REGS) acc[k] += sat::score_vec<T>(cv[i], hv[k][i], wv[i]);
+          else acc[k] += sat::score_vec<T>(cv[i], s_hp[k * nvec + j], wv[i]);
+        }
+      }
+    }
+    // the stage is used: refill it with the row P ahead
+    const int nxt = lr + P * nw;
+    if (nxt < nl) sat::copy_row<T, NV>(stage, ce_b + (size_t)nxt * D, lane, D);
+    sat::cp_async_commit();
+    p = (p + 1) & (P - 1);
+    float mine = 0.f;  // lane k keeps score k
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float v = sat::warp_sum(acc[k]);
+      if (lane == k) mine = v;
+    }
+    if (lane < K) e[((size_t)b * K + lane) * L + l0 + lr] = mine;
+  }
+}
+
+template <typename T, int K, int NV>
+cudaError_t launch_scores_stream_nv(const void* ce, const void* hp, const void* watt, float* e,
+                                    int B, int L, int D, int S, int nt, cudaStream_t s) {
+  const size_t smem = (size_t)(nt / 32) * stream_stages(NV) * NV * 512 +
+                      (K * NV <= 8 ? 0 : (size_t)K * D * sizeof(T));
+  auto kern = attention_scores_stream_kernel<T, K, NV>;
+  const cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B * S, nt, smem, s>>>(static_cast<const T*>(ce), static_cast<const T*>(hp),
+                               static_cast<const T*>(watt), e, S, L, D);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_scores_stream_k(const void* ce, const void* hp, const void* watt, float* e,
+                                   int B, int L, int D, int S, int nt, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (D % VEC || D > 4 * 32 * VEC) return cudaErrorInvalidValue;
+  if (D <= 32 * VEC) return launch_scores_stream_nv<T, K, 1>(ce, hp, watt, e, B, L, D, S, nt, s);
+  if (D <= 2 * 32 * VEC) return launch_scores_stream_nv<T, K, 2>(ce, hp, watt, e, B, L, D, S, nt, s);
+  return launch_scores_stream_nv<T, K, 4>(ce, hp, watt, e, B, L, D, S, nt, s);
+}
+
+template <typename T>
+cudaError_t launch_scores_stream(const void* ce, const void* hp, const void* watt, float* e, int B,
+                                 int K, int L, int D, int S, int nt, cudaStream_t s) {
+  switch (K) {
+#define SAT_CASE(KK) \
+  case KK:           \
+    return launch_scores_stream_k<T, KK>(ce, hp, watt, e, B, L, D, S, nt, s);
+    SAT_CASE(1) SAT_CASE(2) SAT_CASE(3) SAT_CASE(4)
+    SAT_CASE(5) SAT_CASE(6) SAT_CASE(7) SAT_CASE(8)
+#undef SAT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int K>
 cudaError_t launch_st_k(const void* cet, const void* f, const void* hp, const void* watt,
                         void* ctx, float* alpha, int B, int L, int D, cudaStream_t s) {
@@ -350,6 +504,23 @@ extern "C" int sat_attention_scores(const void* ce, const void* hp, const void* 
     return (int)(vec ? launch_scores<__nv_bfloat16, 8>(ce, hp, watt, e, B, K, L, D, s)
                      : launch_scores<__nv_bfloat16, 1>(ce, hp, watt, e, B, K, L, D, s));
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The streaming design: ce [B, L, D], hp [B, K, D], w_att [D] -> e [B, K, L]
+// fp32, `slices` blocks of `threads` threads (a multiple of 32 up to 256) per
+// image. Needs D a multiple of the 16-byte vector width, at most 128 vectors
+// per row, and ce, hp and w_att 16-byte aligned.
+extern "C" int sat_attention_scores_stream(const void* ce, const void* hp, const void* watt,
+                                           float* e, int B, int K, int L, int D, int dtype,
+                                           int slices, int threads, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_shape(B, K, L, D) || slices < 1 || threads < 32 || threads > NT || threads % 32 ||
+      (long long)B * slices > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_scores_stream<float>(ce, hp, watt, e, B, K, L, D, slices, threads, s);
+  if (dtype == 1)
+    return (int)launch_scores_stream<__nv_bfloat16>(ce, hp, watt, e, B, K, L, D, slices, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

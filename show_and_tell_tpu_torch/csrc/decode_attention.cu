@@ -15,8 +15,9 @@
 // Bound on an H100 at the serving shape (B=256, K=3, L=196, D=512, bf16): ce
 // and f are 102.8 MB, read once at 3.35 TB/s in 30.7 us, larger than the 50
 // MB L2, so they arrive cold. The scores take 77.1 M tanh; at 16 MUFU
-// operations per clock per SM (1.98 GHz) one tanh per operation needs 18 us,
-// two per operation (bf16x2) 9 us: bytes set the pace.
+// operations per clock per SM (1.98 GHz) one tanh per operation needs 18 us
+// (`tanh.approx.bf16x2` runs as two operations, one per half, so no form
+// does better): bytes set the pace, with the tanh not far behind.
 //
 // Design:
 //   - Each image is split over a cluster of C blocks (C from the wrapper,
@@ -35,7 +36,7 @@
 //   - Scores: a warp per patch row, each ce row read once for all K beams.
 //     bf16: hp stays bf16 in shared memory, and ce + hp and its tanh are
 //     formed two at a time in bf16 (`add.bf16x2`, `tanh.approx.bf16x2`: one
-//     MUFU operation per two tanh), rounded where the plain version rounds
+//     MUFU operation per half), rounded where the plain version rounds
 //     them; the products with w_att and the sum over d are fp32. fp32: all in
 //     fp32, tanh as 1 - 2 / (1 + 2^(2x log2 e)) from `ex2.approx` and
 //     `rcp.approx` (two MUFU operations, absolute error below 5e-7), since
@@ -178,7 +179,7 @@ __device__ __forceinline__ int slot(int d, int D) {
   else return d;
 }
 
-// tanh of two bf16 in one MUFU operation
+// tanh of two packed bf16 (two MUFU operations, one per half)
 __device__ __forceinline__ __nv_bfloat162 tanh_bf16x2(__nv_bfloat162 x) {
   uint32_t y;
   asm("tanh.approx.bf16x2 %0, %1;" : "=r"(y) : "r"(*reinterpret_cast<const uint32_t*>(&x)));

@@ -4,7 +4,7 @@ The sources live in ``show_and_tell_tpu_torch/csrc/``. Each ``.cu`` file is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
 C interface, loaded with ``ctypes``. The libraries go to
 ``show_and_tell_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
+source, the shared header and the flags, so an edited source is rebuilt and an unchanged one is
 reused. All sources build in parallel at first use, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -36,7 +36,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_cell.cu", "additive_attention.cu", "beam_attention.cu", "decode_attention.cu")
+SOURCES = (
+    "lstm_cell.cu", "additive_attention.cu", "beam_attention.cu", "decode_attention.cu", "tanh_probe.cu",
+)
+HEADERS = ("sat_common.cuh",)  # included by the sources; part of every library's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,15 +54,20 @@ _SIGNATURES = {
     },
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),
+        "sat_additive_attention_onepass": (_vp,) * 6 + (_i,) * 6 + (_vp,),
     },
     "beam_attention.cu": {
         "sat_attention_scores": (_vp,) * 4 + (_i,) * 6 + (_vp,),
+        "sat_attention_scores_stream": (_vp,) * 4 + (_i,) * 7 + (_vp,),
         "sat_attention_beam_st": (_vp,) * 6 + (_i,) * 5 + (_vp,),
         "sat_attention_beam_grid2": (_vp,) * 6 + (_i,) * 6 + (_vp,),
     },
     "decode_attention.cu": {
         "sat_decode_attention": (_vp,) * 6 + (_i,) * 7 + (_vp,),
         "sat_attention_kmax": (),
+    },
+    "tanh_probe.cu": {
+        "sat_tanh_probe": (_vp,) * 3 + (_i,) * 7 + (_vp,),
     },
 }
 
@@ -82,8 +90,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(os.path.join(CSRC, src), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b""
+    for name in (src, *HEADERS):
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            text += fh.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{src[:-3]}-{digest[:16]}.so")
 
 

@@ -6,10 +6,14 @@ The chain (see ``ops/attention.py``) for hidden projections hp [B, D]:
     t = tanh(ctx_enc + hp[:, None, :]);  e = t . w_att
     alpha = softmax(e) (fp32);  context = (alpha . features) / L
 
-runs in one pass of the kernel in ``csrc/additive_attention.cu`` with K = 1:
-``ctx_enc`` and ``features`` are each read once and no [B, L, D]
-intermediate is written. The h-projection ``hidden @ w_hh + b_hh`` stays a
-matrix product outside the kernel.
+runs in one kernel of ``csrc/additive_attention.cu``: ``ctx_enc`` and
+``features`` are each read once and no [B, L, D] intermediate is written.
+The h-projection ``hidden @ w_hh + b_hh`` stays a matrix product outside the
+kernel. ``attention_plan`` picks the design from the shape, the type and the
+alignment before the launch: ``onepass`` (an image split over a cluster of
+blocks, one pass over ce and f under a running max and sum of exp) for rows
+of 16-byte multiples, ``direct`` (a block per image, three phases) for the
+rest. On a CUDA tensor it never falls back: the launch succeeds or it raises.
 
 Training: ``FusedAttentionFunction`` runs the kernel forward and, in its
 backward, recomputes the plain chain and differentiates it with autograd.
@@ -27,6 +31,53 @@ import torch
 from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
+
+ATTENTION_DESIGNS = ("onepass", "direct")
+SMEM_LIMIT = 227 * 1024  # a block's dynamic shared memory on Hopper
+H100_SMS = 132
+# csrc/additive_attention.cu, the one-pass kernel: the largest cluster, the
+# vectors per lane it is built for, and the threads per block
+_CLUSTER_MAX = 8
+_ONEPASS_NV_MAX = 4
+_ONEPASS_THREADS = 256
+_ONEPASS_STAGES = 4  # rows of ce and of f per warp in flight
+
+
+def row_vectors(D: int, itemsize: int) -> int:
+    """NV of the streaming kernels: the 16-byte vectors per lane that cover a
+    row of D elements (1, 2 or 4: rows up to 512, 1024, 2048 bytes)."""
+    return next(n for n in (1, 2, 4) if D * itemsize <= n * 512)
+
+
+def onepass_smem_bytes(L: int, D: int, C: int, threads: int, itemsize: int) -> int:
+    """Shared memory of one block of the one-pass kernel, C blocks per
+    image; the layout of ``onepass_smem_floats`` in the source: each warp's
+    ring of ``_ONEPASS_STAGES`` rows of ce and of f, then the merge area."""
+    nw = threads // 32
+    ring = nw * _ONEPASS_STAGES * 2 * row_vectors(D, itemsize) * 512
+    return ring + 4 * (nw * D + D + 4 + 2 * 32 + -(-L // C))
+
+
+def blocks_per_image(B: int, L: int, rows_min: int, cap: int, sms: int = H100_SMS) -> int:
+    """How many blocks share an image's L patch rows: one where the batch
+    alone gives every SM a block (B >= ``sms``: a split only adds blocks that
+    start and stop), else the fewest that do, at most ``cap`` and no more
+    than ceil(L / ``rows_min``), so that a block of ``rows_min`` warps has a
+    row for almost every warp (L=13, rows_min=8: two blocks, of 7 and 6)."""
+    return max(1, min(-(-sms // max(B, 1)), cap, -(-L // rows_min)))
+
+
+def attention_plan(B: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[str, int, int]:
+    """(design, C, threads) for the per-row attention: ``onepass`` with C
+    blocks per image (``blocks_per_image``, 1 to 8 and at most ceil(L / 8): 1
+    at B=256) of ``threads`` threads when rows are 16-byte multiples of at most
+    128 vectors (D up to 1024 in bf16, 512 in fp32) and the operands are
+    ``aligned``; otherwise ``direct``, one block of 256 threads per image."""
+    vec = 16 // itemsize
+    if not aligned or D % vec or D > _ONEPASS_NV_MAX * 32 * vec:
+        return "direct", 1, 256
+    return "onepass", blocks_per_image(B, L, _ONEPASS_THREADS // 32, _CLUSTER_MAX), _ONEPASS_THREADS
+
 
 # launch-count name -> (source, C entry point). Both entry points take
 # (ce, f, hp, watt, ctx, alpha, B, K, L, D, dtype, vec, stream); the
@@ -97,14 +148,42 @@ def launch_attention(
         cuda_lib.stream(ce.device),
     )
     cuda_lib.check(err, name)
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count(name, "direct")
+    return ctx, alpha
+
+
+def attention_rows(
+    ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-row attention on CUDA tensors (ce, f [B, L, D]; hp [B, D];
+    watt [D]) by the design ``attention_plan`` picks: (context [B, D], alpha
+    [B, L] fp32). Counts the launch under ``additive_attention``, by design
+    ``onepass<C>`` or ``direct`` (``launch_attention``, the first kernel)."""
+    name = "additive_attention"
+    hp3 = hp[:, None, :]
+    B, _, L, D = attention_shapes(name, ce, f, hp3, watt)
+    design, C, threads = attention_plan(
+        B, L, D, ce.element_size(), cuda_lib.vectorizable((D,), ce, f, hp, watt))
+    if design == "direct":
+        ctx, alpha = launch_attention(name, ce, f, hp3, watt)
+        return ctx[:, 0], alpha[:, 0]
+    ctx = torch.empty((B, D), dtype=ce.dtype, device=ce.device)
+    alpha = torch.empty((B, L), dtype=torch.float32, device=ce.device)
+    if B == 0 or L == 0:
+        return ctx, alpha
+    err = cuda_lib.library("additive_attention.cu").sat_additive_attention_onepass(
+        cuda_lib.ptr(ce), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
+        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, L, D, cuda_lib.dtype_code(ce), C, threads,
+        cuda_lib.stream(ce.device),
+    )
+    cuda_lib.check(err, name)
+    cuda_lib.count(name, f"onepass{C}")
     return ctx, alpha
 
 
 def _attention_forward(ce, f, hp, watt):
     if ce.is_cuda:
-        ctx, alpha = launch_attention("additive_attention", ce, f, hp[:, None, :], watt)
-        return ctx[:, 0], alpha[:, 0]
+        return attention_rows(ce, f, hp, watt)
     return attention_reference(ce, f, hp, watt)
 
 

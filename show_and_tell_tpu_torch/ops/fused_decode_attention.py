@@ -20,14 +20,17 @@ runs one of four kernels:
 - ``st_cmxu``, ``st_cvpu``: ``csrc/beam_attention.cu`` on ce transposed to
   [B, D, L], transposed once per call by the wrapper (a caller that decodes
   many steps can transpose once and call ``attention_beam_st``);
-- ``attention_scores`` (every name of ``SCORE_VARIANTS``): scores only, and
-  ``attention_beam_hybrid`` adds a plain softmax and context.
+- ``attention_scores`` (every name of ``SCORE_VARIANTS``): scores only, by
+  the design ``scores_plan`` picks (``stream``: a grid of (image, slice of
+  L), rows in 16-byte vectors; ``direct``: a block per image, for the shapes
+  ``stream`` does not take), and ``attention_beam_hybrid`` adds a plain
+  softmax and context.
 
 The score suffixes (``s32``, ``s16``, ``smxu``) and the context suffixes
 (``cvpu``, ``cmxu``) name TPU formulations: a lane reduction or an MXU
 matmul, an fp32 or a bf16 product. The kernels here take every product and
-sum in fp32, so on Hopper they are one function, and the bf16 roundings of
-the TPU's ``s16`` and ``st`` forms are not reproduced. ``block_b``, which
+sum in fp32, so on Hopper they are one function, and the bf16 products and
+sums of the TPU's ``s16`` and ``st`` forms are not reproduced. ``block_b``, which
 sizes the TPU's VMEM blocks, has no counterpart.
 """
 
@@ -38,7 +41,9 @@ from typing import Tuple
 import torch
 
 from show_and_tell_tpu_torch.ops import cuda_lib
-from show_and_tell_tpu_torch.ops.fused_attention import attention_shapes, launch_attention
+from show_and_tell_tpu_torch.ops.fused_attention import (
+    SMEM_LIMIT, attention_shapes, launch_attention, row_vectors,
+)
 
 # variant = "<score>_<context>": score in {s32, s16, smxu, st}, context in
 # {cvpu, cmxu}; "grid2" = the (image, beam) grid
@@ -48,10 +53,9 @@ VARIANTS = (
 )
 SCORE_VARIANTS = ("s32", "s16", "smxu")
 
-# csrc/decode_attention.cu: a block's dynamic shared memory on Hopper, its
-# barrier area, the largest cluster, the patch rows that call for one more
-# block per image, and how a block gets its ce and f rows (``Mode`` there)
-SMEM_LIMIT = 227 * 1024
+# csrc/decode_attention.cu: its barrier area, the largest cluster, the patch
+# rows that call for one more block per image, and how a block gets its ce and
+# f rows (``Mode`` there); a block's shared memory stays within SMEM_LIMIT
 _BAR_BYTES = 128
 _CLUSTER_MAX = 8
 _ROWS_PER_BLOCK = 64
@@ -83,6 +87,38 @@ def beam_plan(K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[int
     return C, "f_bulk" if fits else "direct"
 
 
+SCORE_DESIGNS = ("stream", "direct")
+# csrc/beam_attention.cu, the streaming scores kernel: the vectors per lane
+# it is built for, the patch rows that call for one more block per image, and
+# the threads per block
+_STREAM_NV_MAX = 4
+_STREAM_ROWS_PER_BLOCK = 28
+_STREAM_THREADS = 128
+
+
+def scores_smem_bytes(K: int, D: int, itemsize: int, threads: int = _STREAM_THREADS) -> int:
+    """Shared memory of one block of the streaming scores kernel: each warp's
+    ring of rows in flight (8 rows of up to 1 KB, 4 of 2 KB), then hp[b] as
+    it is, unless its K * NV vectors per lane stay in registers (at most 8)."""
+    nv = row_vectors(D, itemsize)
+    ring = (threads // 32) * (4 if nv == 4 else 8) * nv * 512
+    return ring + (0 if K * nv <= 8 else K * D * itemsize)
+
+
+def scores_plan(K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[str, int, int]:
+    """(design, S, threads) for the scores kernel: ``stream`` with S blocks
+    per image (ceil(L / 28): 7 at L=196) of ``threads`` threads when rows are
+    16-byte multiples of at most 128 vectors (D up to 1024 in bf16, 512 in
+    fp32) and the operands are ``aligned``; otherwise ``direct``, one block of
+    256 threads per image. The tanh sets this kernel's pace, not the bytes,
+    so it runs as many short blocks: the more warps an SM holds, the busier
+    its special-function units."""
+    vec = 16 // itemsize
+    if not aligned or D % vec or D > _STREAM_NV_MAX * 32 * vec:
+        return "direct", 1, 256
+    return "stream", max(1, -(-L // _STREAM_ROWS_PER_BLOCK)), _STREAM_THREADS
+
+
 def attention_beam_reference(
     ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,10 +135,11 @@ def attention_beam_reference(
 def attention_scores_reference(
     ce: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version of the scores kernel: e [B, K, L], computed in fp32
-    from inputs of either dtype, as the kernel computes it."""
-    t = torch.tanh(ce.float()[:, None, :, :] + hp.float()[:, :, None, :])  # [B, K, L, D]
-    return torch.einsum("bkld,d->bkl", t, watt.float())
+    """Plain version of the scores kernel: e [B, K, L] fp32. ce + hp and its
+    tanh are formed in the inputs' dtype, as the JAX kernel's body forms them
+    and as the kernel does; the products with w_att and the sum are fp32."""
+    t = torch.tanh(ce[:, None, :, :] + hp[:, :, None, :])  # [B, K, L, D]
+    return torch.einsum("bkld,d->bkl", t.float(), watt.float())
 
 
 def attention_beam_st_reference(
@@ -182,6 +219,42 @@ def attention_beam(
     return attention_beam_cluster(ce, f, hp, watt)
 
 
+def _scores_shapes(ce, hp, watt) -> Tuple[int, int, int, int]:
+    # f is not read; ce stands in for it in the shape check
+    return attention_shapes("attention_scores", ce, ce, hp, watt)
+
+
+def _launch_scores(ce, hp, watt, dims, design: str, S: int, threads: int) -> torch.Tensor:
+    """Launch the scores kernel on checked CUDA tensors of ``dims`` (B, K, L,
+    D) by ``design`` (``stream`` with S blocks of ``threads`` threads per
+    image, or ``direct``) and count it under ``attention_scores``, by design
+    ``stream<S>`` or ``direct``."""
+    name = "attention_scores"
+    B, K, L, D = dims
+    e = torch.empty((B, K, L), dtype=torch.float32, device=ce.device)
+    if B == 0 or L == 0:
+        return e
+    lib = cuda_lib.library("beam_attention.cu")
+    operands = (cuda_lib.ptr(ce), cuda_lib.ptr(hp), cuda_lib.ptr(watt), cuda_lib.ptr(e), B, K, L, D)
+    if design == "direct":
+        vec = int(cuda_lib.vectorizable((D,), ce))
+        err = lib.sat_attention_scores(*operands, cuda_lib.dtype_code(ce), vec, cuda_lib.stream(ce.device))
+    else:
+        err = lib.sat_attention_scores_stream(
+            *operands, cuda_lib.dtype_code(ce), S, threads, cuda_lib.stream(ce.device))
+        design = f"stream{S}"
+    cuda_lib.check(err, name)
+    cuda_lib.count(name, design)
+    return e
+
+
+def attention_scores_direct(ce: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor) -> torch.Tensor:
+    """The scores on CUDA tensors by the ``direct`` design (the first kernel,
+    a block per image) whatever the shape: what ``scores_plan`` falls back
+    to, and the baseline the streaming design is timed against."""
+    return _launch_scores(ce, hp, watt, _scores_shapes(ce, hp, watt), "direct", 1, 256)
+
+
 def attention_scores(
     ce: torch.Tensor,  # [B, L, D]
     hp: torch.Tensor,  # [B, K, D]
@@ -189,24 +262,15 @@ def attention_scores(
     variant: str = "s16",
 ) -> torch.Tensor:
     """Raw scores ``e [B, K, L]`` fp32 = tanh(ce + hp_k) . watt: the kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, by the design ``scores_plan`` picks, counted under
+    ``attention_scores`` by design ``stream<S>`` or ``direct``; the plain
+    version for CPU tensors."""
     _check_variant(variant, SCORE_VARIANTS)
     if not ce.is_cuda:
         return attention_scores_reference(ce, hp, watt)
-    name = "attention_scores"
-    # f is not read; ce stands in for it in the shape check
-    B, K, L, D = attention_shapes(name, ce, ce, hp, watt)
-    e = torch.empty((B, K, L), dtype=torch.float32, device=ce.device)
-    if B == 0 or L == 0:
-        return e
-    vec = int(cuda_lib.vectorizable((D,), ce))
-    err = cuda_lib.library("beam_attention.cu").sat_attention_scores(
-        cuda_lib.ptr(ce), cuda_lib.ptr(hp), cuda_lib.ptr(watt), cuda_lib.ptr(e),
-        B, K, L, D, cuda_lib.dtype_code(ce), vec, cuda_lib.stream(ce.device),
-    )
-    cuda_lib.check(err, name)
-    cuda_lib.LAUNCHES[name] += 1
-    return e
+    dims = B, K, L, D = _scores_shapes(ce, hp, watt)
+    plan = scores_plan(K, L, D, ce.element_size(), cuda_lib.vectorizable((D,), ce, hp, watt))
+    return _launch_scores(ce, hp, watt, dims, *plan)
 
 
 def attention_beam_hybrid(

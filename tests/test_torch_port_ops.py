@@ -24,12 +24,13 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 from show_and_tell_tpu_torch.ops import fused_attention as tfa
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda
 from show_and_tell_tpu_torch.ops import lstm as tlstm
+from show_and_tell_tpu_torch.ops import tanh_probe as tprobe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_and_tell_tpu_torch")
 KERNELS = (
     "lstm_cell", "additive_attention", "attention_beam",
-    "attention_beam_grid2", "attention_beam_st", "attention_scores",
+    "attention_beam_grid2", "attention_beam_st", "attention_scores", "tanh_probe",
 )
 
 # (jax dtype, torch dtype, atol)
@@ -177,6 +178,8 @@ def test_wrappers_take_plain_path_on_cpu():
     for variant in tfda.SCORE_VARIANTS:
         assert torch.equal(tfda.attention_scores(t["ce"], hp3, t["w_att"], variant),
                            tfda.attention_scores_reference(t["ce"], hp3, t["w_att"]))
+    for form in (None, *tprobe.TANH_FORMS):
+        assert torch.equal(tprobe.tanh_probe(t["ce"], hp3, form), tprobe.tanh_probe_reference(t["ce"], hp3))
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
 
 
@@ -192,6 +195,10 @@ def test_kernel_launchers_refuse_cpu_tensors():
             tfa.launch_attention(name, t["ce"], t["f"], hp, t["w_att"])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfda.attention_beam_cluster(t["ce"], t["f"], hp, t["w_att"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.attention_rows(t["ce"], t["f"], hp[:, 0], t["w_att"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfda.attention_scores_direct(t["ce"], hp, t["w_att"])
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
 
 
@@ -252,6 +259,39 @@ def test_attention_scores_and_hybrid_match_jax_pallas(variant, dt):
     kctx, kalpha = jfda.attention_beam_hybrid(jce, jf, jhp, jw, variant=jv)
     _close(kctx, ctx, atol)
     _close(kalpha, alpha, atol)
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,K,L,D", [(4, 3, 13, 64), (2, 1, 5, 36)])
+def test_tanh_probe_plain_matches_jax(B, K, L, D, dt):
+    """tanh_probe's plain version against the JAX benchmark's expression for
+    the same sum (``xstep`` of ``micro_tanh``: tanh(ce + hp) in the input
+    type, summed over k and l, as fp32) in jax.numpy, fp32 within 1e-5 and
+    bf16 within 2e-2 of the output's scale. The Pallas body itself is nested
+    in ``micro_tanh`` with its shapes and no interpret switch, so it cannot be
+    called from a test; its body is that expression, beam by beam."""
+    jdt, tdt, _ = dt
+    rng = np.random.default_rng(7)
+    jce, ce = _both(rng.standard_normal((B, L, D)), jdt, tdt)
+    jhp, hp = _both(rng.standard_normal((B, K, D)), jdt, tdt)
+    out = tprobe.tanh_probe(ce, hp)
+    assert out.shape == (B, D) and out.dtype == torch.float32
+    t = jnp.tanh(jce[:, None, :, :] + jhp[:, :, None, :])
+    want = np.asarray(jnp.sum(t, axis=(1, 2)).astype(jnp.float32))
+    # the kernel body's order: per beam a sum over l in the input type, the
+    # beams added in fp32
+    body = sum(np.asarray(jnp.sum(jnp.tanh(jce + jhp[:, k, :][:, None, :]), axis=1).astype(jnp.float32))
+               for k in range(K))
+    for ref in (want, body):
+        atol = 1e-5 if tdt == torch.float32 else 2e-2 * np.abs(ref).max()
+        np.testing.assert_allclose(out.numpy(), ref, atol=atol, rtol=0)
+
+
+def test_tanh_probe_refuses_unknown_forms():
+    ce, hp = torch.zeros(2, 3, 8), torch.zeros(2, 1, 8)
+    with pytest.raises(ValueError, match="unknown tanh form"):
+        tprobe.tanh_probe(ce, hp, "tanh16")
+    assert set(tprobe.DEFAULT_FORM.values()) <= set(tprobe.TANH_FORMS)
 
 
 def test_unknown_variant_raises():
