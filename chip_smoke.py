@@ -12,11 +12,13 @@ Phases, each printing its own lines:
    one ``nvcc`` per source, all started together;
 3. each of the seven kernels against its plain PyTorch version on the card, at
    the serving shapes and at unaligned and ragged ones (the cell: B=300,
-   I=H=1000, B=1; the attentions and the scores: K=2, 4 and 8, B=1, L=1, 13
-   and 197, D=1000 and 1024, an unaligned view), in fp32 and bf16, each line
-   naming the design that ran (the cell's ``wgmma`` or ``tiled`` kernel, the
-   beam attention's cluster size and loads, the per-row attention's
-   ``onepass<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
+   I=H=1000, B=1; the attentions and the scores: K=1, 2, 4 and 8, B=1, L=1,
+   13, 64 and 197, D=36, 1000 and 1024, unaligned views, and the first
+   kernels of rows 2 and 4-6 by name), in fp32 and bf16, each line naming the
+   design that ran (the cell's ``wgmma`` or ``tiled`` kernel, the beam
+   attention's cluster size and loads, the per-row attention's and the
+   (image, beam) grid's ``onepass<C>`` or ``direct``, the transposed form's
+   ``cluster<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
    probe's tanh form; the forms of the probe that do not meet the tolerance
    are printed, not held): every output
    within an absolute tolerance and, relative to the output's own scale (max
@@ -36,9 +38,10 @@ Phases, each printing its own lines:
    (also printed host-paced, without the head start) and, for the cell,
    ``torch.lstm_cell``'s as a yardstick, with the design that ran; the ce
    transpose that the ``st_*`` variants pay per call is timed apart; the
-   first (``direct``) kernels of the per-row attention and of the scores,
-   and the cluster kernel at K=1, are timed beside the design the plan
-   picks; the tanh probe is timed per tanh form, with its tanh per second
+   first (``direct``) kernels of the per-row attention, the (image, beam)
+   grid, the transposed form and the scores, and the cluster kernel at K=1,
+   are timed beside the design the plan picks, each with its share of the
+   bound; the tanh probe is timed per tanh form, with its tanh per second
    beside the special-function rate assumed in the bounds and a plain read
    of the same ce, and then runs the JAX benchmark's probe loop (20 steps,
    each feeding the next step's hp), its launches counted;
@@ -60,7 +63,9 @@ Phases, each printing its own lines:
    cell and the head, the argmax feeding the next step; per route the ms per
    step (least and median of 10 decodes, and how much of it the host spends
    queueing the launches), its kernel's launches (20; ``hybrid-s16`` by the
-   scores' streaming design), its step logits against the default route's,
+   scores' streaming design, ``grid2`` by the one-pass design, ``st_cmxu``
+   by the transposed form's cluster design), its step logits against the
+   default route's,
    and one traced decode (device busy share, top kernels);
 7. training: the Show-Attend-Tell train step at full width (bf16, batch 256,
    T=20, uint8 images with synthetic captions from the seed): warm steps,
@@ -152,7 +157,7 @@ SOURCES = {
     "lstm_cell": "show_and_tell_tpu_torch/csrc/lstm_cell.cu",
     "additive_attention": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
     "attention_beam": "show_and_tell_tpu_torch/csrc/decode_attention.cu",
-    "attention_beam_grid2": _BEAM_CU,
+    "attention_beam_grid2": "show_and_tell_tpu_torch/csrc/additive_attention.cu",
     "attention_beam_st": _BEAM_CU,
     "attention_scores": _BEAM_CU,
     "tanh_probe": "show_and_tell_tpu_torch/csrc/tanh_probe.cu",
@@ -492,20 +497,41 @@ def phase_check():
         assert design == "direct", design
         report("additive_attention", shape + " view", dtype, {"ctx": (ck, cro), "alpha": (ak, aro)}, tol, False,
                design)
-        # rows 4-6, through the public API by variant name; the scores are
-        # held like alpha, and the hybrid's plain softmax and context beside
+        # rows 4-6, through the public API by variant name, each by the design
+        # its plan picks; the scores are held like alpha, and the hybrid's
+        # plain softmax and context beside
         for B, K, L, D, serving in ((256, 3, 196, 512, True), (256, 3, 13, 512, False),
                                     (5, 3, 13, 36, False), (1, 3, 196, 512, False),
                                     (256, 3, 1, 512, False), (64, 3, 197, 512, False),
                                     (16, 3, 196, 1000, False), (16, 3, 196, 1024, False),
-                                    (256, 1, 196, 512, False), (64, 8, 196, 512, False)):
+                                    (256, 1, 196, 512, False), (64, 8, 196, 512, False),
+                                    (32, 3, 64, 512, False)):
             ce, f, hp, watt = attention_inputs(B, K, L, D, dtype, SEED + 1)
             cr, ar = fda.attention_beam_reference(ce, f, hp, watt)
             shape, tol = f"B={B} K={K} L={L} D={D}", TOL[dtype]["attention"]
             for name, variant in (("attention_beam_grid2", "grid2"), ("attention_beam_st", "st_cmxu")):
+                cuda_lib.LAUNCHES.clear()
                 ck, ak = fda.attention_beam(ce, f, hp, watt, variant=variant)
                 assert ck.dtype == dtype and ak.dtype == torch.float32
-                report(name, shape, dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, serving)
+                report(name, shape, dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, serving, _design(name))
+            if serving:  # the first kernels by name, and unaligned views, which take them by the plan
+                cet = ce.transpose(1, 2).contiguous()
+                for name, fn in (("attention_beam_grid2", lambda: fa.launch_attention(name, ce, f, hp, watt)),
+                                 ("attention_beam_st", lambda: fda.attention_beam_st_direct(cet, f, hp, watt))):
+                    cuda_lib.LAUNCHES.clear()
+                    ck, ak = fn()
+                    report(name, shape, dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, False, _design(name))
+                for name, variant, x in (("attention_beam_grid2", "grid2", ce), ("attention_beam_st", "st_cmxu", cet)):
+                    off = torch.empty(x.numel() + 8, dtype=dtype, device="cuda")[1:1 + x.numel()].view(x.shape)
+                    off.copy_(x)
+                    assert off.is_contiguous() and off.data_ptr() % 8
+                    cuda_lib.LAUNCHES.clear()
+                    if variant == "grid2":
+                        ck, ak = fda.attention_beam(off, f, hp, watt, variant=variant)
+                    else:
+                        ck, ak = fda.attention_beam_st(off, f, hp, watt)
+                    assert _design(name) == "direct", _design(name)
+                    report(name, shape + " view", dtype, {"ctx": (ck, cr), "alpha": (ak, ar)}, tol, False, "direct")
             er = fda.attention_scores_reference(ce, hp, watt)
             cuda_lib.LAUNCHES.clear()
             e = fda.attention_scores(ce, hp, watt, "s16")
@@ -671,20 +697,22 @@ def phase_times():
         attention_bound(B, 1, L, D, dt),
     )
     # the first kernel, and for the per-row attention the cluster kernel at
-    # K=1 (the baseline its one-pass design has to beat), then the plan's again
-    def beside(name, others, planned):
+    # K=1 (the baseline its one-pass design has to beat), then the plan's
+    # again, each with its share of the bound
+    def beside(name, others, planned, bound_ms):
         for label, fn in others:
-            print(f"    {label}: {time_cold(fn):.4f} ms")
+            ms = time_cold(fn)
+            print(f"    {label}: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
         cuda_lib.LAUNCHES.clear()
         ms = time_cold(planned)
-        print(f"    {name} by the plan's {_design(name)}, again: {ms:.4f} ms")
+        print(f"    {name} by the plan's {_design(name)}, again: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
 
     beside("additive_attention",
            [("additive_attention by direct (the first kernel)",
              lambda: fa.launch_attention("additive_attention", ce, f, hp, watt)),
             ("attention_beam at K=1 (cluster kernel, " + "-".join(map(str, fda.beam_plan(1, L, D, 2, True))) + ")",
              lambda: fda.attention_beam_cluster(ce, f, hp, watt))],
-           lambda: fa.fused_attention(ce, f, hp1, watt))
+           lambda: fa.fused_attention(ce, f, hp1, watt), rows["additive_attention"]["bound_ms"])
     ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
     shape = f"B={B} K=3 L={L} D={D}"
     rows["attention_beam"] = show(
@@ -699,6 +727,10 @@ def phase_times():
         lambda: fda.attention_beam_reference(ce, f, hp, watt),
         attention_bound(B, 3, L, D, dt),
     )
+    beside("attention_beam_grid2",
+           [("attention_beam_grid2 by direct (the first kernel)",
+             lambda: fa.launch_attention("attention_beam_grid2", ce, f, hp, watt))],
+           lambda: fda.attention_beam(ce, f, hp, watt, variant="grid2"), rows["attention_beam_grid2"]["bound_ms"])
     # the kernel on a ce^T made beforehand: a decode transposes the
     # step-invariant ce once; attention_beam(variant="st_*") pays the
     # transpose on every call, timed apart below
@@ -709,6 +741,16 @@ def phase_times():
         lambda: fda.attention_beam_st_reference(cet, f, hp, watt),
         attention_bound(B, 3, L, D, dt),
     )
+    beside("attention_beam_st",
+           [("attention_beam_st by direct (the first kernel)", lambda: fda.attention_beam_st_direct(cet, f, hp, watt))],
+           lambda: fda.attention_beam_st(cet, f, hp, watt), rows["attention_beam_st"]["bound_ms"])
+    # the cluster design at K=1: the same bytes and skeleton (scores, block
+    # softmax, context, cluster merge) for a third of the tanh
+    hp1 = hp[:, :1].contiguous()
+    cuda_lib.LAUNCHES.clear()
+    ms = time_cold(lambda: fda.attention_beam_st(cet, f, hp1, watt))
+    print(f"    attention_beam_st at K=1 by {_design('attention_beam_st')}: {ms:.4f} ms "
+          f"({attention_bound(B, 1, L, D, dt)[0] / ms:.1%} of its bound)")
     t_ms = time_cold(lambda: ce.transpose(1, 2).contiguous())
     t_bound = 2 * ce.numel() * ce.element_size() / PEAK_BYTES_PER_S * 1e3
     print(f"  {'ce transpose (plain)':19s} B={B} L={L} D={D}{'':8s} ms {t_ms:.4f}  bound_ms {t_bound:.4f} "
@@ -721,7 +763,7 @@ def phase_times():
     )
     beside("attention_scores",
            [("attention_scores by direct (the first kernel)", lambda: fda.attention_scores_direct(ce, hp, watt))],
-           lambda: fda.attention_scores(ce, hp, watt, "s16"))
+           lambda: fda.attention_scores(ce, hp, watt, "s16"), rows["attention_scores"]["bound_ms"])
 
     # the probe: one line in the table by the default form, then every form
     # with its tanh per second beside the special-function rate assumed above
@@ -967,6 +1009,11 @@ def phase_beam_routes(model, cfg, images):
             return logits_all, picks
 
         ref_logits, ref_tokens = chain("s16_cmxu")
+        # the design each route's kernel must have launched 20 times, by its plan
+        plans = {"hybrid-s16": fda.scores_plan(K, 196, D, 2, True)[:2],
+                 "grid2": fda.grid2_plan(N, K, 196, D, 2, True)[:2],
+                 "st_cmxu": fda.st_plan(K, 196, D, 2, True)}
+        assert [p[0] for p in plans.values()] == ["stream", "onepass", "cluster"], plans
         launches = {}
         for route, (kernel, _) in routes.items():
             chain(route, ref_tokens)  # warm
@@ -995,13 +1042,11 @@ def phase_beam_routes(model, cfg, images):
             rtol = LOGITS_RTOL[model.cdtype]
             print(f"  {route:11s} {ms:.4f} ms/step (median of {CHAIN_REPS} decodes of {STEPS} steps, least "
                   f"{min(secs) / STEPS * 1e3:.4f}, most {max(secs) / STEPS * 1e3:.4f}; the host queueing "
-                  f"{sum(queued) / sum(secs):.1%} of it)  launches {kernel} {n}, lstm_cell {n_cell}  "
-                  f"step logits vs s16_cmxu max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
+                  f"{sum(queued) / sum(secs):.1%} of it)  launches {kernel} {n} {kernel_designs}, lstm_cell "
+                  f"{n_cell}  step logits vs s16_cmxu max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
             assert n == STEPS and n_cell == STEPS, f"{route}: {kernel} launched {n} times, cell {n_cell}"
-            if route == "hybrid-s16":  # the streaming design, at the plan's split of 196 rows
-                plan = fda.scores_plan(K, 196, D, 2, True)
-                assert plan[0] == "stream", plan
-                assert kernel_designs == {f"stream{plan[1]}": STEPS}, kernel_designs
+            if route in plans:  # the newer design, at the plan's split of 196 rows
+                assert kernel_designs == {"".join(map(str, plans[route])): STEPS}, (route, kernel_designs)
             assert worst <= rtol, f"{route}: step logits disagree with the default route"
             launches[kernel] = n
             profile_window(lambda: chain(route, ref_tokens), route, top=5)

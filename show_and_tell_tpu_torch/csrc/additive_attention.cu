@@ -2,9 +2,12 @@
 // image (K = 1), on Hopper (sm_90a).
 //
 // Replaces: show_and_tell_tpu/ops/fused_attention.py `_attn_kernel` (greedy
-// decoding, and the forward of training's attention). The beam-shared form
-// (K beams per image) is csrc/decode_attention.cu's; the kernel below is
-// written for any K, and only its K = 1 instance is built.
+// decoding, and the forward of training's attention), and, by the one-pass
+// kernel with K rows of hp per image,
+// show_and_tell_tpu/ops/fused_decode_attention.py `_kernel_grid2` (the
+// (image, beam) grid, `variant="grid2"`). The beam-shared form (K beams per
+// image in one block row) is csrc/decode_attention.cu's; the first kernel
+// below is written for any K, and only its K = 1 instance is built.
 //
 // For image b and beam k:
 //     e[k, l]   = sum_d tanh(ce[b, l, d] + hp[b, k, d]) * w_att[d]   (fp32)
@@ -26,6 +29,13 @@
 // multiples of at most 32 elements per lane and 16-byte aligned operands
 // (the serving and training shapes). What held the first design back was
 // bytes in flight and three phases with block barriers between them, so:
+//   - (the (image, beam) grid) with K rows of hp per image, block row b
+//     reads image b / K, the beam innermost as the TPU grid runs it: the K
+//     blocks of an image run together, so the second and third reads of its
+//     ce and f come from the 50 MB L2 (K=3 at the serving shape takes about
+//     1.4 times the per-row attention's time on the H100, PERF.md). The K = 1
+//     instance is the per-row attention's kernel as it was, the image index
+//     a template choice;
 //   - an image is split over C blocks (a cluster; C from the plan), each
 //     with a contiguous share of the patch rows, and a warp takes every
 //     NW-th row of the share;
@@ -230,17 +240,20 @@ __host__ __device__ __forceinline__ size_t onepass_smem_floats(int NW, int NV, i
   return (size_t)NW * P * 2 * NV * 32 * 4 + (size_t)NW * D + D + 4 + 2 * 32 + Lc;
 }
 
-// NV: 16-byte vectors per lane that cover a row (D <= NV * 32 * VEC).
-template <typename T, int NV>
+// NV: 16-byte vectors per lane that cover a row (D <= NV * 32 * VEC). BEAMS:
+// K rows of hp per image, the (image, beam) grid, where row b of hp, ctx and
+// alpha reads image b / K; without it every row is its own image (K = 1).
+template <typename T, int NV, bool BEAMS>
 __global__ void __launch_bounds__(ONEPASS_NT_MAX)
 attention_onepass_kernel(const T* __restrict__ ce, const T* __restrict__ f,
                          const T* __restrict__ hp, const T* __restrict__ watt,
-                         T* __restrict__ ctx, float* __restrict__ alpha, int L, int D) {
+                         T* __restrict__ ctx, float* __restrict__ alpha, int K, int L, int D) {
   constexpr int VEC = 16 / sizeof(T);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int r = (int)cluster.block_rank();
-  const int b = blockIdx.x / C;
+  const int b = blockIdx.x / C;  // the row of hp, ctx and alpha
+  const int img = BEAMS ? b / K : b;
   const int Lc = (L + C - 1) / C;
   const int l0 = r * Lc;
   const int nl = max(0, min(L, l0 + Lc) - l0);  // rows of this block
@@ -257,8 +270,8 @@ attention_onepass_kernel(const T* __restrict__ ce, const T* __restrict__ f,
   float* s_e = s_ws + 32;             // [Lc] the block's scores
 
   // this warp's first P rows of ce and f on their way
-  const T* ce_b = ce + ((size_t)b * L + l0) * D;
-  const T* f_b = f + ((size_t)b * L + l0) * D;
+  const T* ce_b = ce + ((size_t)img * L + l0) * D;
+  const T* f_b = f + ((size_t)img * L + l0) * D;
   uint4* my = ring + (size_t)warp * P * 2 * NV * 32 + lane;  // stage p: my + p * 2 * NV * 32
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -407,19 +420,19 @@ attention_onepass_kernel(const T* __restrict__ ce, const T* __restrict__ f,
   cluster.sync();  // no block leaves while another still reads its context
 }
 
-template <typename T, int NV>
+template <typename T, int NV, bool BEAMS>
 cudaError_t launch_onepass_nv(const void* ce, const void* f, const void* hp, const void* watt,
-                              void* ctx, float* alpha, int B, int L, int D, int C, int nt,
+                              void* ctx, float* alpha, int B, int K, int L, int D, int C, int nt,
                               cudaStream_t s) {
   const int Lc = (L + C - 1) / C;
   const size_t smem = onepass_smem_floats(nt / 32, NV, Lc, D) * sizeof(float);
-  auto kern = attention_onepass_kernel<T, NV>;
+  auto kern = attention_onepass_kernel<T, NV, BEAMS>;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C);
+  cfg.gridDim = dim3(B * K * C);
   cfg.blockDim = dim3(nt);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -432,20 +445,30 @@ cudaError_t launch_onepass_nv(const void* ce, const void* f, const void* hp, con
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(ce), static_cast<const T*>(f),
                          static_cast<const T*>(hp), static_cast<const T*>(watt),
-                         static_cast<T*>(ctx), alpha, L, D);
+                         static_cast<T*>(ctx), alpha, K, L, D);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_onepass(const void* ce, const void* f, const void* hp, const void* watt,
-                           void* ctx, float* alpha, int B, int L, int D, int C, int nt,
-                           cudaStream_t s) {
+template <typename T, bool BEAMS>
+cudaError_t launch_onepass_k(const void* ce, const void* f, const void* hp, const void* watt,
+                             void* ctx, float* alpha, int B, int K, int L, int D, int C, int nt,
+                             cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
   if (D % VEC || D > 4 * 32 * VEC) return cudaErrorInvalidValue;
-  if (D <= 32 * VEC) return launch_onepass_nv<T, 1>(ce, f, hp, watt, ctx, alpha, B, L, D, C, nt, s);
-  if (D <= 2 * 32 * VEC) return launch_onepass_nv<T, 2>(ce, f, hp, watt, ctx, alpha, B, L, D, C, nt, s);
-  return launch_onepass_nv<T, 4>(ce, f, hp, watt, ctx, alpha, B, L, D, C, nt, s);
+  if (D <= 32 * VEC)
+    return launch_onepass_nv<T, 1, BEAMS>(ce, f, hp, watt, ctx, alpha, B, K, L, D, C, nt, s);
+  if (D <= 2 * 32 * VEC)
+    return launch_onepass_nv<T, 2, BEAMS>(ce, f, hp, watt, ctx, alpha, B, K, L, D, C, nt, s);
+  return launch_onepass_nv<T, 4, BEAMS>(ce, f, hp, watt, ctx, alpha, B, K, L, D, C, nt, s);
+}
+
+template <typename T>
+cudaError_t launch_onepass(const void* ce, const void* f, const void* hp, const void* watt,
+                           void* ctx, float* alpha, int B, int K, int L, int D, int C, int nt,
+                           cudaStream_t s) {
+  if (K == 1) return launch_onepass_k<T, false>(ce, f, hp, watt, ctx, alpha, B, K, L, D, C, nt, s);
+  return launch_onepass_k<T, true>(ce, f, hp, watt, ctx, alpha, B, K, L, D, C, nt, s);
 }
 
 }  // namespace
@@ -468,22 +491,25 @@ extern "C" int sat_additive_attention(const void* ce, const void* f, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// The one-pass design for one row per image: ce, f [B, L, D], hp [B, D],
-// w_att [D] -> ctx [B, D], alpha [B, L] fp32. dtype: 0 = float32, 1 =
-// bfloat16. cluster: blocks per image, 1..8. threads: per block, a multiple
-// of 32 up to 256. Needs D a multiple of the 16-byte vector width, at most
-// 128 vectors per row, and ce, f, hp and w_att 16-byte aligned. Returns a
-// cudaError_t.
+// The one-pass design: ce, f [B, L, D], hp [B, K, D], w_att [D] -> ctx
+// [B, K, D], alpha [B, K, L] fp32, `cluster` blocks per row of hp (K = 1: the
+// per-row attention; K > 1: the (image, beam) grid, row b * K + k innermost).
+// dtype: 0 = float32, 1 = bfloat16. cluster: 1..8. threads: per
+// block, a multiple of 32 up to 256. Needs D a multiple of the 16-byte vector
+// width, at most 128 vectors per row, and ce, f, hp and w_att 16-byte
+// aligned. Returns a cudaError_t.
 extern "C" int sat_additive_attention_onepass(const void* ce, const void* f, const void* hp,
                                               const void* watt, void* ctx, float* alpha, int B,
-                                              int L, int D, int dtype, int cluster, int threads,
-                                              void* stream) {
+                                              int K, int L, int D, int dtype, int cluster,
+                                              int threads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || D <= 0 || cluster < 1 || cluster > ONEPASS_CMAX || threads < 32 ||
-      threads > ONEPASS_NT_MAX || threads % 32 || (long long)B * cluster > 0x7fffffffLL)
+  if (B <= 0 || K < 1 || L <= 0 || D <= 0 || cluster < 1 || cluster > ONEPASS_CMAX ||
+      threads < 32 || threads > ONEPASS_NT_MAX || threads % 32 ||
+      (long long)B * K * cluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_onepass<float>(ce, f, hp, watt, ctx, alpha, B, L, D, cluster, threads, s);
+  if (dtype == 0)
+    return (int)launch_onepass<float>(ce, f, hp, watt, ctx, alpha, B, K, L, D, cluster, threads, s);
   if (dtype == 1)
-    return (int)launch_onepass<__nv_bfloat16>(ce, f, hp, watt, ctx, alpha, B, L, D, cluster, threads, s);
+    return (int)launch_onepass<__nv_bfloat16>(ce, f, hp, watt, ctx, alpha, B, K, L, D, cluster, threads, s);
   return (int)cudaErrorInvalidValue;
 }

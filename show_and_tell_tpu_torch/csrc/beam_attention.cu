@@ -4,22 +4,27 @@
 //   - attention_scores_stream_kernel, and attention_scores_kernel for the
 //     shapes it does not take: `_score_kernel` (scores only, the first half
 //     of `attention_beam_hybrid`);
-//   - attention_st_kernel: `_kernel_st` (ce transposed to [B, D, L]);
-//   - attention_grid2_kernel: `_kernel_grid2` (an (image, beam) grid).
+//   - attention_st_cluster_kernel, and attention_st_kernel for the shapes it
+//     does not take: `_kernel_st` (ce transposed to [B, D, L]);
+//   - attention_grid2_kernel: `_kernel_grid2` (an (image, beam) grid), for
+//     the shapes the one-pass kernel of additive_attention.cu, which runs
+//     the grid otherwise, does not take.
 //
 // They compute the function of additive_attention.cu: for image b and beam k,
 //     e[k, l]   = sum_d tanh(ce[b, l, d] + hp[b, k, d]) * w_att[d]   (fp32)
 //     alpha[k]  = softmax_l(e[k]);  ctx[k, d] = sum_l alpha[k, l] f[b, l, d] / L
 // with every product and sum in fp32. The TPU kernels' bf16 products and
 // sums (the `s16` and `st` score forms) are not reproduced: on Hopper the
-// score forms are one function. The streaming scores kernel forms ce + hp
-// and its tanh in the input type, as `_score_kernel` does.
+// score forms are one function. The streaming scores kernel and the cluster
+// kernel of the transposed form form ce + hp and its tanh in the input type,
+// as `_score_kernel` does.
 //
 // Bounds on an H100 at the serving shape (B=256, K=3, L=196, D=512, bf16):
-// the 77.1 M tanh of the scores, at tens of instructions each for the precise
-// tanhf, against 51.4 MB of ce (scores only) or 102.8 MB of ce and f read
-// once at 3.35 TB/s (15.3 us and 30.7 us). All three sit near the line
-// between the two bounds, like the fused kernel.
+// 51.4 MB of ce (scores only) or 102.8 MB of ce and f read once at 3.35 TB/s
+// (15.3 us and 30.7 us), against the 77.1 M tanh of the scores, one
+// special-function operation each (`tanh.approx.bf16x2` runs as two per pair)
+// at 16 per clock per SM: 18.4 us. The scores alone are bound by their tanh,
+// the full forms by their bytes.
 //
 // Design:
 //   - scores only, `stream` (ops/fused_decode_attention.py `scores_plan`; rows
@@ -41,24 +46,49 @@
 //     fused kernel (a warp per patch row, ce[b] read once for all K beams,
 //     hp and w_att in shared memory as fp32, the precise tanhf), with the
 //     scores written straight to e.
-//   - transposed: one block per image; threads run along l, so each row
-//     ce^T[b, d, :] is a coalesced read, and each thread loops over d with
-//     its K scores in registers: the score needs no warp reduction, which is
-//     what the TPU layout was for. Softmax and context are the fused
-//     kernel's.
-//   - (image, beam) grid: one block per (image, beam) pair, the beam
-//     innermost (blockIdx.x = b * K + k), as the TPU grid runs k innermost.
-//     The K blocks of one image run close together in time, so the second
-//     and third reads of ce[b] and f[b] (200 KB each in bf16) can come from
-//     the 50 MB L2; device memory may still see up to K reads. Three times
-//     the blocks of the fused kernel (768 against 256 at the serving shape).
+//   - transposed, `cluster` (`st_plan`; ce^T rows of 8-byte multiples, f
+//     rows of 16-byte multiples, aligned operands): what the TPU layout was
+//     for stays, threads along l, so the score over d needs no warp
+//     reduction. What held the first kernel back was one block per image, a
+//     2-byte load per thread per d, three phases behind block barriers with
+//     f asked for only after the softmax, and the precise tanhf. So:
+//       * an image is split over a cluster of C blocks (5 at L=196 in bf16),
+//         each a slice of l; in a block the warps split D, and a lane takes
+//         an 8-byte vector of adjacent l (4 bf16: a ce^T row of L=196 is 392
+//         bytes, a multiple of 8 and not of 16, so ce^T needs no padding),
+//         32 / Vc rows of ce^T per instruction, so that 30 of 32 lanes are
+//         busy at L=196;
+//       * ce^T streams through a `cp.async` ring per warp, and one
+//         `add.bf16x2` + `tanh.approx.bf16x2` covers two patches against a
+//         broadcast hp[k, d] (fp32: `ex2.approx` + `rcp.approx`);
+//       * hp[b] and w_att arrive by one bulk copy, and the block's rows of f
+//         by another, both started first: f is in flight through the
+//         scores;
+//       * the warps' partial scores meet once in shared memory (over the
+//         ring), each block forms its slice's max m and sum s of exp and its
+//         partial context from its f rows, and the blocks meet once through
+//         distributed shared memory, each share weighed by exp(m_q - m) / s
+//         as in the one-pass kernel's merge; alpha reaches the context in
+//         fp32, not rounded to the input type first, inside the tolerances.
+//     Measured on the H100, what sets its pace is this skeleton (scores, a
+//     block softmax, the context, the cluster merge, each behind a barrier),
+//     not the tanh: K=1 takes within 20 % of K=3's time (PERF.md).
+//   - transposed, `direct`, the first design: one block per image; threads
+//     run along l, so each row ce^T[b, d, :] is a coalesced read, and each
+//     thread loops over d with its K scores in registers. Softmax and
+//     context are the fused kernel's.
+//   - (image, beam) grid, `direct`, the first design: one block per (image,
+//     beam) pair, the beam innermost (blockIdx.x = b * K + k), as the TPU
+//     grid runs k innermost. The shapes of 16-byte rows run on the one-pass
+//     kernel of additive_attention.cu instead.
 //
-// The phases below are those of additive_attention.cu's kernel, written as
-// device functions that these kernels share. That kernel keeps its own
-// copy: moved onto these functions it compiled to other code (K=3 about
-// 11 % faster, K=1 about 8 % slower on the H100), and the serving path it
-// runs is left as it was.
+// The phases below are those of additive_attention.cu's first kernel,
+// written as device functions that the `direct` kernels here share. That
+// kernel keeps its own copy: moved onto these functions it compiled to other
+// code (K=3 about 11 % faster, K=1 about 8 % slower on the H100), and the
+// serving path it runs is left as it was.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,6 +96,8 @@
 #include <stdint.h>
 
 #include "sat_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -424,6 +456,296 @@ cudaError_t launch_scores_stream(const void* ce, const void* hp, const void* wat
   }
 }
 
+// --- the transposed form, an image over a cluster ----------------------------
+
+constexpr int ST_CMAX = 8;  // blocks per image, at most (the portable cluster limit)
+constexpr int ST_P = 4;     // ring stages per warp (a power of two)
+constexpr int ST_U = 2;     // 8-byte ce^T vectors per lane per stage
+constexpr int ST_BAR = 16;  // the two mbarriers (hp and w_att; f), and the alignment of what follows
+
+// Dynamic shared memory of one block, in bytes; must agree with the kernel's
+// layout (and with `st_smem_bytes` in ops/fused_decode_attention.py): the
+// barriers, the block's Lc rows of f, the ce^T ring (NW warps x P stages x U
+// vectors x 32 lanes x 8 bytes), which the warps' partial scores and then the
+// partial context reuse once the scores are formed, hp[b] and w_att as they
+// are, then in fp32 the scores, the block's max and sum of exp, and the
+// cluster's weights.
+__host__ __device__ __forceinline__ size_t st_reuse_bytes(int K, int Lc, int D) {
+  const size_t ring = (size_t)NW * ST_P * ST_U * 32 * 8;
+  const size_t red = sizeof(float) * NW * K * Lc, part = sizeof(float) * K * D;
+  const size_t most = red > part ? red : part;
+  return ring > most ? ring : most;
+}
+__host__ __device__ __forceinline__ size_t st_smem_bytes(int K, int Lc, int D, int es) {
+  return ST_BAR + (size_t)Lc * D * es + st_reuse_bytes(K, Lc, D) + (size_t)(K + 1) * D * es +
+         sizeof(float) * ((size_t)K * Lc + 2 * K + (size_t)K * ST_CMAX);
+}
+
+// two consecutive elements as fp32
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// acc[q] += tanh(ce[q] + h) * w over the VE elements (adjacent patches l) of
+// the 8-byte vector `raw` of a ce^T row, against one element h of hp. bf16:
+// ce + hp and its tanh two patches at a time (`add.bf16x2`,
+// `tanh.approx.bf16x2`), rounded where the plain version rounds them; fp32:
+// the ex2-based tanh. Products and sums in fp32.
+__device__ __forceinline__ void st_score(float (&acc)[4], const uint2& raw, __nv_bfloat16 h, float w) {
+  const __nv_bfloat162 h2 = __bfloat162bfloat162(h);
+  const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float2 t = __bfloat1622float2(sat::tanh_bf16x2(__hadd2(c2[p], h2)));
+    acc[2 * p] = fmaf(t.x, w, acc[2 * p]);
+    acc[2 * p + 1] = fmaf(t.y, w, acc[2 * p + 1]);
+  }
+}
+__device__ __forceinline__ void st_score(float (&acc)[2], const uint2& raw, float h, float w) {
+  const float2 c = *reinterpret_cast<const float2*>(&raw);
+  acc[0] = fmaf(sat::tanh_ex2(c.x + h), w, acc[0]);
+  acc[1] = fmaf(sat::tanh_ex2(c.y + h), w, acc[1]);
+}
+
+// ce^T [B, D, L]. Block r of image b's cluster takes the Vc 8-byte vectors of
+// l from r * Vc (Lc = Vc * VE patches). The warps split D; in a warp, lane i
+// takes vector i % Vc of ce^T row i / Vc of each group of R = 32 / Vc rows
+// (the lanes from R * Vc on idle), so one instruction covers R rows.
+template <typename T, int K>
+__global__ void __launch_bounds__(NT)
+attention_st_cluster_kernel(const T* __restrict__ cet, const T* __restrict__ f,
+                            const T* __restrict__ hp, const T* __restrict__ watt,
+                            T* __restrict__ ctx, float* __restrict__ alpha, int L, int D, int Vc) {
+  constexpr int VE = 8 / sizeof(T);  // elements of an 8-byte vector
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int r = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int Lc = Vc * VE;  // rows of f per block, the stride of the score arrays
+  const int v0 = r * Vc;
+  const int nv = max(0, min(L / VE, v0 + Vc) - v0);  // vectors of l of this block
+  const int l0 = v0 * VE, nl = nv * VE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = 32 / Vc;
+  const int v = lane % Vc, sub = lane / Vc;  // this lane's vector of l, and row of a group
+  const bool live = sub < R && v < nv;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* s_f = reinterpret_cast<T*>(smem + ST_BAR);                       // [Lc][D]
+  uint2* ring = reinterpret_cast<uint2*>(s_f + (size_t)Lc * D);       // [NW][P][U][32]
+  const size_t reuse = st_reuse_bytes(K, Lc, D);
+  float* s_red = reinterpret_cast<float*>(ring);                      // [NW][K][Lc], after the scores
+  float* s_part = reinterpret_cast<float*>(ring);                     // [K][D], after the sum of s_red
+  T* s_hp = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(ring) + reuse);  // [K][D]
+  T* s_w = s_hp + K * D;                                              // [D]
+  float* s_e = reinterpret_cast<float*>(s_w + D);                     // [K][Lc] scores, then exp(e - m)
+  float* s_stat = s_e + K * Lc;                                       // [K] max, [K] sum of exp
+  float* s_wgt = s_stat + 2 * K;                                      // [K][CMAX] the blocks' weights
+
+  // hp[b] and w_att, then the block's rows of f: bulk copies, f in flight
+  // through the scores
+  const uint32_t bar_hp = sat::smem_u32(smem), bar_f = bar_hp + 8;
+  if (tid == 0) {
+    sat::mbar_init(bar_hp);
+    sat::mbar_init(bar_f);
+    sat::expect_bytes(bar_hp, (uint32_t)((K + 1) * D * sizeof(T)));
+    sat::bulk_copy(bar_hp, s_hp, hp + (size_t)b * K * D, (uint32_t)(K * D * sizeof(T)));
+    sat::bulk_copy(bar_hp, s_w, watt, (uint32_t)(D * sizeof(T)));
+    const uint32_t f_bytes = (uint32_t)((size_t)nl * D * sizeof(T));
+    sat::expect_bytes(bar_f, f_bytes);
+    sat::bulk_copy(bar_f, s_f, f + ((size_t)b * L + l0) * D, f_bytes);
+  }
+
+  // this warp's rows d of ce^T, R per instruction and R * U per stage, on
+  // their way into its ring: P stages ahead
+  const int Dw = (D + NW - 1) / NW;
+  const int dw0 = min(D, warp * Dw), dw1 = min(D, dw0 + Dw);
+  const int steps = (dw1 - dw0 + R * ST_U - 1) / (R * ST_U);
+  const T* src = cet + (size_t)b * D * L + l0 + v * VE;
+  uint2* my = ring + (size_t)warp * ST_P * ST_U * 32 + lane;  // stage p, vector u: my[(p * U + u) * 32]
+  auto fill = [&](int p, int j) {
+#pragma unroll
+    for (int u = 0; u < ST_U; ++u) {
+      const int d = dw0 + (j * ST_U + u) * R + sub;
+      if (live && d < dw1) sat::cp_async8(my + (p * ST_U + u) * 32, src + (size_t)d * L);
+    }
+    sat::cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p < ST_P; ++p) fill(p, p);
+  __syncthreads();  // the barriers are initialised
+  sat::mbar_wait(bar_hp, 0);
+
+  // 1. the partial scores over this warp's d, K x VE per lane in registers
+  float acc[K][VE];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int q = 0; q < VE; ++q) acc[k][q] = 0.f;
+  for (int j = 0; j < steps; ++j) {
+    sat::cp_async_wait<ST_P - 1>();  // step j has landed in stage j % P
+    const int p = j & (ST_P - 1);
+#pragma unroll
+    for (int u = 0; u < ST_U; ++u) {
+      const int d = dw0 + (j * ST_U + u) * R + sub;
+      if (live && d < dw1) {
+        const uint2 raw = my[(p * ST_U + u) * 32];
+        const float w = to_f(s_w[d]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) st_score(acc[k], raw, s_hp[k * D + d], w);
+      }
+    }
+    fill(p, j + ST_P);  // the stage is used: refill it P steps ahead
+  }
+  // the R lanes of one vector of l meet in the first, then the warps, once,
+  // in shared memory (over the ring, which every warp has finished with)
+  for (int g = 1; g < R; ++g) {
+    const int from = min(31, lane + g * Vc);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int q = 0; q < VE; ++q) {
+        const float o = __shfl_sync(0xffffffffu, acc[k][q], from);
+        if (sub == 0) acc[k][q] += o;
+      }
+  }
+  __syncthreads();
+  if (sub == 0 && live) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int q = 0; q < VE; ++q) s_red[(warp * K + k) * Lc + v * VE + q] = acc[k][q];
+  }
+  __syncthreads();
+  for (int i = tid; i < K * nl; i += NT) {
+    const int k = i / nl, l = i - k * nl;
+    float e = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) e += s_red[(w * K + k) * Lc + l];
+    s_e[k * Lc + l] = e;
+  }
+  __syncthreads();
+
+  // 2. the block's max and sum of exp per beam; s_e becomes exp(e - m)
+  if (warp < K) {
+    float* e = s_e + warp * Lc;
+    float m = -INFINITY;
+    for (int l = lane; l < nl; l += 32) m = fmaxf(m, e[l]);
+    m = sat::warp_max(m);
+    float s = 0.f;
+    for (int l = lane; l < nl; l += 32) {
+      const float pl = expf(e[l] - m);
+      e[l] = pl;
+      s += pl;
+    }
+    s = sat::warp_sum(s);
+    if (lane == 0) {
+      s_stat[warp] = m;
+      s_stat[K + warp] = s;
+    }
+  }
+  __syncthreads();
+
+  // 3. the block's context over its rows of f, all K in fp32
+  sat::mbar_wait(bar_f, 0);
+  for (int d = 2 * tid; d < D; d += 2 * NT) {
+    float a0[K], a1[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a0[k] = a1[k] = 0.f;
+    for (int l = 0; l < nl; ++l) {
+      const float2 fv = load2(s_f + (size_t)l * D + d);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        a0[k] = fmaf(s_e[k * Lc + l], fv.x, a0[k]);
+        a1[k] = fmaf(s_e[k * Lc + l], fv.y, a1[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s_part[k * D + d] = a0[k];
+      s_part[k * D + d + 1] = a1[k];
+    }
+  }
+
+  // 4. the blocks of the image meet once, through distributed shared memory:
+  // block q's share weighs exp(m_q - m) / s under the image's max m and sum s
+  cluster.sync();
+  if (warp < K) {
+    float mq = -INFINITY, sq = 0.f;
+    if (lane < C) {
+      const float* st = cluster.map_shared_rank(s_stat, lane);
+      mq = st[warp];
+      sq = st[K + warp];
+    }
+    const float mg = sat::warp_max(mq);
+    const float wq = sq > 0.f ? expf(mq - mg) : 0.f;
+    const float sg = sat::warp_sum(sq * wq);
+    if (lane < C) s_wgt[warp * ST_CMAX + lane] = wq / sg;
+  }
+  __syncthreads();
+  for (int i = tid; i < K * nl; i += NT) {
+    const int k = i / nl, l = i - k * nl;
+    alpha[((size_t)b * K + k) * L + l0 + l] = s_e[k * Lc + l] * s_wgt[k * ST_CMAX + r];
+  }
+  // block r sums the C contexts of its slice of D
+  const int Dc = (D + C - 1) / C;
+  const int dlo = r * Dc, nd = max(0, min(D, dlo + Dc) - dlo);
+  const float inv_l = 1.f / (float)L;
+  for (int i = tid; i < K * nd; i += NT) {
+    const int k = i / nd, d = dlo + i - k * nd;
+    float c = 0.f;
+    for (int q = 0; q < C; ++q) c = fmaf(s_wgt[k * ST_CMAX + q], cluster.map_shared_rank(s_part, q)[k * D + d], c);
+    ctx[((size_t)b * K + k) * D + d] = from_f<T>(c * inv_l);
+  }
+  cluster.sync();  // no block leaves while another still reads its context
+}
+
+template <typename T, int K>
+cudaError_t launch_st_cluster_k(const void* cet, const void* f, const void* hp, const void* watt,
+                                void* ctx, float* alpha, int B, int L, int D, int C, cudaStream_t s) {
+  constexpr int VE = 8 / sizeof(T);
+  const int Vc = (L / VE + C - 1) / C;
+  if (L % VE || (D * sizeof(T)) % 16 || Vc > 32) return cudaErrorInvalidValue;
+  const size_t smem = st_smem_bytes(K, Vc * VE, D, sizeof(T));
+  auto kern = attention_st_cluster_kernel<T, K>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(cet), static_cast<const T*>(f),
+                         static_cast<const T*>(hp), static_cast<const T*>(watt),
+                         static_cast<T*>(ctx), alpha, L, D, Vc);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_st_cluster(const void* cet, const void* f, const void* hp, const void* watt,
+                              void* ctx, float* alpha, int B, int K, int L, int D, int C,
+                              cudaStream_t s) {
+  switch (K) {
+#define SAT_CASE(KK) \
+  case KK:           \
+    return launch_st_cluster_k<T, KK>(cet, f, hp, watt, ctx, alpha, B, L, D, C, s);
+    SAT_CASE(1) SAT_CASE(2) SAT_CASE(3) SAT_CASE(4)
+    SAT_CASE(5) SAT_CASE(6) SAT_CASE(7) SAT_CASE(8)
+#undef SAT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int K>
 cudaError_t launch_st_k(const void* cet, const void* f, const void* hp, const void* watt,
                         void* ctx, float* alpha, int B, int L, int D, cudaStream_t s) {
@@ -538,8 +860,30 @@ extern "C" int sat_attention_beam_st(const void* cet, const void* f, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// ce, f [B, L, D], hp [B, K, D], w_att [D] -> ctx [B, K, D], alpha [B, K, L]
-// fp32, one block per (image, beam).
+// The cluster design of the transposed form: ce^T [B, D, L], f [B, L, D], hp
+// [B, K, D], w_att [D] -> ctx [B, K, D], alpha [B, K, L] fp32, `cluster`
+// blocks (1..8) per image. Needs L * sizeof(T) a multiple of 8 and ce^T
+// 8-byte aligned, D * sizeof(T) a multiple of 16 and f, hp and w_att 16-byte
+// aligned, at most 32 vectors of l per block, and a block's layout within
+// shared memory.
+extern "C" int sat_attention_beam_st_cluster(const void* cet, const void* f, const void* hp,
+                                             const void* watt, void* ctx, float* alpha, int B,
+                                             int K, int L, int D, int dtype, int cluster,
+                                             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_shape(B, K, L, D) || cluster < 1 || cluster > ST_CMAX ||
+      (long long)B * cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_st_cluster<float>(cet, f, hp, watt, ctx, alpha, B, K, L, D, cluster, s);
+  if (dtype == 1)
+    return (int)launch_st_cluster<__nv_bfloat16>(cet, f, hp, watt, ctx, alpha, B, K, L, D, cluster, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The first design of the (image, beam) grid, for the shapes the one-pass
+// kernel of additive_attention.cu does not take: ce, f [B, L, D], hp [B, K,
+// D], w_att [D] -> ctx [B, K, D], alpha [B, K, L] fp32, one block per (image,
+// beam).
 extern "C" int sat_attention_beam_grid2(const void* ce, const void* f, const void* hp,
                                         const void* watt, void* ctx, float* alpha, int B, int K,
                                         int L, int D, int dtype, int vec, void* stream) {

@@ -1,14 +1,17 @@
 // Device functions shared by the streaming kernels of this directory
-// (tanh_probe.cu, the one-pass kernel of additive_attention.cu and the
-// row-streaming scores kernel of beam_attention.cu), for Hopper (sm_90a).
+// (tanh_probe.cu; the one-pass kernel of additive_attention.cu, which also
+// runs the (image, beam) grid; the row-streaming scores kernel and the
+// cluster kernel of the transposed form in beam_attention.cu), for Hopper
+// (sm_90a).
 //
-// The kernels that predate this header (the `direct` per-row attention, the
-// (image, beam) grid, the transposed form, the cluster kernel of
-// decode_attention.cu) keep their own copies of what they use, so that the
-// code they compile to stays as it was measured.
+// The kernels that predate this header (the `direct` designs of the per-row
+// attention, of the scores, of the (image, beam) grid and of the transposed
+// form, and the cluster kernel of decode_attention.cu) keep their own copies
+// of what they use, so that the code they compile to stays as it was
+// measured.
 //
-// Everything here works on a lane's 16-byte vector of a patch row: VEC = 8
-// bf16 or 4 fp32 elements. The tanh forms:
+// Most of what follows works on a lane's 16-byte vector of a patch row: VEC
+// = 8 bf16 or 4 fp32 elements. The tanh forms:
 //   - bf16: ce + hp and its tanh two at a time in bf16 (`add.bf16x2`,
 //     `tanh.approx.bf16x2`, which runs as one special-function operation
 //     per half), rounded where the plain versions round them;
@@ -144,6 +147,64 @@ __device__ __forceinline__ void copy_row(uint4* slots, const T* row, int lane, i
     const int d0 = (i * 32 + lane) * VEC;
     if (d0 < D) cp_async16(slots + i * 32, row + d0);
   }
+}
+
+// 8 bytes, through L1 (`.cg` takes only 16): the transposed form's ce^T rows
+// of L = 196 bf16 are 392 bytes, a multiple of 8 and not of 16.
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: an mbarrier for one arrival, made visible to the async proxy
+// (the other threads wait on it only after a barrier of the block).
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive on `bar` expecting `bytes` of bulk copies in this phase.
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` from global `src` to shared `dst` by one bulk asynchronous
+// copy that completes on `bar` (both 16-byte aligned, bytes a multiple of
+// 16; nothing for 0 bytes). The bytes are announced by `expect_bytes` first.
+__device__ __forceinline__ void bulk_copy(uint32_t bar, void* dst, const void* src, uint32_t bytes) {
+  if (bytes)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// Wait for phase `parity` of `bar`. A copy that never lands traps (a launch
+// error) after ~2^34 cycles instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done) {
+      if (t0 == 0) t0 = clock64();
+      else if (clock64() - t0 > (1LL << 34)) __trap();
+    }
+  } while (!done);
 }
 
 // A lane's vectors of a ring stage (those past the end of the row hold

@@ -54,12 +54,13 @@ _SIGNATURES = {
     },
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),
-        "sat_additive_attention_onepass": (_vp,) * 6 + (_i,) * 6 + (_vp,),
+        "sat_additive_attention_onepass": (_vp,) * 6 + (_i,) * 7 + (_vp,),
     },
     "beam_attention.cu": {
         "sat_attention_scores": (_vp,) * 4 + (_i,) * 6 + (_vp,),
         "sat_attention_scores_stream": (_vp,) * 4 + (_i,) * 7 + (_vp,),
         "sat_attention_beam_st": (_vp,) * 6 + (_i,) * 5 + (_vp,),
+        "sat_attention_beam_st_cluster": (_vp,) * 6 + (_i,) * 6 + (_vp,),
         "sat_attention_beam_grid2": (_vp,) * 6 + (_i,) * 6 + (_vp,),
     },
     "decode_attention.cu": {

@@ -14,6 +14,8 @@ alignment before the launch: ``onepass`` (an image split over a cluster of
 blocks, one pass over ce and f under a running max and sum of exp) for rows
 of 16-byte multiples, ``direct`` (a block per image, three phases) for the
 rest. On a CUDA tensor it never falls back: the launch succeeds or it raises.
+The (image, beam) grid of the beam attention (``variant="grid2"``) runs the
+same one-pass kernel with K rows of hp per image (``launch_onepass``).
 
 Training: ``FusedAttentionFunction`` runs the kernel forward and, in its
 backward, recomputes the plain chain and differentiates it with autograd.
@@ -79,9 +81,10 @@ def attention_plan(B: int, L: int, D: int, itemsize: int, aligned: bool) -> Tupl
     return "onepass", blocks_per_image(B, L, _ONEPASS_THREADS // 32, _CLUSTER_MAX), _ONEPASS_THREADS
 
 
-# launch-count name -> (source, C entry point). Both entry points take
-# (ce, f, hp, watt, ctx, alpha, B, K, L, D, dtype, vec, stream); the
-# beam-shared kernel has its own wrapper (``fused_decode_attention``).
+# launch-count name -> (source, C entry point) of the first (``direct``)
+# kernels. Both entry points take (ce, f, hp, watt, ctx, alpha, B, K, L, D,
+# dtype, vec, stream); the beam-shared kernel has its own wrapper
+# (``fused_decode_attention``).
 _ENTRIES = {
     "additive_attention": ("additive_attention.cu", "sat_additive_attention"),
     "attention_beam_grid2": ("beam_attention.cu", "sat_attention_beam_grid2"),
@@ -152,6 +155,31 @@ def launch_attention(
     return ctx, alpha
 
 
+def launch_onepass(
+    name: str, ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor,
+    C: int, threads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the one-pass kernel on checked CUDA tensors (ce, f [B, L, D];
+    hp [B, K, D]; C blocks of ``threads`` threads per row of hp, the rows of
+    an image together: K > 1 is the (image, beam) grid) and count it under
+    ``name`` by design ``onepass<C>``. Returns (context [B, K, D], alpha
+    [B, K, L] fp32)."""
+    B, L, D = ce.shape
+    K = hp.shape[1]
+    ctx = torch.empty((B, K, D), dtype=ce.dtype, device=ce.device)
+    alpha = torch.empty((B, K, L), dtype=torch.float32, device=ce.device)
+    if B == 0 or L == 0:
+        return ctx, alpha
+    err = cuda_lib.library("additive_attention.cu").sat_additive_attention_onepass(
+        cuda_lib.ptr(ce), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
+        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, cuda_lib.dtype_code(ce), C, threads,
+        cuda_lib.stream(ce.device),
+    )
+    cuda_lib.check(err, name)
+    cuda_lib.count(name, f"onepass{C}")
+    return ctx, alpha
+
+
 def attention_rows(
     ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -166,19 +194,9 @@ def attention_rows(
         B, L, D, ce.element_size(), cuda_lib.vectorizable((D,), ce, f, hp, watt))
     if design == "direct":
         ctx, alpha = launch_attention(name, ce, f, hp3, watt)
-        return ctx[:, 0], alpha[:, 0]
-    ctx = torch.empty((B, D), dtype=ce.dtype, device=ce.device)
-    alpha = torch.empty((B, L), dtype=torch.float32, device=ce.device)
-    if B == 0 or L == 0:
-        return ctx, alpha
-    err = cuda_lib.library("additive_attention.cu").sat_additive_attention_onepass(
-        cuda_lib.ptr(ce), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
-        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, L, D, cuda_lib.dtype_code(ce), C, threads,
-        cuda_lib.stream(ce.device),
-    )
-    cuda_lib.check(err, name)
-    cuda_lib.count(name, f"onepass{C}")
-    return ctx, alpha
+    else:
+        ctx, alpha = launch_onepass(name, ce, f, hp3, watt, C, threads)
+    return ctx[:, 0], alpha[:, 0]
 
 
 def _attention_forward(ce, f, hp, watt):

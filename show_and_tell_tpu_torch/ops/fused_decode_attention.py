@@ -11,15 +11,27 @@ Rows are beam-major per image (row ``b*K + j``), so the model passes
 ``h_proj.reshape(B, K, D)``.
 
 The names are the JAX package's (``VARIANTS``, ``SCORE_VARIANTS``); each
-runs one of four kernels:
+runs one of four kernels, by the design a pure planner picks from the shape,
+the type and the alignment (the first kernel, ``direct``, takes the shapes
+the newer design does not):
 
 - every ``s*_c*`` name (the default ``s16_cmxu``): the fused kernel of
   ``csrc/decode_attention.cu``, a cluster of ``beam_plan`` blocks per
   image, ce and f read once for all K beams;
-- ``grid2``: ``csrc/beam_attention.cu``, one block per (image, beam);
-- ``st_cmxu``, ``st_cvpu``: ``csrc/beam_attention.cu`` on ce transposed to
-  [B, D, L], transposed once per call by the wrapper (a caller that decodes
-  many steps can transpose once and call ``attention_beam_st``);
+- ``grid2``, the (image, beam) grid (``grid2_plan``): ``onepass<C>``, the
+  one-pass kernel of ``csrc/additive_attention.cu`` with one row of blocks
+  per (image, beam), the beam innermost, ce and f streamed through
+  ``cp.async`` rings under a running softmax (the K blocks of an image read
+  it close together in time, so the later reads can come from L2); or
+  ``direct``, ``csrc/beam_attention.cu``'s block per (image, beam);
+- ``st_cmxu``, ``st_cvpu``, on ce transposed to [B, D, L], transposed once
+  per call by the wrapper (a caller that decodes many steps can transpose
+  once and call ``attention_beam_st``) (``st_plan``): ``cluster<C>``, an
+  image over a cluster of C blocks of ``csrc/beam_attention.cu``, each a
+  slice of l, lanes along l, ce^T streamed through ``cp.async`` rings in
+  8-byte vectors (a row of L=196 bf16 is 392 bytes: no padding) and f by one
+  bulk copy, the blocks merged once under a running-softmax rescale; or
+  ``direct``, a block per image in three phases;
 - ``attention_scores`` (every name of ``SCORE_VARIANTS``): scores only, by
   the design ``scores_plan`` picks (``stream``: a grid of (image, slice of
   L), rows in 16-byte vectors; ``direct``: a block per image, for the shapes
@@ -42,7 +54,7 @@ import torch
 
 from show_and_tell_tpu_torch.ops import cuda_lib
 from show_and_tell_tpu_torch.ops.fused_attention import (
-    SMEM_LIMIT, attention_shapes, launch_attention, row_vectors,
+    SMEM_LIMIT, attention_plan, attention_shapes, launch_attention, launch_onepass, row_vectors,
 )
 
 # variant = "<score>_<context>": score in {s32, s16, smxu, st}, context in
@@ -119,6 +131,67 @@ def scores_plan(K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[s
     return "stream", max(1, -(-L // _STREAM_ROWS_PER_BLOCK)), _STREAM_THREADS
 
 
+def grid2_plan(B: int, K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[str, int, int]:
+    """(design, C, threads) for the (image, beam) grid: the per-row
+    attention's plan (``attention_plan``) over its B * K rows, since the
+    grid runs the one-pass kernel with one row of hp per block row:
+    ``onepass`` with C blocks per row (1 at B=256, K=3: 768 rows fill the
+    card) for rows of 16-byte multiples and ``aligned`` operands, else
+    ``direct``, one block of 256 threads per (image, beam)."""
+    return attention_plan(B * K, L, D, itemsize, aligned)
+
+
+ST_DESIGNS = ("cluster", "direct")
+# csrc/beam_attention.cu, the cluster kernel of the transposed form: the
+# largest cluster, the ring stages per warp, the 8-byte ce^T vectors per lane
+# per stage, the barrier area, and the threads per block
+_ST_CLUSTER_MAX = 8
+_ST_STAGES = 4
+_ST_VECS = 2
+_ST_BAR_BYTES = 16
+_ST_THREADS = 256
+
+
+def st_smem_bytes(K: int, L: int, D: int, C: int, itemsize: int) -> int:
+    """Shared memory of one block of the transposed form's cluster kernel, C
+    blocks per image; the layout of ``st_smem_bytes`` in the source: the
+    barriers, the block's rows of f, the ce^T ring (reused by the partial
+    scores, then the partial context), hp and w_att, then in fp32 the
+    scores, the block's statistics and the cluster's weights."""
+    ve = 8 // itemsize  # elements of an 8-byte vector
+    Lc = -(-(L // ve) // C) * ve
+    nw = _ST_THREADS // 32
+    reuse = max(nw * _ST_STAGES * _ST_VECS * 32 * 8, 4 * nw * K * Lc, 4 * K * D)
+    return (_ST_BAR_BYTES + Lc * D * itemsize + reuse + (K + 1) * D * itemsize
+            + 4 * (K * Lc + 2 * K + K * _ST_CLUSTER_MAX))
+
+
+def st_plan(K: int, L: int, D: int, itemsize: int, aligned: bool) -> Tuple[str, int]:
+    """(design, C) for the transposed form: ``cluster`` with C blocks per
+    image when a ce^T row is a multiple of 8 bytes (L a multiple of 4 in
+    bf16, of 2 in fp32; L=196 is, unpadded), a row of f a multiple of 16
+    bytes, and the operands are ``aligned`` (ce^T to 8 bytes, f, hp and w_att
+    to 16); otherwise ``direct``, one block per image. Block r takes Vc =
+    ceil(nvec / C) of the image's nvec 8-byte vectors of l, and a warp covers
+    R = 32 // Vc rows of ce^T per instruction, so the image costs C *
+    ceil(D / 8 / R) warp steps: C is the cluster (1 to 8, every block with
+    rows, within shared memory) that costs fewest, the smaller on a tie (5 at
+    L=196 in bf16: 10 vectors, 30 of 32 lanes busy)."""
+    ve = 8 // itemsize
+    if not aligned or L % ve or (D * itemsize) % 16:
+        return "direct", 1
+    nvec, rows = L // ve, -(-D // (_ST_THREADS // 32))
+    best = None
+    for C in range(1, min(_ST_CLUSTER_MAX, nvec) + 1):
+        vc = -(-nvec // C)
+        if vc > 32 or (C - 1) * vc >= nvec or st_smem_bytes(K, L, D, C, itemsize) > SMEM_LIMIT:
+            continue
+        cost = C * -(-rows // (32 // vc))
+        if best is None or cost < best[0]:
+            best = (cost, C)
+    return ("cluster", best[1]) if best else ("direct", 1)
+
+
 def attention_beam_reference(
     ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,27 +227,66 @@ def _check_variant(variant: str, names) -> None:
         raise ValueError(f"unknown variant {variant!r}; options: {names}")
 
 
-def attention_beam_st(
-    cet: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The transposed form on ce^T [B, D, L]: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if not cet.is_cuda:
-        return attention_beam_st_reference(cet, f, hp, watt)
+def _launch_st(cet, f, hp, watt, dims, design: str, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the transposed form on checked CUDA tensors of ``dims`` (B, K,
+    L, D) by ``design`` (``cluster`` with C blocks per image, or ``direct``)
+    and count it under ``attention_beam_st``, by design ``cluster<C>`` or
+    ``direct``."""
     name = "attention_beam_st"
-    B, K, L, D = attention_shapes(name, cet, f, hp, watt, transposed=True)
+    B, K, L, D = dims
     ctx = torch.empty((B, K, D), dtype=f.dtype, device=f.device)
     alpha = torch.empty((B, K, L), dtype=torch.float32, device=f.device)
     if B == 0 or L == 0:
         return ctx, alpha
-    err = cuda_lib.library("beam_attention.cu").sat_attention_beam_st(
-        cuda_lib.ptr(cet), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
-        cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, cuda_lib.dtype_code(f),
-        cuda_lib.stream(f.device),
-    )
+    lib = cuda_lib.library("beam_attention.cu")
+    operands = (cuda_lib.ptr(cet), cuda_lib.ptr(f), cuda_lib.ptr(hp), cuda_lib.ptr(watt),
+                cuda_lib.ptr(ctx), cuda_lib.ptr(alpha), B, K, L, D, cuda_lib.dtype_code(f))
+    if design == "direct":
+        err = lib.sat_attention_beam_st(*operands, cuda_lib.stream(f.device))
+    else:
+        err = lib.sat_attention_beam_st_cluster(*operands, C, cuda_lib.stream(f.device))
+        design = f"cluster{C}"
     cuda_lib.check(err, name)
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count(name, design)
     return ctx, alpha
+
+
+def attention_beam_st_direct(
+    cet: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transposed form on CUDA tensors by the ``direct`` design (the
+    first kernel, a block per image) whatever the shape: what ``st_plan``
+    falls back to, and the baseline the cluster design is timed against."""
+    dims = attention_shapes("attention_beam_st", cet, f, hp, watt, transposed=True)
+    return _launch_st(cet, f, hp, watt, dims, "direct", 1)
+
+
+def attention_beam_st(
+    cet: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transposed form on ce^T [B, D, L]: the kernel for CUDA tensors, by
+    the design ``st_plan`` picks, counted under ``attention_beam_st`` by
+    design ``cluster<C>`` or ``direct``; the plain version for CPU tensors."""
+    if not cet.is_cuda:
+        return attention_beam_st_reference(cet, f, hp, watt)
+    dims = B, K, L, D = attention_shapes("attention_beam_st", cet, f, hp, watt, transposed=True)
+    aligned = cet.data_ptr() % 8 == 0 and cuda_lib.vectorizable((D,), f, hp, watt)
+    return _launch_st(cet, f, hp, watt, dims, *st_plan(K, L, D, f.element_size(), aligned))
+
+
+def attention_beam_grid2(
+    ce: torch.Tensor, f: torch.Tensor, hp: torch.Tensor, watt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (image, beam) grid on CUDA tensors by the design ``grid2_plan``
+    picks, counted under ``attention_beam_grid2`` by design ``onepass<C>``
+    or ``direct`` (``launch_attention``, the first kernel, which also runs
+    it by name)."""
+    name = "attention_beam_grid2"
+    B, K, L, D = attention_shapes(name, ce, f, hp, watt)
+    design, C, threads = grid2_plan(B, K, L, D, ce.element_size(), cuda_lib.vectorizable((D,), ce, f, hp, watt))
+    if design == "direct":
+        return launch_attention(name, ce, f, hp, watt)
+    return launch_onepass(name, ce, f, hp, watt, C, threads)
 
 
 def attention_beam_cluster(
@@ -213,7 +325,7 @@ def attention_beam(
     if not ce.is_cuda:
         return attention_beam_reference(ce, f, hp, watt)
     if variant == "grid2":
-        return launch_attention("attention_beam_grid2", ce, f, hp, watt)
+        return attention_beam_grid2(ce, f, hp, watt)
     if variant.startswith("st_"):
         return attention_beam_st(ce.transpose(1, 2).contiguous(), f, hp, watt)
     return attention_beam_cluster(ce, f, hp, watt)

@@ -288,6 +288,149 @@ def test_onepass_merge_matches_the_plain_softmax(L, C, NW):
         assert abs(alpha.sum() - 1) <= 1e-5
 
 
+# --- the (image, beam) grid and the transposed form (rows 4 and 5) ------------
+
+
+@pytest.mark.parametrize("B,K,L,D,dtype,aligned,want", [
+    (256, 3, 196, 512, BF16, True, ("onepass", 1)),  # serving: 768 rows fill the card
+    (256, 3, 196, 512, F32, True, ("onepass", 1)),
+    (64, 8, 196, 512, BF16, True, ("onepass", 1)),
+    (256, 1, 196, 512, BF16, True, ("onepass", 1)),  # K=1: the per-row attention
+    (1, 3, 196, 512, BF16, True, ("onepass", 8)),
+    (16, 3, 196, 1000, BF16, True, ("onepass", 3)),  # 48 rows: 3 blocks each
+    (256, 3, 13, 512, BF16, True, ("onepass", 1)),
+    (5, 3, 13, 36, BF16, True, ("direct", 1)),  # 72-byte rows
+    (16, 3, 196, 1024, F32, True, ("direct", 1)),  # more than 128 vectors per row
+    (256, 3, 196, 512, BF16, False, ("direct", 1)),  # a misaligned operand
+])
+def test_grid2_plan(B, K, L, D, dtype, aligned, want):
+    """The grid runs the per-row attention's plan over its B * K rows."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    design, C, threads = tfda.grid2_plan(B, K, L, D, es, aligned)
+    assert (design, C) == want
+    assert (design, C, threads) == tfa.attention_plan(B * K, L, D, es, aligned)
+
+
+def _st_cost(K, L, D, C, es):
+    """The planner's cost of C blocks per image, or None where C cannot run."""
+    ve = 8 // es
+    nvec = L // ve
+    vc = -(-nvec // C)
+    if vc > 32 or (C - 1) * vc >= nvec or tfda.st_smem_bytes(K, L, D, C, es) > tfda.SMEM_LIMIT:
+        return None
+    rows = -(-D // 8)  # rows of ce^T per warp
+    return C * -(-rows // (32 // vc))
+
+
+@pytest.mark.parametrize("K,L,D,dtype,aligned,want", [
+    (3, 196, 512, BF16, True, ("cluster", 5)),  # serving: 10 vectors of l per block
+    (1, 196, 512, BF16, True, ("cluster", 5)),
+    (8, 196, 512, BF16, True, ("cluster", 5)),
+    (3, 196, 1000, BF16, True, ("cluster", 5)),
+    (8, 196, 1024, BF16, True, ("cluster", 5)),
+    (3, 196, 512, F32, True, ("cluster", 7)),  # 98 vectors of two fp32
+    (3, 196, 1024, F32, True, ("cluster", 7)),
+    (3, 64, 512, BF16, True, ("cluster", 1)),
+    (2, 200, 64, BF16, True, ("cluster", 7)),
+    (3, 4, 512, BF16, True, ("cluster", 1)),  # one vector of l
+    (3, 13, 512, BF16, True, ("direct", 1)),  # 26-byte rows of ce^T
+    (3, 197, 512, BF16, True, ("direct", 1)),
+    (3, 1, 512, BF16, True, ("direct", 1)),
+    (3, 13, 36, F32, True, ("direct", 1)),
+    (3, 196, 36, BF16, True, ("direct", 1)),  # 72-byte rows of f
+    (3, 196, 512, BF16, False, ("direct", 1)),  # a misaligned operand
+])
+def test_st_plan(K, L, D, dtype, aligned, want):
+    """The cluster that costs fewest warp steps, the smaller on a tie, every
+    block with rows and within shared memory; rows that are not 8-byte
+    multiples of ce^T or 16-byte multiples of f take the first kernel."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    design, C = tfda.st_plan(K, L, D, es, aligned)
+    assert (design, C) == want and design in tfda.ST_DESIGNS
+    if design == "cluster":
+        costs = {c: _st_cost(K, L, D, c, es) for c in range(1, tfda._ST_CLUSTER_MAX + 1)}
+        costs = {c: v for c, v in costs.items() if v is not None}
+        assert costs[C] == min(costs.values()) and C == min(c for c, v in costs.items() if v == costs[C])
+
+
+def test_st_smem_layout_matches_the_source():
+    """The planner's layout constants and formula are the kernel's."""
+    src = _source("beam_attention.cu")
+    assert f"ST_CMAX = {tfda._ST_CLUSTER_MAX};" in src
+    assert f"ST_P = {tfda._ST_STAGES};" in src
+    assert f"ST_U = {tfda._ST_VECS};" in src
+    assert f"ST_BAR = {tfda._ST_BAR_BYTES};" in src
+    assert f"NT = {tfda._ST_THREADS};" in src
+    assert "const size_t ring = (size_t)NW * ST_P * ST_U * 32 * 8;" in src
+    assert "red = sizeof(float) * NW * K * Lc, part = sizeof(float) * K * D;" in src
+    assert ("return ST_BAR + (size_t)Lc * D * es + st_reuse_bytes(K, Lc, D) + (size_t)(K + 1) * D * es +\n"
+            "         sizeof(float) * ((size_t)K * Lc + 2 * K + (size_t)K * ST_CMAX);") in src
+    # 8-byte vectors of l, at most 32 per block
+    assert "constexpr int VE = 8 / sizeof(T);" in src and "Vc > 32" in src
+
+
+def st_split(ce, f, hp, w, C, NW=8):
+    """numpy fp32 emulation of the transposed form's cluster kernel for one
+    image: ce, f [L, D], hp [K, D], w [D]; block r of C takes a slice of 8-byte
+    vectors of l (4 patches), its warps the partial scores over D / NW rows
+    of ce^T each, summed in shared memory; the block's max and sum of exp
+    and its partial context; then the blocks merged by exp(m_q - m) / s."""
+    f32 = np.float32
+    L, D = ce.shape
+    K = hp.shape[0]
+    ve = 4
+    nvec = L // ve
+    vc = -(-nvec // C)
+    dw = -(-D // NW)
+    blocks = []
+    for r in range(C):
+        l0, nl = r * vc * ve, max(0, min(nvec, (r + 1) * vc) - r * vc) * ve
+        rows = slice(l0, l0 + nl)
+        e = np.zeros((K, nl), f32)
+        for wp in range(NW):
+            d = slice(min(D, wp * dw), min(D, wp * dw + dw))
+            t = np.tanh(ce[rows, None, d] + hp[None, :, d]).astype(f32)  # [nl, K, dw]
+            e += (t * w[d]).sum(-1, dtype=f32).T
+        m = e.max(1) if nl else np.full(K, -np.inf, f32)
+        p = np.exp(e - m[:, None], dtype=f32)
+        blocks.append((l0, nl, m, p.sum(1, dtype=f32), p, (p @ f[rows]).astype(f32)))
+    mg = np.max([m for _, _, m, _, _, _ in blocks], axis=0)
+    wq = [np.where(s > 0, np.exp(np.where(s > 0, m - mg, 0), dtype=f32), 0).astype(f32)
+          for _, _, m, s, _, _ in blocks]
+    sg = sum(s * g for (_, _, _, s, _, _), g in zip(blocks, wq))
+    ctx = sum((g / sg)[:, None] * part for (*_, part), g in zip(blocks, wq)) / f32(L)
+    alpha = np.zeros((K, L), f32)
+    for (l0, nl, _, _, p, _), g in zip(blocks, wq):
+        alpha[:, l0:l0 + nl] = p * (g / sg)[:, None]
+    return ctx.astype(f32), alpha
+
+
+@pytest.mark.parametrize("L,D,K,C", [(196, 64, 3, 5), (196, 64, 1, 4), (200, 24, 2, 7), (64, 32, 3, 1),
+                                     (4, 16, 8, 1), (20, 16, 3, 4), (196, 40, 3, 8)])
+def test_st_split_matches_the_plain_softmax(L, D, K, C):
+    """The transposed form's split (partial scores over D slices, each
+    block's max and sum of exp and partial context, the cluster's
+    running-softmax merge) gives the plain version's alpha and context within
+    the fp32 limits the card run holds (2e-5 absolute, 1e-5 of the output's
+    scale), also with a block that gets no row (L=20, C=4) and with scores
+    spread wide."""
+    rng = np.random.default_rng(L * 10 + C)
+    for scale in (1.0, 8.0):
+        ce = (rng.standard_normal((L, D)) * scale).astype(np.float32)
+        f = rng.standard_normal((L, D)).astype(np.float32)
+        hp = rng.standard_normal((K, D)).astype(np.float32)
+        w = (rng.standard_normal(D) * scale).astype(np.float32)
+        ctx, alpha = st_split(ce, f, hp, w, C)
+        e = torch.einsum("lkd,d->kl", torch.tanh(torch.from_numpy(ce)[:, None] + torch.from_numpy(hp)[None]),
+                         torch.from_numpy(w))
+        ra = torch.softmax(e.double(), dim=-1)
+        rc = (ra @ torch.from_numpy(f).double()) / L
+        for got, want in ((ctx, rc.numpy()), (alpha, ra.numpy())):
+            assert np.isfinite(got).all()
+            assert np.abs(got - want).max() <= min(2e-5, 1e-5 * np.abs(want).max())
+        assert np.abs(alpha.sum(1) - 1).max() <= 1e-5
+
+
 def tanh_ex2(x, ex2_err=0.0, rcp_err=0.0):
     """numpy fp32 emulation of the kernel's fp32 tanh, 1 - 2 / (1 + 2^(2x
     log2 e)), with ex2.approx and rcp.approx perturbed by a relative error."""
@@ -325,4 +468,15 @@ def test_launch_counts_by_design():
     assert cuda_lib.LAUNCHES["lstm_cell"] == 3
     assert cuda_lib.designs("lstm_cell") == {"wgmma": 2, "tiled": 1}
     assert cuda_lib.designs("attention_beam") == {}
+    # the (image, beam) grid and the transposed form, by their plans' names
+    for _ in range(20):
+        cuda_lib.count("attention_beam_grid2", "onepass1")
+        cuda_lib.count("attention_beam_st", "cluster5")
+    cuda_lib.count("attention_beam_st", "direct")
+    assert cuda_lib.LAUNCHES["attention_beam_grid2"] == 20 and cuda_lib.LAUNCHES["attention_beam_st"] == 21
+    assert cuda_lib.designs("attention_beam_grid2") == {"onepass1": 20}
+    assert cuda_lib.designs("attention_beam_st") == {"cluster5": 20, "direct": 1}
+    design, C, _ = tfda.grid2_plan(256, 3, 196, 512, 2, True)
+    assert f"{design}{C}" == "onepass1"
+    assert "".join(map(str, tfda.st_plan(3, 196, 512, 2, True))) == "cluster5"
     cuda_lib.LAUNCHES.clear()

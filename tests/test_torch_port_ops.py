@@ -199,6 +199,10 @@ def test_kernel_launchers_refuse_cpu_tensors():
         tfa.attention_rows(t["ce"], t["f"], hp[:, 0], t["w_att"])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfda.attention_scores_direct(t["ce"], hp, t["w_att"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfda.attention_beam_grid2(t["ce"], t["f"], hp, t["w_att"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfda.attention_beam_st_direct(t["ce"].transpose(1, 2).contiguous(), t["f"], hp, t["w_att"])
     assert all(cuda_lib.LAUNCHES[k] == 0 for k in KERNELS)
 
 
