@@ -76,7 +76,24 @@ Phases, each printing its own lines:
    loss finite and falling,
    and one fp32 step whose
    gradients through the kernels are held against the plain path's on the
-   card.
+   card;
+8. the rest of serving, on phase 5's 256 images and weights: the serving
+   model saved by ``ckpt.save_best`` and its trunk as a torchvision state
+   dict, read back by ``Captioner.from_checkpoint`` (beam and greedy captions
+   identical to phase 5's); phase 7's train state saved and loaded (every
+   tensor equal, the count and the step); then, each timed as the median of
+   3 calls after a warmup with its launches counted, sampling (temperature
+   1, top-p 0.9: two calls differ, a fresh Captioner replays the first; the
+   cell by ``wgmma`` and the per-row attention by ``onepass1``, 20 each per
+   batch), n-best (the beam attention 20 per batch; the best of each list is
+   the beam caption, scores not increasing) and attention maps ([256, 20,
+   196] fp32 rows summing to 1, captions equal to greedy's); top-k 1 held
+   equal to greedy on an fp32 Captioner of the same weights, and in bf16,
+   where the filter keeps tied top logits and draws among them, replayed with
+   each step's logits recorded: every drawn token's logit is its step's
+   largest, and a caption leaves greedy's only at a tie. Phase 8's launches
+   are its own lines' and the ``--out`` file's; the kernels line counts
+   phases 4-6 as before.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -93,6 +110,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -877,6 +895,7 @@ def phase_end_to_end():
     print(f"  warmup (beam and greedy at bucket {N}): {warm:.2f} s")
     path_kernels = {"beam": ("lstm_cell", "attention_beam"), "greedy": ("lstm_cell", "additive_attention")}
     launches = {name: 0 for name in REPLACES}
+    captions = {}
     for mode, kernels in path_kernels.items():
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
@@ -894,6 +913,7 @@ def phase_end_to_end():
               f"{', '.join(f'{s * 1e3:.2f}' for s in secs)}) = {N / dt:.1f} img/s  launches {counts}")
         print(f"  {mode:6s} caption[0]: {caps[0]!r}")
         assert len(caps) == N and all(isinstance(s, str) for s in caps)
+        captions[mode] = caps
         missing = [k for k in kernels if counts[k] == 0]
         assert not missing, f"{mode}: kernels of the path never launched: {missing}"
         # random weights never emit <end>: every batch runs every step, one
@@ -954,7 +974,7 @@ def phase_end_to_end():
                 print(f"  {c.dtype} step logits, kernels vs plain, k={k}: "
                       f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
                 assert worst <= rtol, f"{c.dtype} k={k}: kernel path logits disagree with the plain path"
-    return launches, model, cfg, images
+    return launches, model, cfg, images, captions
 
 
 def phase_beam_routes(model, cfg, images):
@@ -1158,7 +1178,7 @@ def phase_training(images):
     print(f"  loss by step: {', '.join(f'{x:.4f}' for x in losses)}")
     assert all(np.isfinite(losses)), "a training loss is not finite"
     assert losses[-1] < losses[0], "the training loss did not fall"
-    del state, step, model, feats, loss
+    del step, feats, loss
 
     # one fp32 step: gradients through the kernels against the plain path
     cfg32 = cfg.replace(dtype="float32")
@@ -1184,7 +1204,241 @@ def phase_training(images):
           f"{rel[worst]:.3e} (limit {GRAD_RTOL:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
     assert rel[worst] <= GRAD_RTOL, "kernel-path gradients disagree with the plain path"
     return {"img_s": img_s, "ms_per_step": dt * 1e3 / TIMED_STEPS, "split_ms": split,
-            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel}
+            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel}, state, cfg
+
+
+def _first_difference(got, want):
+    return next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+
+
+def _timed_calls(fn, kernels):
+    """Median seconds of REPS synchronised calls of ``fn`` after one warm
+    call, the last call's result, and the launches of ``kernels`` per call
+    with their designs."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    fn()
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    secs = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    per_call = {k: cuda_lib.LAUNCHES[k] / REPS for k in kernels}
+    designs = {k: {d: n / REPS for d, n in cuda_lib.designs(k).items()} for k in kernels}
+    return statistics.median(secs), secs, out, per_call, designs
+
+
+def phase_serving_rest(model, cfg, images, captions, train_state, train_cfg):
+    """Checkpoints in and out, sampling, n-best and attention maps at full
+    width on phase 5's images and weights. Returns the figures and, under
+    ``launches``, the launches per kernel of the timed runs."""
+    from show_and_tell_tpu_torch import ckpt
+    from show_and_tell_tpu_torch.decode.greedy import greedy_decode
+    from show_and_tell_tpu_torch.decode.sample import sample_decode
+    from show_and_tell_tpu_torch.models.encoders import to_torch_vgg16
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops.fused_attention import attention_plan
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.train.step import make_train_state
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    N, V, T = images.shape[0], model.vocab_size, cfg.max_decode_len
+    L = (cfg.crop_size // 16) ** 2  # the trunk's stride-16 patch grid: 196
+    vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
+    print(f"== 8. the rest of serving: checkpoints, sampling, n-best, attention maps; {N} images, {cfg.dtype}")
+    out = {"launches": {name: 0 for name in REPLACES}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the serving model's decoder through model-best.pt, its trunk through
+        # a torchvision-keyed file, back through from_checkpoint
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = ckpt.save_best(tmp, ckpt.trainable_state_dict(model), None, {"iter": 0})
+        t_save = time.perf_counter() - t0
+        trunk = os.path.join(tmp, "vgg16.pth")
+        torch.save(to_torch_vgg16(model.encoder), trunk)
+        cfg8 = cfg.replace(encoder_weights=trunk)
+        t0 = time.perf_counter()
+        cap = Captioner.from_checkpoint(cfg8, tmp, vocab)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        print(f"  save_best {t_save:.3f} s ({os.path.getsize(best) / 1e6:.1f} MB model-best.pt); "
+              f"from_checkpoint {t_load:.3f} s (model init, model-best.pt, the {os.path.getsize(trunk) / 1e6:.1f} MB "
+              f"trunk, onto the card)")
+        out.update(save_best_s=t_save, from_checkpoint_s=t_load, model_best_bytes=os.path.getsize(best))
+        sd, loaded = model.state_dict(), cap.model.state_dict()
+        assert set(sd) == set(loaded) and all(torch.equal(sd[k], loaded[k]) for k in sd), "weights differ after the load"
+        for mode in ("beam", "greedy"):
+            got = cap.caption_images(images, mode=mode)
+            if got != captions[mode]:
+                i = _first_difference(got, captions[mode])
+                print(f"  {mode}: image {i} differs: {got[i]!r} against phase 5's {captions[mode][i]!r}")
+            assert got == captions[mode], f"{mode}: the restored Captioner's captions differ from phase 5's"
+            print(f"  {mode:6s} captions of the restored Captioner: all {N} identical to phase 5's")
+
+        # phase 7's train state through state-last.pt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save_train_state(tmp, train_state)
+        t_save = time.perf_counter() - t0
+        fresh = build_model(train_cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED + 8))
+        template = make_train_state(train_cfg, fresh)
+        t0 = time.perf_counter()
+        restored = ckpt.load_train_state(tmp, template)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        pairs = [(f"{part}/{k}", v, restored_part[k])
+                 for part, saved_part, restored_part in (
+                     ("params", train_state.params, restored.params),
+                     ("mu", train_state.opt_state["mu"], restored.opt_state["mu"]),
+                     ("nu", train_state.opt_state["nu"], restored.opt_state["nu"]))
+                 for k, v in saved_part.items()]
+        unequal = [name for name, a, b in pairs if not torch.equal(a, b)]
+        print(f"  save_train_state {t_save:.3f} s ({os.path.getsize(path) / 1e6:.1f} MB state-last.pt), "
+              f"load_train_state {t_load:.3f} s; {len(pairs)} tensors, {len(unequal)} unequal; count "
+              f"{restored.opt_state['count']} (saved {train_state.opt_state['count']}), step {restored.step} "
+              f"(saved {train_state.step})")
+        assert not unequal, f"train state tensors differ after the load: {unequal[:5]}"
+        assert restored.opt_state["count"] == train_state.opt_state["count"] and restored.step == train_state.step
+        assert restored.ema_params is None and train_state.ema_params is None
+        out.update(save_train_state_s=t_save, load_train_state_s=t_load, state_last_bytes=os.path.getsize(path))
+        del fresh, template, restored
+
+    cap.temperature, cap.top_k, cap.top_p = 1.0, 0, 0.9
+    warm = cap.warmup(modes=("sample", "nbest", "attention"), buckets=(N,))
+    assert cap._sample_count == 0
+    print(f"  warmup (sample, nbest, attention at bucket {N}): {warm:.2f} s")
+    plan = attention_plan(N, L, 512, 2, True)
+    onepass = f"onepass{plan[1]}"
+    samples = []
+
+    def sample():
+        samples.append(cap.caption_images(images, mode="sample"))
+        return samples[-1]
+
+    surfaces = {
+        "sample": (sample, {"lstm_cell": "wgmma", "additive_attention": onepass}),
+        "nbest": (lambda: cap.caption_nbest(images), {"lstm_cell": "wgmma", "attention_beam": None}),
+        "attention": (lambda: cap.caption_with_attention(images),
+                      {"lstm_cell": "wgmma", "additive_attention": onepass}),
+    }
+    results = {}
+    for name, (fn, kernels) in surfaces.items():
+        dt, secs, results[name], per_call, designs = _timed_calls(fn, kernels)
+        print(f"  {name:9s}: {N} images in {dt * 1e3:.2f} ms (median of {REPS}: "
+              f"{', '.join(f'{s * 1e3:.2f}' for s in secs)}) = {N / dt:.1f} img/s  launches per batch {per_call}, "
+              f"designs {designs}")
+        out[f"{name}_img_s"] = N / dt
+        for k, design in kernels.items():
+            out["launches"][k] += int(per_call[k] * REPS)
+            assert per_call[k] == T, f"{name}: {k} launched {per_call[k]} times per batch, expected {T}"
+            if design is not None:
+                assert designs[k] == {design: T}, f"{name}: {k} designs {designs[k]}, expected {design}"
+            else:  # the cluster kernel with f by bulk copy
+                assert all(d.endswith("-f_bulk") for d in designs[k]), f"{name}: {k} designs {designs[k]}"
+
+    # sampling: the timed calls drew other streams each, a fresh Captioner
+    # of the same seed replays the first
+    print(f"  sample caption[0]: {samples[1][0]!r}")
+    differ = sum(a != b for a, b in zip(samples[1], samples[2]))
+    replay = Captioner(cfg8, cap.model, None, vocab)
+    replay.temperature, replay.top_k, replay.top_p = cap.temperature, cap.top_k, cap.top_p
+    again = replay.caption_images(images, mode="sample")
+    print(f"  sample: two calls differ on {differ} of {N} images; a fresh Captioner replays the first call: "
+          f"{again == samples[0]}")
+    assert differ > 0 and again == samples[0], "sampling streams"
+    assert all(len(c.split()) <= T for c in samples[0])
+
+    # top-k 1: greedy, but for ties. The filter keeps every token tied with
+    # the top logit and draws among them, so in bf16 a draw may leave
+    # greedy's path, and only at a tie. The Captioner's draw is replayed with
+    # each step's logits recorded: every drawn token's logit is its step's
+    # largest, the same prefix gives the same logits in both runs, and where
+    # a caption first leaves greedy's the two tokens' logits are equal.
+    cap.top_k, cap.top_p = 1, 1.0
+    base = cap._sample_count
+    k1 = cap.caption_images(images, mode="sample")
+    same = sum(a == b for a, b in zip(k1, captions["greedy"]))
+
+    def recording(step_fn, seen):
+        def step(carry, prev):
+            carry, logits = step_fn(carry, prev)
+            seen.append(logits.float())
+            return carry, logits
+        return step
+
+    with torch.inference_mode():
+        feats = cap._features(images)
+        g_seen, s_seen = [], []
+        step_fn, carry, first, _ = cap.model.decode_state(feats, beam_size=1)
+        g_ids = greedy_decode(recording(step_fn, g_seen), carry, N, T, first_logits=first, early_stop=False)
+        step_fn, carry, first, _ = cap.model.decode_state(feats, beam_size=1)
+        gen = cap._keys.generator("sample", base, device=cap.device)
+        s_ids = sample_decode(recording(step_fn, s_seen), carry, N, gen, T, top_k=1, first_logits=first)
+        G, S = torch.stack(g_seen, 1), torch.stack(s_seen, 1)  # [N, T, V] fp32
+        del feats, g_seen, s_seen
+        top = S.amax(-1)
+        drawn_is_top = torch.equal(S.gather(-1, s_ids[..., None]).squeeze(-1), top)
+        tied_steps = int(((S == top[..., None]).sum(-1) > 1).sum())
+        off_argmax = int((s_ids != S.argmax(-1)).sum())
+        # prefix[b, t]: the two runs fed the same tokens before step t
+        prefix = torch.cat([torch.ones(N, 1, dtype=torch.bool, device=S.device),
+                            (s_ids == g_ids)[:, :-1].long().cumprod(1).bool()], 1)
+        same_logits = torch.equal(G[prefix], S[prefix])
+        left = (s_ids != g_ids).any(1)
+        rows = left.nonzero().squeeze(1)
+        t0 = (s_ids != g_ids).int().argmax(1)[rows]
+        tie_at_exit = torch.equal(S[rows, t0].gather(-1, g_ids[rows, t0][:, None]),
+                                  S[rows, t0].gather(-1, s_ids[rows, t0][:, None]))
+        replayed = cap.vocab.decode_batch(s_ids.cpu().numpy()) == k1
+        greedy_again = cap.vocab.decode_batch(g_ids.cpu().numpy()) == captions["greedy"]
+        del G, S
+    print(f"  sample top_k=1, {cfg.dtype}: {same} of {N} captions equal greedy's; replayed with the logits "
+          f"recorded (equal to the Captioner's: {replayed}, greedy's: {greedy_again}): {tied_steps} of {N * T} "
+          f"steps tie at the top, {off_argmax} draws took a tied token other than the first; every draw a top "
+          f"logit: {drawn_is_top}; same prefix, same logits: {same_logits}; {int(left.sum())} captions leave "
+          f"greedy's, each at a tie: {tie_at_exit}")
+    assert replayed and greedy_again, "the replay with recorded logits differs from the Captioner's"
+    assert drawn_is_top and same_logits and tie_at_exit, "top_k=1 sampling left the top logits in bf16"
+    assert int(left.sum()) >= N - same
+    out.update(top1_equal_greedy=same, top1_tied_steps=tied_steps, top1_off_argmax=off_argmax)
+    cap32 = Captioner(cfg8.replace(dtype="float32"),
+                      build_model(cfg8.replace(dtype="float32"), V, device="cuda"), cap.model.state_dict(), vocab)
+    cap32.top_k = 1
+    greedy32 = cap32.caption_images(images, mode="greedy")
+    k1_32 = cap32.caption_images(images, mode="sample")
+    if k1_32 != greedy32:
+        i = _first_difference(k1_32, greedy32)
+        print(f"  float32: image {i} differs: {k1_32[i]!r} against greedy's {greedy32[i]!r}")
+    print(f"  sample top_k=1, float32: all {N} captions equal greedy's: {k1_32 == greedy32}")
+    assert k1_32 == greedy32, "top_k=1 sampling differs from greedy in fp32"
+    del cap32
+
+    # n-best: the best of each list is the beam caption, scores best first
+    nbest = results["nbest"]
+    assert len(nbest) == N and all(len(row) == cfg.beam_size for row in nbest)
+    firsts = [row[0][0] for row in nbest]
+    if firsts != captions["beam"]:
+        i = _first_difference(firsts, captions["beam"])
+        print(f"  nbest: image {i}: {firsts[i]!r} against the beam caption {captions['beam'][i]!r}")
+    assert firsts == captions["beam"], "nbest[i][0] differs from the beam caption"
+    scores = np.array([[s for _, s in row] for row in nbest])
+    assert np.isfinite(scores).all() and (np.diff(scores, axis=1) <= 0).all(), "n-best scores increase"
+    print(f"  nbest: [0] equals the beam caption for all {N} images; scores {scores[0].round(4).tolist()} "
+          f"(image 0), not increasing")
+
+    # attention maps
+    caps, alphas = results["attention"]
+    worst = float(np.abs(alphas.sum(-1) - 1).max())
+    print(f"  attention: alphas {alphas.shape} {alphas.dtype}, max |row sum - 1| {worst:.2e} (limit 1e-3), "
+          f"captions equal greedy's: {caps == captions['greedy']}")
+    assert alphas.shape == (N, T, L) and alphas.dtype == np.float32 and np.isfinite(alphas).all()
+    assert worst <= 1e-3, "attention rows do not sum to 1"
+    assert caps == captions["greedy"], "caption_with_attention's captions differ from greedy's"
+    return out
 
 
 def main() -> int:
@@ -1203,11 +1457,13 @@ def main() -> int:
     errs = phase_check()
     rows = phase_times()
     probe_launches = phase_probe()
-    launches, model, cfg, images = phase_end_to_end()
+    launches, model, cfg, images, captions = phase_end_to_end()
     launches.update(probe_launches)
     launches.update(phase_beam_routes(model, cfg, images))
-    del model
-    training = phase_training(images)
+    training, train_state, train_cfg = phase_training(images)
+    # phase 8's launches stay in its own lines and in the --out file's "serving"
+    serving = phase_serving_rest(model, cfg, images, captions, train_state, train_cfg)
+    del model, train_state
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -1217,7 +1473,7 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "kernels": kernels, "training": training}, fh, indent=1)
+            json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -57,3 +57,25 @@ def from_torch_vgg16(sd: Dict[str, torch.Tensor]) -> Params:
             for i in _VGG_TORCH_IDX
         ]
     }
+
+
+def to_torch_vgg16(params: Params) -> Dict[str, torch.Tensor]:
+    """Trunk params -> a torchvision VGG16 ``features.<i>.*`` state dict on
+    the CPU: the inverse of ``from_torch_vgg16``, a file for
+    ``load_torch_encoder``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for conv, i in zip(params["convs"], _VGG_TORCH_IDX):
+        sd[f"features.{i}.weight"] = torch.as_tensor(conv["w"]).detach().cpu()
+        sd[f"features.{i}.bias"] = torch.as_tensor(conv["b"]).detach().cpu()
+    return sd
+
+
+def load_torch_encoder(name: str, path: str) -> Params:
+    """A torchvision ``state_dict`` saved at ``path`` -> trunk params. Only
+    VGG16 is ported."""
+    if name != "vgg16":
+        raise NotImplementedError(
+            f"encoder {name!r} is not ported to PyTorch yet; see ROADMAP.md A7"
+        )
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return from_torch_vgg16(sd)

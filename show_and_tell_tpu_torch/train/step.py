@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from show_and_tell_tpu_torch.ckpt.checkpoint import trainable_state_dict
 from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.data.transforms import eval_transform, train_transform
 from show_and_tell_tpu_torch.train.losses import masked_cross_entropy
@@ -56,7 +57,7 @@ def make_train_state(cfg: Config, model) -> TrainState:
     """A fresh state over the model's trainable parameters: Adam's count and
     zero moments, the accumulation state when ``grad_accum_steps`` > 1, and a
     copy of the params as the EMA when ``ema_decay`` > 0."""
-    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    params = trainable_state_dict(model)
     with torch.no_grad():
         opt_state: Dict[str, Any] = {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
         if cfg.grad_accum_steps > 1:

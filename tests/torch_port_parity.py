@@ -6,8 +6,10 @@ Prints the max abs diff per output for the cases that the port's tests hold
 to a tolerance (``tests/test_torch_port_*.py``), from the same inputs: the
 port's plain versions against the JAX references and the JAX Pallas kernels
 in interpret mode, the trunk, the decode step, decoded ids and captions,
-the training forward, the autograd Functions' gradients and the train
-step. Not a test module: it reports the numbers that the tests only bound.
+the training forward, the autograd Functions' gradients, the train step,
+the n-best scores and attention maps of the Captioner, the sampler's
+distance from its filtered softmax, and a JAX train state resumed in the
+port. Not a test module: it reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
 ``ckpt.convert.from_jax_params``, which the training tests use to compare
@@ -32,6 +34,7 @@ from show_and_tell_tpu.ops import attention as jattn  # noqa: E402
 from show_and_tell_tpu.ops import fused_attention as jfa  # noqa: E402
 from show_and_tell_tpu.ops import fused_decode_attention as jfda  # noqa: E402
 from show_and_tell_tpu.ops import lstm as jlstm  # noqa: E402
+from show_and_tell_tpu_torch.ckpt.convert import to_jax_trainable  # noqa: E402
 from show_and_tell_tpu_torch.ops import fused_attention as tfa  # noqa: E402
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda  # noqa: E402
 from show_and_tell_tpu_torch.ops import lstm as tlstm  # noqa: E402
@@ -44,9 +47,7 @@ def to_jax_params(sd):
     the Adam moments) -> the JAX package's ``(trainable, frozen)`` trees as
     numpy arrays; ``frozen`` is None without encoder weights."""
     a = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
-    trainable = {"att": {k: a[f"att.{k}"] for k in ("w_img", "w_hh", "b_hh", "w_att")}, "embed": a["embed"]}
-    for name in ("init_h", "init_c", "lstm", "c2o", "h2o", "classifier"):
-        trainable[name] = {"w": a[f"{name}.w"], "b": a[f"{name}.b"]}
+    trainable = to_jax_trainable({k: v for k, v in sd.items() if not k.startswith("encoder.")})
     n = len([k for k in a if k.startswith("encoder.convs.") and k.endswith(".w")])
     frozen = None
     if n:
@@ -201,6 +202,67 @@ def training():
                    transforms.resize_bilinear(torch.from_numpy(imgs), size)))
 
 
+def serving():
+    import tempfile
+
+    import test_torch_port_sample as ts
+    import test_torch_port_train as tt
+    from show_and_tell_tpu import ckpt as jckpt
+    from show_and_tell_tpu.decode import sample as jsample
+    from show_and_tell_tpu.serve import Captioner as JCaptioner
+    from show_and_tell_tpu.train import step as jstep
+    from show_and_tell_tpu.utils import vocab as jvocab
+    from show_and_tell_tpu_torch import ckpt
+    from show_and_tell_tpu_torch.ckpt.convert import from_jax_params
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.decode import sample
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils import vocab as tvocab
+
+    trainable, frozen = tm._jax_init(3)
+    jcfg, cfg = tm.JConfig(**ts.SMALL), Config(**ts.SMALL)
+    jcap = JCaptioner(jcfg, tm.jbuild(jcfg, tm.V), trainable, frozen, jvocab.Vocabulary.from_words(ts.WORDS),
+                      bucket_sizes=(1, 2, 4))
+    tcap = Captioner(cfg, build_model(cfg, tm.V, device="cpu"), from_jax_params(trainable, frozen),
+                     tvocab.Vocabulary.from_words(ts.WORDS), device="cpu", bucket_sizes=(1, 2, 4))
+    images = np.random.default_rng(9).integers(0, 256, (3, 40, 40, 3), dtype=np.uint8)
+    want, got = jcap.caption_nbest(images), tcap.caption_nbest(images)
+    row("caption_nbest fp32, 3 images x 3 beams", scores=max(abs(a[1] - b[1]) for w, g in zip(want, got)
+                                                            for a, b in zip(w, g)))
+    (_, want), (_, got) = jcap.caption_with_attention(images), tcap.caption_with_attention(images)
+    row("caption_with_attention fp32, alphas [3, 8, 4]", alphas=float(np.abs(want - got).max()))
+    logits = np.random.default_rng(5).standard_normal(50).astype(np.float32) * 2.0
+    _, probs = ts._numpy_filtered(logits, **ts.KNOBS)
+    tiled = np.tile(logits, (ts.N_DRAWS, 1))
+    k = ts.KNOBS
+    draws = {
+        "port": sample._sample_from_logits(torch.Generator().manual_seed(0), torch.from_numpy(tiled),
+                                           k["temperature"], k["top_k"], k["top_p"]).numpy(),
+        "jax": np.asarray(jsample._sample_from_logits(jax.random.PRNGKey(0), jnp.asarray(tiled),
+                                                      k["temperature"], k["top_k"], k["top_p"])),
+    }
+    row(f"sampling {ts.N_DRAWS} draws, V=50, {k}: total variation vs numpy",
+        **{n: 0.5 * float(np.abs(np.bincount(d, minlength=50) / ts.N_DRAWS - probs).sum()) for n, d in draws.items()})
+    for case in ("plain", "accum2", "ema"):
+        jcfg, jm, trainable, frozen, cfg, _ = tm._pair(**tt.CASES[case])
+        batches = [tt._batch(seed=20 + i) for i in range(4)]
+        jstate = jstep.make_train_state(jcfg, jax.tree.map(jnp.asarray, trainable))
+        jtrain = jstep.make_train_step(jm, jcfg, donate=False)
+        for i in range(3):
+            jstate, _ = jtrain(jstate, frozen, batches[i][0], tt.LR, 0.0, jax.random.PRNGKey(i))
+        with tempfile.TemporaryDirectory() as d:
+            jckpt.save_train_state(d, jstate)
+            model = build_model(cfg, tm.V, device="cpu", generator=torch.Generator().manual_seed(99))
+            state = ckpt.load_train_state(d, make_train_state(cfg, model))
+        jstate, _ = jtrain(jstate, frozen, batches[3][0], tt.LR, 0.0, jax.random.PRNGKey(3))
+        state, _ = make_train_step(model, cfg)(state, batches[3][1], tt.LR)
+        diff = jax.tree.leaves(jax.tree.map(lambda w, g: float(np.abs(np.asarray(w) - g).max()),
+                                            jstate.params, to_jax_trainable(state.params)))
+        row(f"JAX state-last.msgpack + 1 step in the port [{case}]", params=max(diff))
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -209,6 +271,7 @@ def main():
     functions()
     model()
     training()
+    serving()
 
 
 if __name__ == "__main__":
