@@ -9,9 +9,12 @@ Phases, each printing its own lines:
    and the TF32 switches, which are set to False so that the fp32 checks run
    in full fp32 (cuDNN convolutions default to TF32);
 2. build: the hand-written kernels from ``show_and_tell_tpu_torch/csrc/``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together, and beside them the metric
+   suite's C++ scorers (``csrc/*.cpp``, one ``g++`` each, into
+   ``show_and_tell_tpu_torch/_build/native/``); a failed build fails the run;
 3. each of the seven kernels against its plain PyTorch version on the card, at
-   the serving shapes and at unaligned and ragged ones (the cell: B=300,
+   the serving shapes, at phase 9's (the cell at B=64 and 192, the
+   attentions at B=64) and at unaligned and ragged ones (the cell: B=300,
    I=H=1000, B=1; the attentions and the scores: K=1, 2, 4 and 8, B=1, L=1,
    13, 64 and 197, D=36, 1000 and 1024, unaligned views, and the first
    kernels of rows 2 and 4-6 by name), in fp32 and bf16, each line naming the
@@ -91,9 +94,24 @@ Phases, each printing its own lines:
    equal to greedy on an fp32 Captioner of the same weights, and in bf16,
    where the filter keeps tied top logits and draws among them, replayed with
    each step's logits recorded: every drawn token's logit is its step's
-   largest, and a caption leaves greedy's only at a tie. Phase 8's launches
-   are its own lines' and the ``--out`` file's; the kernels line counts
-   phases 4-6 as before.
+   largest, and a caption leaves greedy's only at a tie;
+9. the eval driver on a trained decoder, at phase 5's width: the JAX
+   benchmark's synthetic scenes (18 classes, 5 caption templates each, 256
+   training and 256 held-out uint8 images from the seed); the port's
+   ``evalsuite.driver.evaluation`` in beam and greedy mode over 4 batches of
+   64 held-out images (the trunk, the loss, the decode, the one-batch lag and
+   ``language_eval`` against a COCO-format annotation file), first with the
+   random weights, then after 200 ``TrainStep`` steps at lr 3e-3 on the
+   training scenes' trunk features: the validation loss, every metric, the
+   exact-caption rate, the mean caption length, the decode steps each batch
+   took (from the launch counts), img/s with and without ``language_eval``
+   and the launches of rows 1-3; held: the native scorers live and equal to
+   the pure-Python path per image, the kernels launched, the trained
+   decoder's early exit and its CIDEr at least 10x the untrained one's and at
+   least 1, and the fp32 greedy ids through the kernels equal to the plain
+   path's but at ties (top-two logit gap under 1e-4).
+Phases 8 and 9 count their launches in their own lines and the ``--out``
+file's; the kernels line counts phases 4-6 as before.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -103,6 +121,7 @@ script exits non-zero. Without CUDA it exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -363,10 +382,16 @@ def phase_environment():
 
 def phase_build():
     from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.utils import native
 
     print("== 2. build")
-    secs = cuda_lib.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        scorers = pool.submit(native.build)  # the g++ builds beside the nvcc ones
+        secs = cuda_lib.build_all()
+        native_secs = scorers.result()
     print(f"built {', '.join(cuda_lib.SOURCES)} for sm_90a in {secs:.1f} s")
+    print(f"built the native scorers ({', '.join(native.SOURCES.values())}) with g++ in {native_secs:.1f} s, "
+          f"into {os.path.relpath(native.BUILD_DIR)}")
     for src, log in cuda_lib.build_logs().items():
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
@@ -439,10 +464,12 @@ def phase_check():
             errs[name] = max(errs.get(name, 0.0), worst)
 
     for dtype in (torch.float32, torch.bfloat16):
-        # then: ragged B, ragged H and k-tiles on the TMA path, one row; ragged
-        # H, I+H not a multiple of the k-tile, and I not a multiple of the
-        # vector width (element-wise loads)
+        # the serving shapes, phase 9's (the eval driver's 64 images: B=64
+        # greedy and loss, B=192 beam), then: ragged B, ragged H and k-tiles
+        # on the TMA path, one row; ragged H, I+H not a multiple of the
+        # k-tile, and I not a multiple of the vector width (element-wise loads)
         for B, I, H, serving in ((768, 1024, 1024, True), (256, 1024, 1024, True),
+                                 (64, 1024, 1024, False), (192, 1024, 1024, False),
                                  (300, 1024, 1024, False), (64, 1000, 1000, False),
                                  (1, 1024, 1024, False), (13, 40, 24, False), (9, 48, 40, False),
                                  (5, 17, 20, False)):
@@ -460,6 +487,7 @@ def phase_check():
         # shape its one-pass design does not take (72-byte rows)
         for name, B, K, L, D, serving in (
             ("additive_attention", 256, 1, 196, 512, True),
+            ("additive_attention", 64, 1, 196, 512, False),  # phase 9's batch: several blocks per image
             ("additive_attention", 7, 1, 13, 40, False),
             ("additive_attention", 1, 1, 196, 512, False),
             ("additive_attention", 256, 1, 1, 512, False),
@@ -469,6 +497,7 @@ def phase_check():
             ("additive_attention", 16, 1, 196, 1024, False),
             ("additive_attention", 5, 1, 13, 36, False),
             ("attention_beam", 256, 3, 196, 512, True),
+            ("attention_beam", 64, 3, 196, 512, False),  # phase 9's batch
             ("attention_beam", 256, 2, 196, 512, False),
             ("attention_beam", 256, 4, 196, 512, False),
             ("attention_beam", 256, 8, 196, 512, False),
@@ -1441,6 +1470,303 @@ def phase_serving_rest(model, cfg, images, captions, train_state, train_cfg):
     return out
 
 
+# --- phase 9: the eval driver on a trained decoder --------------------------
+
+# the JAX package's benchmark scenes (bench.py), kept here: 18 classes (6
+# colours x 3 shapes) on a noisy grey ground, 5 caption templates per class
+SCENE_RGB = {
+    "red": (200, 30, 30), "green": (30, 200, 30), "blue": (30, 30, 200),
+    "yellow": (220, 220, 30), "purple": (160, 30, 200), "white": (230, 230, 230),
+}
+SCENE_SHAPES = ("circle", "square", "triangle")
+SCENES = 256  # training images, and as many held-out images
+EVAL_BATCH = 64  # held-out images per batch of the eval driver
+TRAIN_STEPS, TRAIN_LR = 200, 3e-3  # bench.py's in-bench training of the decoder
+COCOID0 = 500_000  # the held-out images' ids in the annotation file
+# fp32 greedy ids, kernels vs plain: where they differ, the plain path's two
+# top logits must lie closer than this at the first differing step
+TIE_GAP = 1e-4
+
+
+def scene_templates(color: str, shape: str):
+    return [
+        ["a", color, shape, "sitting", "on", "a", "wooden", "table", "near", "a", "window"],
+        ["there", "is", "a", color, shape, "on", "a", "wooden", "table"],
+        ["a", "large", color, shape, "resting", "on", "a", "table", "near", "a", "window"],
+        ["a", "photo", "of", "a", color, shape, "on", "a", "table"],
+        ["a", color, shape, "on", "a", "table", "in", "a", "bright", "room"],
+    ]
+
+
+def render_scenes(rng, n: int):
+    """(uint8 images [n, 256, 256, 3], class ids): a coloured shape at a
+    jittered place on a noisy grey ground, class i % 18."""
+    classes = [(c, s) for c in SCENE_RGB for s in SCENE_SHAPES]
+    yy, xx = np.ogrid[:96, :96]
+    masks = {
+        "circle": (yy - 47.5) ** 2 + (xx - 47.5) ** 2 <= 47.5 ** 2,
+        "square": np.ones((96, 96), bool),
+        "triangle": (xx >= 47.5 - yy / 2.0) & (xx <= 47.5 + yy / 2.0),
+    }
+    arr = np.empty((n, 256, 256, 3), np.uint8)
+    cls = np.arange(n) % len(classes)
+    for i in range(n):
+        color, shape = classes[cls[i]]
+        img = rng.normal(125, 14, (256, 256, 3)).astype(np.float32)
+        y0 = 80 + int(rng.integers(-24, 25))
+        x0 = 80 + int(rng.integers(-24, 25))
+        img[y0:y0 + 96, x0:x0 + 96][masks[shape]] = np.array(SCENE_RGB[color], np.float32)
+        arr[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return arr, cls
+
+
+def _same_scores(a, b) -> bool:
+    """Exact equality through dicts and lists; NaN equals NaN (SPICE's
+    undefined subcategories)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_scores(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_scores(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and np.isnan(a):
+        return isinstance(b, float) and np.isnan(b)
+    return a == b
+
+
+def _coco_eval(predictions, ann_file, python: bool):
+    """(corpus, per image) scores of ``predictions``, the C++ scorers forced
+    off with ``python``."""
+    from show_and_tell_tpu_torch.metrics import bleu, cider, meteor, rouge
+    from show_and_tell_tpu_torch.metrics.coco import COCO
+    from show_and_tell_tpu_torch.metrics.orchestrator import COCOEvalCap
+
+    mods = (bleu, cider, meteor, rouge)
+    saved = [m._cpp_available for m in mods]
+    if python:
+        for m in mods:
+            m._cpp_available = lambda: False
+    try:
+        coco = COCO(ann_file)
+        res = coco.loadRes(predictions)
+        ev = COCOEvalCap(coco, res)
+        ev.params["image_id"] = res.getImgIds()
+        ev.evaluate()
+    finally:
+        for m, probe in zip(mods, saved):
+            m._cpp_available = probe
+    return ev.eval, ev.imgToEval
+
+
+def phase_eval(cfg):
+    """The port's eval driver over the JAX benchmark's scenes, before and
+    after 200 training steps of the decoder. Returns the figures."""
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.evalsuite import driver
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils import native
+    from show_and_tell_tpu_torch.utils.vocab import START_ID, Vocabulary
+
+    V, T = 10000, cfg.max_decode_len
+    rows = ("lstm_cell", "additive_attention", "attention_beam")
+    print(f"== 9. eval driver on a trained decoder: {cfg.model} {cfg.encoder} crop {cfg.crop_size} "
+          f"E={cfg.embed_size} H={cfg.hidden_size} V={V} {cfg.dtype}, beam {cfg.beam_size}, max_decode_len {T}; "
+          f"{SCENES} training and {SCENES} held-out scenes, batches of {EVAL_BATCH}")
+    t_phase = time.perf_counter()
+    status = native.status()
+    print(f"  native scorers: {status}")
+    assert status == {s: "native" for s in native.SCORERS}, f"a native scorer is not live: {status}"
+
+    # the scenes, their vocabulary (real words in the low ids, filler up to V)
+    classes = [(c, s) for c in SCENE_RGB for s in SCENE_SHAPES]
+    real = list(dict.fromkeys(w for c, s in classes for t in scene_templates(c, s) for w in t))
+    vocab = Vocabulary.from_words(real + [f"w{i}" for i in range(V - 4 - len(real))])
+    assert len(vocab) == V
+    rng = np.random.default_rng(SEED)
+    train_images, train_cls = render_scenes(rng, SCENES)
+    eval_images, eval_cls = render_scenes(rng, SCENES)
+    # one template per training image; the held-out images are scored against all five
+    tokens = [scene_templates(*classes[k])[(i // len(classes)) % 5] for i, k in enumerate(train_cls)]
+    captions, lengths = vocab.encode_batch(tokens, T)
+    eval_tokens = [scene_templates(*classes[k])[(i // len(classes)) % 5] for i, k in enumerate(eval_cls)]
+    eval_captions, eval_lengths = vocab.encode_batch(eval_tokens, T)
+    refs = [[" ".join(t) for t in scene_templates(*classes[k])] for k in eval_cls]
+    batches = [
+        {"images": eval_images[i:i + EVAL_BATCH], "captions": eval_captions[i:i + EVAL_BATCH],
+         "lengths": eval_lengths[i:i + EVAL_BATCH], "imgids": list(range(i, i + EVAL_BATCH)),
+         "cocoids": [COCOID0 + j for j in range(i, i + EVAL_BATCH)]}
+        for i in range(0, SCENES, EVAL_BATCH)
+    ]
+    loss_launches = T - 1  # rows 1 and 2 per batch in the teacher-forced loss
+
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    out = {"native": status, "decoders": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_file = os.path.join(tmp, "captions_heldout.json")
+        with open(ann_file, "w") as fh:
+            json.dump({
+                "images": [{"id": COCOID0 + i} for i in range(SCENES)],
+                "annotations": [{"image_id": COCOID0 + i, "id": 5 * i + r, "caption": c}
+                                for i in range(SCENES) for r, c in enumerate(refs[i])],
+            }, fh)
+
+        def evaluate(decoder):
+            """Both modes through ``driver.evaluation``; prints and returns
+            the figures, and the predictions by mode."""
+            figures, preds = {}, {}
+            for mode in ("beam", "greedy"):
+                # warm: the trunk and decode at this batch, no metrics
+                driver.evaluation(model, cfg, batches[:1], vocab, mode=mode, run_language_eval=False)
+                marks, le_secs = [], []
+
+                def marked():
+                    for b in batches:
+                        marks.append(dict(cuda_lib.LAUNCHES))
+                        yield b
+                    marks.append(dict(cuda_lib.LAUNCHES))
+
+                def timed_language_eval(*a):
+                    t0 = time.perf_counter()
+                    try:
+                        return saved(*a)
+                    finally:
+                        le_secs.append(time.perf_counter() - t0)
+
+                torch.cuda.synchronize()
+                cuda_lib.LAUNCHES.clear()
+                saved, driver.language_eval = driver.language_eval, timed_language_eval
+                try:
+                    t0 = time.perf_counter()
+                    loss, predictions, stats = driver.evaluation(model, cfg, marked(), vocab, mode=mode,
+                                                                 ann_file=ann_file)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                finally:
+                    driver.language_eval = saved
+                launches = {k: cuda_lib.LAUNCHES[k] for k in rows}
+                per_batch = [{k: b.get(k, 0) - a.get(k, 0) for k in rows} for a, b in zip(marks, marks[1:])]
+                if mode == "beam":
+                    steps = [d["attention_beam"] for d in per_batch]
+                else:
+                    steps = [d["additive_attention"] - loss_launches for d in per_batch]
+                assert all(d["lstm_cell"] == loss_launches + s for d, s in zip(per_batch, steps)), per_batch
+                by_id = {p["image_id"]: p["caption"] for p in predictions}
+                caps = [by_id[COCOID0 + i] for i in range(SCENES)]
+                exact = sum(c in refs[i] for i, c in enumerate(caps)) / SCENES
+                mean_len = float(np.mean([len(c.split()) for c in caps]))
+                print(f"  {decoder:9s} {mode:6s}: val loss {loss:.4f}; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in stats.items()))
+                print(f"  {decoder:9s} {mode:6s}: exact captions {exact:.4f}, mean length {mean_len:.2f} words, "
+                      f"decode steps per batch {steps}; {SCENES} images in {secs:.3f} s = {SCENES / secs:.1f} img/s "
+                      f"(language_eval {le_secs[0]:.3f} s of it; without it {SCENES / (secs - le_secs[0]):.1f} "
+                      f"img/s); launches {launches}")
+                print(f"  {decoder:9s} {mode:6s} caption[0]: {caps[0]!r}")
+                assert len(predictions) == SCENES and np.isfinite(loss), "every held-out image once, a finite loss"
+                assert set(stats) == {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"}
+                path = ("lstm_cell", "attention_beam") if mode == "beam" else ("lstm_cell", "additive_attention")
+                assert all(launches[k] > 0 for k in path), f"{decoder} {mode}: kernels of the path {launches}"
+                figures[mode] = {"val_loss": loss, "lang_stats": stats, "exact": exact, "mean_len": mean_len,
+                                 "steps_per_batch": steps, "eval_s": secs, "img_s": SCENES / secs,
+                                 "language_eval_s": le_secs[0], "launches": launches}
+                preds[mode] = predictions
+            return figures, preds
+
+        out["decoders"]["untrained"], _ = evaluate("untrained")
+
+        # train the decoder on the training scenes' trunk features, computed once
+        with torch.no_grad():
+            feats = torch.cat([
+                model.backbone_features(eval_transform(torch.from_numpy(train_images[i:i + EVAL_BATCH]).cuda(),
+                                                       cfg.crop_size))
+                for i in range(0, SCENES, EVAL_BATCH)])
+        batch = {"features": feats, "captions": torch.from_numpy(captions).cuda(),
+                 "lengths": torch.from_numpy(lengths).cuda()}
+        state = make_train_state(cfg, model)
+        step = make_train_step(model, cfg)
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch, TRAIN_LR)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        train_launches = {k: cuda_lib.LAUNCHES[k] for k in rows}
+        print(f"  training: {TRAIN_STEPS} steps at lr {TRAIN_LR:g} on {SCENES} scenes' features in {train_s:.2f} s; "
+              f"loss at step 1 {losses[0]:.4f}, at step {TRAIN_STEPS} {losses[-1]:.4f}; launches {train_launches}")
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], "the training loss did not fall"
+        out["training"] = {"steps": TRAIN_STEPS, "lr": TRAIN_LR, "seconds": train_s, "loss_first": losses[0],
+                           "loss_last": losses[-1], "launches": train_launches}
+        del feats, batch, state, step
+
+        out["decoders"]["trained"], preds = evaluate("trained")
+        untrained, trained = out["decoders"]["untrained"], out["decoders"]["trained"]
+        for mode in ("beam", "greedy"):
+            t, u = trained[mode], untrained[mode]
+            assert t["mean_len"] < T, f"trained {mode}: mean caption length {t['mean_len']}"
+            assert min(t["steps_per_batch"]) < T, f"trained {mode}: no batch stopped early {t['steps_per_batch']}"
+            cider_t, cider_u = t["lang_stats"]["CIDEr"], u["lang_stats"]["CIDEr"]
+            assert cider_t >= max(10 * cider_u, 1.0), f"{mode}: CIDEr {cider_t} trained, {cider_u} untrained"
+
+            # the native scorers against the pure-Python path, per image
+            t0 = time.perf_counter()
+            corpus_n, per_n = _coco_eval(preds[mode], ann_file, python=False)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            corpus_p, per_p = _coco_eval(preds[mode], ann_file, python=True)
+            t_python = time.perf_counter() - t0
+            same = _same_scores(per_n, per_p) and _same_scores(corpus_n, corpus_p)
+            print(f"  trained   {mode:6s}: the native scorers against the pure-Python path on its {len(per_n)} "
+                  f"captions: every metric per image and corpus equal: {same} (suite {t_native:.3f} s native, "
+                  f"{t_python:.3f} s Python)")
+            assert same, f"{mode}: native and Python scores differ"
+            assert _same_scores(corpus_n, t["lang_stats"]), "the driver's language_eval differs from COCOEvalCap's"
+
+    # fp32: the trained decoder's greedy ids through the kernels against the
+    # plain path, on the card
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    m32.load_state_dict(model.state_dict())
+    del model
+    with torch.no_grad():
+        f32 = torch.cat([
+            m32.backbone_features(eval_transform(torch.from_numpy(eval_images[i:i + EVAL_BATCH]).cuda(),
+                                                 cfg.crop_size))
+            for i in range(0, SCENES, EVAL_BATCH)])
+        ids = {}
+        for path in ("kernels", "plain"):
+            cuda_lib.LAUNCHES.clear()
+            with plain_ops() if path == "plain" else contextlib.nullcontext():
+                ids[path] = decode_ids(m32, cfg32, f32, "greedy")
+            torch.cuda.synchronize()
+            n = sum(cuda_lib.LAUNCHES[k] for k in rows)
+            assert (n > 0) == (path == "kernels"), f"fp32 {path} path: {n} kernel launches"
+        differ = (ids["kernels"] != ids["plain"]).any(1).nonzero().squeeze(1).tolist()
+        gaps = []
+        for r in differ:  # the plain path's two top logits at the first differing step
+            t_diff = int((ids["kernels"][r] != ids["plain"][r]).int().argmax())
+            with plain_ops():
+                step_fn, carry, _, _ = m32.decode_state(f32[r:r + 1], beam_size=1)
+                prev = torch.full((1,), START_ID, dtype=torch.long, device="cuda")
+                for s in range(t_diff + 1):
+                    carry, logits = step_fn(carry, prev)
+                    prev = ids["plain"][r:r + 1, s]
+            top2 = logits[0].float().topk(2).values
+            gaps.append(float(top2[0] - top2[1]))
+            print(f"  fp32 greedy: image {r} differs at step {t_diff}: kernels {ids['kernels'][r].tolist()}, "
+                  f"plain {ids['plain'][r].tolist()}; the plain top-two logit gap there {gaps[-1]:.3e}")
+    print(f"  fp32 greedy ids of the trained decoder, kernels vs plain: {SCENES - len(differ)} of {SCENES} "
+          f"identical; differences at top-two gaps under {TIE_GAP:g}: {all(g < TIE_GAP for g in gaps)}")
+    assert all(g < TIE_GAP for g in gaps), f"fp32 greedy ids differ away from a tie: gaps {gaps}"
+    out["fp32_greedy_differ"] = len(differ)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 9: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the kernel results as JSON to this path")
@@ -1464,6 +1790,8 @@ def main() -> int:
     # phase 8's launches stay in its own lines and in the --out file's "serving"
     serving = phase_serving_rest(model, cfg, images, captions, train_state, train_cfg)
     del model, train_state
+    # phase 9's launches stay in its own lines and in the --out file's "eval"
+    evaluation = phase_eval(cfg)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -1473,7 +1801,8 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving}, fh, indent=1)
+            json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
+                       "eval": evaluation}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
