@@ -12,6 +12,8 @@ Phases, each printing its own lines:
    one ``nvcc`` per source, all started together, and beside them the metric
    suite's C++ scorers (``csrc/*.cpp``, one ``g++`` each, into
    ``show_and_tell_tpu_torch/_build/native/``); a failed build fails the run;
+   the data pipeline's C++ image decoder is built beside them, and whether
+   it built (it needs libjpeg and libpng) is printed, not held;
 3. each of the seven kernels against its plain PyTorch version on the card, at
    the serving shapes, at phase 9's (the cell at B=64 and 192, the
    attentions at B=64) and at unaligned and ragged ones (the cell: B=300,
@@ -109,8 +111,32 @@ Phases, each printing its own lines:
    the pure-Python path per image, the kernels launched, the trained
    decoder's early exit and its CIDEr at least 10x the untrained one's and at
    least 1, and the fp32 greedy ids through the kernels equal to the plain
-   path's but at ties (top-two logit gap under 1e-4).
-Phases 8 and 9 count their launches in their own lines and the ``--out``
+   path's but at ties (top-two logit gap under 1e-4);
+10. the training CLI on the card, at phase 5's width, the way a training
+   user runs it: a Karpathy-format caption JSON of phase 9's scenes (256
+   training scenes with their class's 5 templates, 256 held-out scenes with
+   a COCO annotation file of the 5, filler captions that bring the
+   vocabulary to 10,000) through ``cli.preprocess``; the scenes' pixels
+   written as memmap shards in the documented layout (the card's host has
+   no image codec) and reused by ``pack_memmap``; one epoch of the loader
+   alone (host img/s); ``cli.main.main(cfg)``: 40 epochs of 5 steps at
+   batch 256, lr 3e-3, a greedy CIDEr gate every 50 steps, the trunk from a
+   torchvision-layout file (``--encoder_weights``), printing each log
+   line's loss, each gate's CIDEr and seconds, the trainer's img/s and
+   ms/step beside phase 7's bare-step img/s, and holding the loss finite
+   and falling, rows 1 and 2 launched pad_len - 1 times per step by the
+   cell's ``wgmma`` and the attention's one-pass design, the infos'
+   iteration, epoch and best score, the best checkpoint at the largest
+   CIDEr (at least 1) and no corrupt image substituted; a ``Trainer``
+   preempted mid-epoch and resumed through ``start_from`` (the trained
+   plans skipped, the first batch the uninterrupted order's, the same end);
+   ``cli.evaluate`` on the best checkpoint, greedy (lang_stats and the first
+   10 predictions equal to the gate's) and beam 3 (row 3 once per decode
+   step); ``cli.extract_features`` over the shards (features within the bf16
+   tolerance of ``backbone_features(eval_transform(x))``, img/s), then 10
+   ``cli.main`` steps on the features (every batch features [256, 196,
+   512], no images).
+Phases 8-10 count their launches in their own lines and the ``--out``
 file's; the kernels line counts phases 4-6 as before.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -124,6 +150,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import json
+import logging
 import os
 import re
 import statistics
@@ -385,13 +412,22 @@ def phase_build():
     from show_and_tell_tpu_torch.utils import native
 
     print("== 2. build")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         scorers = pool.submit(native.build)  # the g++ builds beside the nvcc ones
+        # the data pipeline's C++ image decoder needs libjpeg and libpng on
+        # the host: its build is reported, not held
+        decoder = pool.submit(native.build, ("libimage_loader.so",))
         secs = cuda_lib.build_all()
         native_secs = scorers.result()
+        try:
+            decoder_note = f"built in {decoder.result():.1f} s"
+        except RuntimeError as e:
+            decoder_note = f"not built (the pipeline decodes with PIL where it has one): {str(e).splitlines()[-1][:200]}"
     print(f"built {', '.join(cuda_lib.SOURCES)} for sm_90a in {secs:.1f} s")
-    print(f"built the native scorers ({', '.join(native.SOURCES.values())}) with g++ in {native_secs:.1f} s, "
+    print(f"built the native scorers ({', '.join(native.SOURCES[so] for so in native.SCORER_LIBS)}) with g++ in "
+          f"{native_secs:.1f} s, "
           f"into {os.path.relpath(native.BUILD_DIR)}")
+    print(f"the data pipeline's C++ image decoder (csrc/image_loader.cpp, -ljpeg -lpng): {decoder_note}")
     for src, log in cuda_lib.build_logs().items():
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
@@ -1767,6 +1803,426 @@ def phase_eval(cfg):
     return out
 
 
+# --- phase 10: the training CLI on the card ---------------------------------
+
+V_TRAIN = 10000  # the vocabulary phase 10 reaches through build_vocab
+FILLER_PER_SENTENCE = 20  # filler words per test-split caption
+TRAIN_CLI_EPOCHS = 40  # of 5 steps at batch 256: 200 steps, as phase 9 trains
+TRAIN_CLI_GATE = 50  # steps between the gates: 4 gate evaluations
+RESUME_AT = 7  # the resume run is triggered while step RESUME_AT + 1's batch is made
+FEATURE_STEPS = 10  # cli.main steps fed by the extracted features
+
+
+class _Watched:
+    """A loader wrapper that forwards ``set_epoch`` and ``set_resume_skip``,
+    records the captions of each batch it hands out and the skips it was
+    asked for, and triggers ``guard`` while making its batch ``at`` (0-based,
+    over epochs): with the trainer's one-batch lookahead, after step ``at``."""
+
+    def __init__(self, loader, guard=None, at=-1):
+        self.loader, self.guard, self.at = loader, guard, at
+        self.captions, self.skips = [], []
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def set_resume_skip(self, n):
+        self.skips.append(n)
+        self.loader.set_resume_skip(n)
+
+    def __iter__(self):
+        for b in self.loader:
+            if len(self.captions) == self.at:
+                self.guard.trigger()
+            self.captions.append(b["captions"])
+            yield b
+
+
+@contextlib.contextmanager
+def _timed_transfers(seconds):
+    """Record the host seconds of each ``Trainer._to_device`` (the pinned
+    copy of a batch and its queued copy to the card)."""
+    from show_and_tell_tpu_torch.train.trainer import Trainer
+
+    to_device = Trainer._to_device
+
+    def timed(self, batch):
+        t0 = time.perf_counter()
+        out = to_device(self, batch)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    Trainer._to_device = timed
+    try:
+        yield
+    finally:
+        Trainer._to_device = to_device
+
+
+@contextlib.contextmanager
+def _recording_steps(steps):
+    """Record, per call of ``TrainStep``, the batch's array shapes, the
+    launches of rows 1 and 2 during the step and its host seconds (the step
+    waits on its gradient norm, so that is its device time but the tail of
+    the optimizer's launches)."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.train import step as step_mod
+
+    rows = ("lstm_cell", "additive_attention")
+    call = step_mod.TrainStep.__call__
+
+    def recorded(self, state, batch, *a, **kw):
+        before = {k: cuda_lib.LAUNCHES[k] for k in rows}
+        t0 = time.perf_counter()
+        out = call(self, state, batch, *a, **kw)
+        steps.append({"shapes": {k: tuple(v.shape) for k, v in batch.items()},
+                      "launches": {k: cuda_lib.LAUNCHES[k] - before[k] for k in rows},
+                      "loss": out[1]["loss"], "seconds": time.perf_counter() - t0})
+        return out
+
+    step_mod.TrainStep.__call__ = recorded
+    try:
+        yield
+    finally:
+        step_mod.TrainStep.__call__ = call
+
+
+@contextlib.contextmanager
+def _timed_evaluations(gates):
+    """Record the seconds and the launches of each ``evaluation`` call (the
+    trainer's gate calls it through ``make_trainer_eval_fn``)."""
+    from show_and_tell_tpu_torch.evalsuite import driver
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    evaluation = driver.evaluation
+
+    def timed(*a, **kw):
+        before = dict(cuda_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        out = evaluation(*a, **kw)
+        torch.cuda.synchronize()
+        gates.append({"seconds": time.perf_counter() - t0,
+                      "launches": {k: cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in REPLACES
+                                   if cuda_lib.LAUNCHES[k] - before.get(k, 0)}})
+        return out
+
+    driver.evaluation = timed
+    try:
+        yield
+    finally:
+        driver.evaluation = evaluation
+
+
+def _write_scene_corpus(tmp, rng):
+    """The phase's corpus under ``tmp``: a Karpathy-format caption JSON
+    (train: SCENES scenes with their class's 5 templates; val: SCENES
+    held-out scenes, one template each, and a COCO annotation file of all
+    5; test: filler captions that bring the vocabulary to V_TRAIN), and the
+    train and val scenes' pixels as memmap shards keyed by the file paths
+    that ``preprocess`` assigns. Returns the paths and the val references."""
+    from show_and_tell_tpu_torch.data import memmap
+
+    classes = [(c, s) for c in SCENE_RGB for s in SCENE_SHAPES]
+    train_images, train_cls = render_scenes(rng, SCENES)
+    val_images, val_cls = render_scenes(rng, SCENES)
+    real = list(dict.fromkeys(w for c, s in classes for t in scene_templates(c, s) for w in t))
+    filler = [f"w{i}" for i in range(V_TRAIN - 4 - len(real))]
+    images, keys, refs = [], [], {}
+    for split, cls in (("train", train_cls), ("val", val_cls)):
+        for i, k in enumerate(cls):
+            templates = scene_templates(*classes[k])
+            sents = templates if split == "train" else [templates[(i // len(classes)) % 5]]
+            imgid = len(images)
+            cocoid = COCOID0 + imgid
+            images.append({"split": split, "imgid": imgid, "cocoid": cocoid, "filepath": split,
+                           "filename": f"scene{i}.png", "sentences": [{"tokens": t} for t in sents],
+                           "sentids": [5 * imgid + j for j in range(len(sents))]})
+            # the record's file_path: preprocess's data_root/filepath/filename
+            keys.append(os.path.join("data", split, f"scene{i}.png"))
+            if split == "val":
+                refs[cocoid] = [" ".join(t) for t in templates]
+    for j in range(0, len(filler), FILLER_PER_SENTENCE):
+        imgid = len(images)
+        images.append({"split": "test", "imgid": imgid, "cocoid": COCOID0 + imgid, "filepath": "test",
+                       "filename": f"filler{j}.png", "sentences": [{"tokens": filler[j:j + FILLER_PER_SENTENCE]}],
+                       "sentids": [5 * imgid]})
+    paths = {"captions": os.path.join(tmp, "captions.json"), "ann": os.path.join(tmp, "captions_val.json"),
+             "memmap": os.path.join(tmp, "memmap"), "vocab": os.path.join(tmp, "vocab.json"),
+             "data": os.path.join(tmp, "data.json")}
+    with open(paths["captions"], "w") as fh:
+        json.dump({"images": images}, fh)
+    with open(paths["ann"], "w") as fh:
+        json.dump({"images": [{"id": c} for c in refs],
+                   "annotations": [{"image_id": c, "id": 5 * c + r, "caption": t}
+                                   for c, ts in refs.items() for r, t in enumerate(ts)]}, fh)
+    # the documented shard layout (data/memmap.py), written without a codec
+    os.makedirs(paths["memmap"])
+    pixels = np.concatenate([train_images, val_images])
+    pixels.tofile(os.path.join(paths["memmap"], "shard_00000.u8"))
+    with open(os.path.join(paths["memmap"], memmap.INDEX), "w") as fh:
+        json.dump({"image_size": 256, "items_per_shard": 8192, "shards": ["shard_00000.u8"],
+                   "paths": {k: i for i, k in enumerate(keys)}}, fh)
+    return paths, refs, dict(zip(keys, pixels))
+
+
+def phase_train_cli(smi, bare_img_s):
+    """The training user's path on the card: ``cli.preprocess`` ->
+    memmap shards -> the loader -> ``cli.main`` (200 steps, CIDEr gates) ->
+    a preempted and resumed ``Trainer`` -> ``cli.evaluate`` ->
+    ``cli.extract_features`` -> ``cli.main`` on the features. Returns the
+    figures."""
+    from show_and_tell_tpu_torch.ckpt.torch_import import load_encoder_weights
+    from show_and_tell_tpu_torch.cli import evaluate as cli_evaluate
+    from show_and_tell_tpu_torch.cli import extract_features as cli_extract
+    from show_and_tell_tpu_torch.cli import main as cli_main
+    from show_and_tell_tpu_torch.cli import preprocess as cli_preprocess
+    from show_and_tell_tpu_torch.config import parse_config
+    from show_and_tell_tpu_torch.data import memmap
+    from show_and_tell_tpu_torch.data.dataset import CocoCaptionDataset
+    from show_and_tell_tpu_torch.data.pipeline import make_loader
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.models.encoders import init_vgg16, to_torch_vgg16
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops.fused_attention import attention_plan
+    from show_and_tell_tpu_torch.train.preempt import PreemptionGuard
+    from show_and_tell_tpu_torch.train.trainer import Trainer
+    from show_and_tell_tpu_torch.utils import native
+    from show_and_tell_tpu_torch.utils.rng import KeyChain
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    print(f"== 10. the training CLI on the card: preprocess, memmap shards, cli.main, resume, cli.evaluate, "
+          f"cli.extract_features; VGG16 at 224 px, E=512, H=1024, bf16, batch 256  [{smi}]")
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    built = os.path.exists(native.lib_path("libimage_loader.so"))
+    print(f"  libimage_loader.so built on this host (phase 2): {built}")
+    out["image_loader_built"] = built
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, refs, pixels = _write_scene_corpus(tmp, np.random.default_rng(SEED + 10))
+        index = os.path.join(paths["memmap"], memmap.INDEX)
+        stamp = os.stat(index).st_mtime_ns
+        memmap.pack_memmap(list(pixels), paths["memmap"], size=256)
+        assert os.stat(index).st_mtime_ns == stamp, "pack_memmap did not reuse the complete shards"
+
+        # 3. the vocabulary and the records through the real preprocess
+        cli_preprocess.main(["--caption_json", paths["captions"], "--vocab_path", paths["vocab"],
+                             "--output_json", paths["data"], "--word_count_threshold", "1",
+                             "--print_stats", "false"])
+        vocab = Vocabulary.load(paths["vocab"])
+        records = json.load(open(paths["data"]))
+        n_train = sum(r["split"] == "train" for r in records)
+        print(f"  cli.preprocess: vocabulary {len(vocab)} words, {n_train} train records, "
+              f"{sum(r['split'] == 'val' for r in records)} val records")
+        assert len(vocab) == V_TRAIN and n_train == 5 * SCENES, (len(vocab), n_train)
+        assert all(r["file_path"] in pixels for r in records if r["split"] != "test")
+
+        trunk = os.path.join(tmp, "vgg16.pth")
+        torch.save(to_torch_vgg16(init_vgg16(torch.Generator().manual_seed(SEED))), trunk)
+        flags = ["--data_json", paths["data"], "--vocab_path", paths["vocab"], "--memmap_dir", paths["memmap"],
+                 "--encoder_weights", trunk, "--batch_size", "256", "--dtype", "bfloat16",
+                 "--ann_file", paths["ann"], "--learning_rate", str(TRAIN_LR), "--learning_rate_decay_start", "-1",
+                 "--scheduled_sampling_start", "-1", "--log_step", "5", "--language_eval", "1"]
+        cfg = parse_config(flags + ["--max_epochs", str(TRAIN_CLI_EPOCHS),
+                                    "--save_checkpoint_every", str(TRAIN_CLI_GATE),
+                                    "--expr_dir", os.path.join(tmp, "exp")])
+
+        # 4. the loader alone: one epoch from the shards
+        train_ds = CocoCaptionDataset(records, vocab, "train", cfg.max_caption_len, cfg.num_buckets)
+        loader = make_loader(cfg, train_ds, mode="train")
+        t0 = time.perf_counter()
+        batches = [(b["images"].shape, b["captions"].shape) for b in loader]
+        secs = time.perf_counter() - t0
+        n = sum(s[0][0] for s in batches)
+        print(f"  loader alone: one epoch of {len(batches)} batches {sorted(set(batches))} from the memmap in "
+              f"{secs:.3f} s = {n / secs:.1f} img/s on the host, corrupt_skipped {loader.corrupt_skipped}  [{smi}]")
+        assert loader.corrupt_skipped == 0 and len(batches) == 5
+        out["loader_img_s"] = n / secs
+
+        # 5. cli.main: 200 steps with the CIDEr gate every 50
+        steps, gates, lines, transfers = [], [], [], []
+        handler = _LogLines(lines)
+        tlog = logging.getLogger("show_and_tell_tpu_torch.train.trainer")
+        tlog.addHandler(handler)
+        tlog.setLevel(logging.INFO)
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        try:
+            with _recording_steps(steps), _timed_evaluations(gates), _timed_transfers(transfers):
+                t0 = time.perf_counter()
+                trainer = cli_main.main(cfg)
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+        finally:
+            tlog.removeHandler(handler)
+        expr_dir = trainer.cfg.expr_dir
+        infos = json.load(open(os.path.join(expr_dir, "infos.json")))
+        best = json.load(open(os.path.join(expr_dir, "infos-best.json")))
+        for ln in lines:
+            print(f"  cli.main log: epoch {ln[0]}, step {ln[1]}: loss {ln[2]:.4f}, {ln[3]:.1f} img/s, "
+                  f"{ln[4]:.0f} ms/step")
+        ciders = {int(k): v["lang_stats"]["CIDEr"] for k, v in infos["val_result_history"].items()}
+        for (it, c), g in zip(sorted(ciders.items()), gates):
+            print(f"  gate at step {it}: CIDEr {c:.4f}, val loss {infos['val_result_history'][str(it)]['loss']:.4f}, "
+                  f"evaluation {g['seconds']:.3f} s, launches {g['launches']}  [{smi}]")
+        img_s, ms = trainer.throughput.items_per_sec, 1e3 * trainer.timer.avg_s
+        print(f"  cli.main: {len(steps)} steps in {main_s:.1f} s with the gates; the trainer's meters "
+              f"{img_s:.1f} img/s, {ms:.1f} ms/step, against phase 7's {bare_img_s:.1f} img/s of bare steps "
+              f"on one fixed batch  [{smi}]")
+        # where a step of the loop goes, host clock: the meters' windows
+        # exclude the gates
+        loop_ms = 1e3 * trainer.throughput.seconds / (trainer.throughput.items / cfg.batch_size)
+        call_ms = 1e3 * statistics.mean(s["seconds"] for s in steps)
+        copy_ms = 1e3 * statistics.mean(transfers)
+        print(f"  per step of the loop {loop_ms:.1f} ms: the TrainStep call {call_ms:.1f} ms (it waits on its gradient "
+              f"norm), the batch to the card {copy_ms:.1f} ms (pinned copy, queued transfer), the rest "
+              f"{loop_ms - call_ms - copy_ms:.1f} ms (the loader's queue, logging, the generator)  [{smi}]")
+        per_step = [(s["shapes"]["captions"][1] - 1, s["launches"]) for s in steps]
+        bad = [(want, got) for want, got in per_step if got != {"lstm_cell": want, "additive_attention": want}]
+        cell_d, attn_d = cuda_lib.designs("lstm_cell"), cuda_lib.designs("additive_attention")
+        print(f"  launches of rows 1 and 2 per step: pad_len - 1 on {len(steps) - len(bad)} of {len(steps)} steps "
+              f"(pad_len - 1 in {sorted({w for w, _ in per_step})}); over the run, with the gates: "
+              f"cell {cell_d}, attention {attn_d}")
+        assert len(steps) == TRAIN_CLI_EPOCHS * 5 and not bad, bad[:3]
+        plan = attention_plan(cfg.batch_size, 196, 512, 2, True)
+        assert set(cell_d) == {"wgmma"} and set(attn_d) == {f"onepass{plan[1]}"}, (cell_d, attn_d)
+        losses = [float(s["loss"]) for s in steps]
+        log_losses = [ln[2] for ln in lines]
+        assert all(np.isfinite(losses)) and log_losses[-1] < log_losses[0], "the loss did not fall"
+        assert (infos["total_iter"], infos["epoch"]) == (TRAIN_CLI_EPOCHS * 5, TRAIN_CLI_EPOCHS), infos["total_iter"]
+        best_it = max(ciders, key=ciders.get)
+        print(f"  best: CIDEr {infos['best_val_score']:.4f} at step {best['total_iter']} "
+              f"(the gates' largest: {ciders[best_it]:.4f} at step {best_it}); corrupt_skipped train "
+              f"{trainer.trainloader.corrupt_skipped}, val {trainer.validloader.corrupt_skipped}")
+        assert len(ciders) == 4 and infos["best_val_score"] == ciders[best_it] and best["total_iter"] == best_it
+        assert ciders[best_it] >= 1.0, f"best CIDEr {ciders[best_it]}"
+        assert trainer.trainloader.corrupt_skipped == 0 and trainer.validloader.corrupt_skipped == 0
+        out["main"] = {"seconds": main_s, "img_s": img_s, "ms_per_step": ms, "bare_step_img_s": bare_img_s,
+                       "loop_ms": loop_ms, "step_call_ms": call_ms, "to_device_ms": copy_ms,
+                       "gates": [dict(g, step=it, cider=c) for (it, c), g in zip(sorted(ciders.items()), gates)],
+                       "log_losses": log_losses, "best_step": best_it, "best_cider": ciders[best_it],
+                       "launches": {"lstm_cell": cell_d, "additive_attention": attn_d}}
+        del trainer
+
+        # 6. preempt mid-epoch 2, then resume through start_from
+        rcfg = cfg.replace(max_epochs=2, save_checkpoint_every=1000, expr_dir=os.path.join(tmp, "resume"))
+        os.makedirs(rcfg.expr_dir)
+
+        def resume_trainer(c, loader):
+            model = build_model(c, len(vocab), device="cuda", generator=KeyChain(c.random_seed).generator("init"))
+            return Trainer(c, model, loader)
+
+        guard = PreemptionGuard()
+        first = _Watched(make_loader(rcfg, train_ds), guard, at=RESUME_AT)
+        infos = resume_trainer(rcfg, first).train(guard)
+        print(f"  preempted: total_iter {infos['total_iter']}, epoch {infos['epoch']}, iter {infos['iter']}, "
+              f"preempted {infos.get('preempted')}; state-last.pt "
+              f"{os.path.getsize(os.path.join(rcfg.expr_dir, 'state-last.pt')) / 1e6:.1f} MB")
+        assert infos.get("preempted") is True and (infos["total_iter"], infos["epoch"], infos["iter"]) == (7, 2, 2)
+        second = _Watched(make_loader(rcfg, train_ds))
+        infos = resume_trainer(rcfg.replace(start_from=rcfg.expr_dir), second).train(PreemptionGuard())
+        plain = make_loader(rcfg, train_ds)
+        plain.set_epoch(2)
+        order = [b["captions"] for b in plain]
+        same = np.array_equal(second.captions[0], order[2])
+        print(f"  resumed: skips {second.skips}, {len(second.captions)} batches taken, the first equal to the "
+              f"uninterrupted order's batch 3 of epoch 2: {same}; total_iter {infos['total_iter']}, "
+              f"epoch {infos['epoch']}, preempted {infos.get('preempted')}")
+        assert second.skips == [2] and len(second.captions) == 3 and same
+        assert (infos["total_iter"], infos["epoch"]) == (10, 2) and not infos.get("preempted")
+
+        # 7. cli.evaluate on the best checkpoint: greedy equals the gate, beam 3
+        val_ds = CocoCaptionDataset(records, vocab, "val", cfg.max_caption_len, cfg.num_buckets)
+        loss_launches = sum(p["pad_len"] - 1 for p in val_ds.iter_index_batches(256, shuffle=False))
+        gate = json.load(open(os.path.join(expr_dir, "infos.json")))["val_result_history"][str(best_it)]
+        out["evaluate"] = {}
+        for beam in (1, 3):
+            torch.cuda.synchronize()
+            cuda_lib.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            loss, preds, stats = cli_evaluate.main(flags + ["--load_model_path", expr_dir, "--beam_size", str(beam)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention", "attention_beam")}
+            print(f"  cli.evaluate beam {beam}: val loss {loss:.4f}, CIDEr {stats['CIDEr']:.4f}, "
+                  f"{len(preds)} images in {secs:.2f} s = {len(preds) / secs:.1f} img/s (model build, checkpoint "
+                  f"and the whole evaluation), launches {launches}  [{smi}]")
+            if beam == 1:
+                held = _same_scores(stats, gate["lang_stats"]) and preds[:10] == gate["predictions_sample"]
+                print(f"  greedy lang_stats and first 10 predictions equal the gate's at step {best_it}: {held}")
+                assert held, (stats, gate["lang_stats"])
+                assert launches["additive_attention"] == launches["lstm_cell"] > loss_launches
+                assert launches["attention_beam"] == 0
+            else:
+                steps_b = launches["lstm_cell"] - loss_launches
+                assert launches["attention_beam"] == steps_b > 0 and launches["additive_attention"] == loss_launches
+            out["evaluate"][f"beam{beam}"] = {"val_loss": loss, "lang_stats": stats, "img_s": len(preds) / secs,
+                                               "launches": launches}
+
+        # 8. cli.extract_features over the shards, then cli.main on the features
+        npz = os.path.join(tmp, "features.npz")
+        t0 = time.perf_counter()
+        path = cli_extract.main(flags + ["--output_json", npz])
+        ext_s = time.perf_counter() - t0
+        feats = np.load(path)
+        model = build_model(cfg, len(vocab), device="cuda", generator=KeyChain(cfg.random_seed).generator("init"))
+        load_encoder_weights(cfg, model)
+        ids = [r["cocoid"] for r in records if r["split"] != "test"]
+        keys = [r["file_path"] for r in records if r["split"] != "test"]
+        uniq = dict(zip(ids, keys))
+        worst = scale = 0.0
+        with torch.no_grad():
+            items = list(uniq.items())
+            for lo in range(0, len(items), 256):
+                chunk = items[lo:lo + 256]
+                x = torch.from_numpy(np.stack([pixels[k] for _, k in chunk])).cuda()
+                want = model.backbone_features(eval_transform(x, cfg.crop_size)).float().cpu().numpy()
+                got = np.stack([feats[str(c)] for c, _ in chunk])
+                worst = max(worst, float(np.abs(got - want).max()))
+                scale = max(scale, float(np.abs(want).max()))
+        print(f"  cli.extract_features: {len(feats.files)} images in {ext_s:.2f} s = {len(feats.files) / ext_s:.1f} "
+              f"img/s (model build, trunk, .npz written compressed); against backbone_features(eval_transform(x)) "
+              f"max|diff| {worst:.3e} of scale {scale:.3f} = {worst / scale:.2e} (tol {RTOL[torch.bfloat16]:g})  "
+              f"[{smi}]")
+        assert len(feats.files) == len(uniq) == 2 * SCENES and worst <= RTOL[torch.bfloat16] * scale
+        del model
+        fsteps = []
+        fcfg = parse_config(flags + ["--features_path", path, "--max_epochs", str(FEATURE_STEPS // 5),
+                                     "--save_checkpoint_every", "1000", "--expr_dir", os.path.join(tmp, "feat")])
+        with _recording_steps(fsteps):
+            t0 = time.perf_counter()
+            trainer = cli_main.main(fcfg)
+            torch.cuda.synchronize()
+            fsecs = time.perf_counter() - t0
+        shapes = {tuple(sorted(s["shapes"].items())) for s in fsteps}
+        flosses = [float(s["loss"]) for s in fsteps]
+        print(f"  cli.main on the features: {len(fsteps)} steps in {fsecs:.2f} s with the model build, the "
+              f"trainer's meters {trainer.throughput.items_per_sec:.1f} img/s; batch shapes {sorted(shapes)}; "
+              f"loss {flosses[0]:.4f} -> {flosses[-1]:.4f}  [{smi}]")
+        assert len(fsteps) == FEATURE_STEPS and all(np.isfinite(flosses))
+        assert all(s["shapes"]["features"] == (256, 196, 512) and "images" not in s["shapes"] for s in fsteps)
+        out["extract"] = {"seconds": ext_s, "img_s": len(feats.files) / ext_s, "rel_err": worst / scale,
+                          "feature_steps_img_s": trainer.throughput.items_per_sec}
+        del trainer, feats
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10: {out['seconds']:.1f} s")
+    return out
+
+
+class _LogLines(logging.Handler):
+    """Collects the trainer's step lines as (epoch, step, loss, img/s,
+    ms/step)."""
+
+    def __init__(self, lines):
+        super().__init__(logging.INFO)
+        self.lines = lines
+
+    def emit(self, record):
+        if record.msg.startswith("Epoch ["):
+            epoch, _, it, loss, _, img_s, ms = record.args
+            self.lines.append((epoch, it, loss, img_s, ms))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the kernel results as JSON to this path")
@@ -1792,6 +2248,8 @@ def main() -> int:
     del model, train_state
     # phase 9's launches stay in its own lines and in the --out file's "eval"
     evaluation = phase_eval(cfg)
+    # phase 10's likewise, under "train_cli"
+    train_cli = phase_train_cli(smi, training["img_s"])
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -1802,7 +2260,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
-                       "eval": evaluation}, fh, indent=1)
+                       "eval": evaluation, "train_cli": train_cli}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -114,3 +114,13 @@ def apply_reference_checkpoint(cfg, model) -> bool:
     if trunk is not None:
         load_trunk(model, trunk, cfg.torch_checkpoint)
     return trunk is not None
+
+
+def load_encoder_weights(cfg, model) -> None:
+    """Load ``cfg.encoder_weights``, a torchvision state dict of the
+    ``cfg.encoder`` trunk, into ``model``'s frozen trunk in place."""
+    from show_and_tell_tpu_torch.ckpt.checkpoint import load_trunk
+    from show_and_tell_tpu_torch.models.encoders import load_torch_encoder
+
+    trunk = trunk_state_dict(load_torch_encoder(cfg.encoder, cfg.encoder_weights)["convs"])
+    load_trunk(model, trunk, cfg.encoder_weights)

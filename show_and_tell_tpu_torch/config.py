@@ -3,14 +3,18 @@
 A field-for-field copy of the JAX package's ``Config``, so that one JSON
 config describes a run of either package. Fields that only the JAX package
 reads (mesh, Pallas, multi-host) are kept for that reason and are ignored
-here. CLI parsing is not ported yet (see ROADMAP.md).
+here. The CLI parser is generated from the dataclass, as in the JAX package,
+so the same argv gives the same config in both.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, fields
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 
 @dataclass
@@ -125,3 +129,43 @@ class Config:
     def from_dict(cls, d: dict) -> "Config":
         known = {f.name for f in fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def _add_field_arg(parser: argparse.ArgumentParser, f: dataclasses.Field) -> None:
+    # ``from __future__ import annotations`` makes ``f.type`` a string, so the
+    # type is picked by its name; ``Optional[...]`` fields other than
+    # ``Optional[bool]`` parse as strings, as in the JAX package
+    name = "--" + f.name
+    default = f.default if f.default is not dataclasses.MISSING else None
+    if f.type in ("bool", bool, "Optional[bool]"):
+        parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"), default=default)
+    elif f.type in ("int", int):
+        parser.add_argument(name, type=int, default=default)
+    elif f.type in ("float", float):
+        parser.add_argument(name, type=float, default=default)
+    else:
+        parser.add_argument(name, type=str, default=default)
+
+
+def parse_config(argv: Optional[List[str]] = None) -> Config:
+    """A ``Config`` from CLI flags: every field is ``--field_name``."""
+    parser = argparse.ArgumentParser(description="show_and_tell_tpu_torch")
+    for f in fields(Config):
+        _add_field_arg(parser, f)
+    return Config.from_dict(vars(parser.parse_args(argv)))
+
+
+def save_config(cfg: Config, path: Optional[str] = None) -> str:
+    """Write the config as JSON, by default to
+    ``<expr_dir>/config_expr_<exp_id>.json``."""
+    if path is None:
+        os.makedirs(cfg.expr_dir, exist_ok=True)
+        path = os.path.join(cfg.expr_dir, f"config_expr_{cfg.exp_id}.json")
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
+    return path
+
+
+def load_config(path: str) -> Config:
+    with open(path) as f:
+        return Config.from_dict(json.load(f))

@@ -103,11 +103,9 @@ class Captioner:
             )
         model = build_model(cfg, len(vocab), device=device, generator=KeyChain(cfg.random_seed).generator("init"))
         if cfg.encoder_weights:
-            from show_and_tell_tpu_torch.ckpt.torch_import import trunk_state_dict
-            from show_and_tell_tpu_torch.models.encoders import load_torch_encoder
+            from show_and_tell_tpu_torch.ckpt.torch_import import load_encoder_weights
 
-            trunk = trunk_state_dict(load_torch_encoder(cfg.encoder, cfg.encoder_weights)["convs"])
-            ckpt.load_trunk(model, trunk, cfg.encoder_weights)
+            load_encoder_weights(cfg, model)
         if cfg.torch_checkpoint:
             from show_and_tell_tpu_torch.ckpt.torch_import import apply_reference_checkpoint
 

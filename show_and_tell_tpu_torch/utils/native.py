@@ -1,8 +1,10 @@
-"""Build and load the optional C++ scorers of the metric suite.
+"""Build and load the optional C++ libraries: the scorers of the metric suite
+and the batch image decoder of the data pipeline.
 
 The sources are the repository's ``csrc/{ptb_tokenizer,bleu,cider,rouge,
-meteor}.cpp``. Each is compiled with ``g++`` (``csrc/Makefile``'s flags) at
-first use into ``show_and_tell_tpu_torch/_build/native/`` (git-ignored),
+meteor,image_loader}.cpp``. Each is compiled with ``g++`` (``csrc/Makefile``'s
+flags, and its link flags: ``-ljpeg -lpng`` for the image decoder) at first
+use into ``show_and_tell_tpu_torch/_build/native/`` (git-ignored),
 named by a hash of the source and the flags, and loaded with ``ctypes`` from
 there. The ``csrc/*.so`` that ``make`` builds beside the sources belong to
 the JAX package and are never loaded here: ``dlopen`` of one path returns
@@ -19,7 +21,9 @@ Probe policy, as the JAX package's loader:
 - any build, load or configure failure degrades to the pure-Python path
   silently. ``status()`` says which path each scorer takes.
 
-``libimage_loader.so`` belongs to the data pipeline and is not built here.
+``libimage_loader.so`` (``data/pipeline.py``) needs libjpeg's and libpng's
+headers and libraries on the host; where they are missing its build fails
+and the pipeline decodes with PIL.
 """
 
 from __future__ import annotations
@@ -45,9 +49,13 @@ SOURCES = {
     "libcider.so": "cider.cpp",
     "librouge.so": "rouge.cpp",
     "libmeteor.so": "meteor.cpp",
+    "libimage_loader.so": "image_loader.cpp",
 }
-# the metrics modules with a native path
+# soname -> the libraries it links, after the source (csrc/Makefile)
+LINK_FLAGS = {"libimage_loader.so": ("-ljpeg", "-lpng")}
+# the metrics modules with a native path, and their libraries
 SCORERS = ("tokenizer", "bleu", "cider", "rouge", "meteor")
+SCORER_LIBS = tuple(so for so in SOURCES if so not in LINK_FLAGS)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # soname -> loaded+configured lib
 _lock = threading.Lock()
@@ -57,14 +65,16 @@ def lib_path(soname: str) -> str:
     """Where the build of ``soname`` for the current source and flags lives."""
     with open(os.path.join(CSRC, SOURCES[soname]), "rb") as fh:
         text = fh.read()
-    digest = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()
+    flags = CXX_FLAGS + LINK_FLAGS.get(soname, ())
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{soname[:-3]}-{digest[:16]}.so")
 
 
-def build(sonames: Iterable[str] = tuple(SOURCES)) -> float:
-    """Compile every library in ``sonames`` that has no up-to-date build, all
-    at once, one ``g++`` each. Returns the seconds spent. Raises when
-    ``g++`` is missing or a compile fails, with the compiler's output.
+def build(sonames: Iterable[str] = SCORER_LIBS) -> float:
+    """Compile every library in ``sonames`` (by default the scorers') that
+    has no up-to-date build, all at once, one ``g++`` each. Returns the
+    seconds spent. Raises when ``g++`` is missing or a compile fails, with
+    the compiler's output.
 
     Processes that build at once (test workers) serialise on a file lock;
     each output is written to a temporary name and published by
@@ -72,7 +82,7 @@ def build(sonames: Iterable[str] = tuple(SOURCES)) -> float:
     t0 = time.perf_counter()
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH: the native scorers cannot be built")
+        raise RuntimeError("no C++ compiler (g++) on PATH: the native libraries cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "lock"), "w") as lock_fh:
         fcntl.flock(lock_fh, fcntl.LOCK_EX)
@@ -82,7 +92,7 @@ def build(sonames: Iterable[str] = tuple(SOURCES)) -> float:
             if os.path.exists(out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [cxx, *CXX_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[soname])]
+            cmd = [cxx, *CXX_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[soname]), *LINK_FLAGS.get(soname, ())]
             procs.append((soname, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))

@@ -8,8 +8,9 @@ port's plain versions against the JAX references and the JAX Pallas kernels
 in interpret mode, the trunk, the decode step, decoded ids and captions,
 the training forward, the autograd Functions' gradients, the train step,
 the n-best scores and attention maps of the Captioner, the sampler's
-distance from its filtered softmax, and a JAX train state resumed in the
-port. Not a test module: it reports the numbers that the tests only bound.
+distance from its filtered softmax, a JAX train state resumed in the
+port, and the trainer's losses and final params against the JAX trainer's
+from one checkpoint. Not a test module: it reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
 ``ckpt.convert.from_jax_params``, which the training tests use to compare
@@ -263,6 +264,24 @@ def serving():
         row(f"JAX state-last.msgpack + 1 step in the port [{case}]", params=max(diff))
 
 
+def trainer():
+    import tempfile
+
+    import test_torch_port_trainer as ttr
+
+    with tempfile.TemporaryDirectory() as root:
+        tiny = ttr.make_tiny(root)
+        for gate in ("val_loss", "cider"):
+            jt, tt, jinfos, infos, losses = ttr.train_both(tiny, os.path.join(root, gate), gate)
+            want, got = np.asarray(losses["jax"]), np.asarray(losses["torch"])
+            figures = dict(step_loss_rel=float((np.abs(got - want) / np.abs(want)).max()),
+                           params=ttr.params_diff(jax.device_get(jt.state.params), tt.model))
+            if gate == "val_loss":  # the cider gate's val loss is injected
+                figures["val_loss_rel"] = max(abs(infos["val_result_history"][k]["loss"] - v["loss"]) / abs(v["loss"])
+                                              for k, v in jinfos["val_result_history"].items())
+            row(f"Trainer vs JAX Trainer, 8 steps fp32, {gate} gate", **figures)
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -272,6 +291,7 @@ def main():
     model()
     training()
     serving()
+    trainer()
 
 
 if __name__ == "__main__":
