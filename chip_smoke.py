@@ -135,8 +135,30 @@ Phases, each printing its own lines:
    step); ``cli.extract_features`` over the shards (features within the bf16
    tolerance of ``backbone_features(eval_transform(x))``, img/s), then 10
    ``cli.main`` steps on the features (every batch features [256, 196,
-   512], no images).
-Phases 8-10 count their launches in their own lines and the ``--out``
+   512], no images);
+11. serving over HTTP, the way a serving user runs it: phase 10's best
+   checkpoint and trunk file through ``cli.serve_http.make_server`` (bound
+   to 127.0.0.1, warmed over every bucket for beam and greedy): PNG bodies
+   through the real decode where PIL is importable (and then ``cli.caption``
+   over 8 PNG files with contact sheets, and ``?attention=1``), else the
+   decode bound to a ``.npy`` reader for the phase; closed-loop clients in a
+   process of their own post phase 10's 512
+   scenes as batch-1 ``/caption`` requests at 1, 8, 32 and 128 clients, beam
+   and greedy (``http.client``, one connection per request), each on a
+   fresh server over the one ``Captioner`` (client
+   img/s and p50/p95/p99, the batcher's stats, the worker's seconds in
+   ``caption_images`` and the handlers' decode seconds, batches per bucket, decode
+   steps and launches per batch by design: the cell and the mode's attention
+   once per step, nothing else); one ``/caption_batch`` of 256; every HTTP
+   caption equal to the direct ``caption_images`` caption of the same image
+   at the same bucket, and the HTTP img/s against the direct one; ``?nbest=1``
+   headed by the beam caption, a burst answered with 429s that ``stats()``
+   counts, ``/healthz``, ``/metrics`` counters equal to the requests, every
+   batcher's worker gone after ``server_close()``; ``cli.export_torch`` on
+   the checkpoint, its ``.pth`` served through ``cfg.torch_checkpoint`` with
+   the same captions; ``cli.train_chain`` over two epochs as child
+   processes on the card (seconds per child).
+Phases 8-11 count their launches in their own lines and the ``--out``
 file's; the kernels line counts phases 4-6 as before.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -147,8 +169,12 @@ script exits non-zero. Without CUDA it exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import base64
 import concurrent.futures
 import contextlib
+import http.client
+import inspect
+import io
 import json
 import logging
 import os
@@ -157,6 +183,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -960,7 +987,7 @@ def phase_end_to_end():
     print(f"  warmup (beam and greedy at bucket {N}): {warm:.2f} s")
     path_kernels = {"beam": ("lstm_cell", "attention_beam"), "greedy": ("lstm_cell", "additive_attention")}
     launches = {name: 0 for name in REPLACES}
-    captions = {}
+    captions, img_s = {}, {}
     for mode, kernels in path_kernels.items():
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
@@ -974,6 +1001,7 @@ def phase_end_to_end():
         for name, n in counts.items():
             launches[name] += n
         dt = statistics.median(secs)
+        img_s[mode] = N / dt
         print(f"  {mode:6s}: {N} images in {dt * 1e3:.2f} ms (median of {REPS}: "
               f"{', '.join(f'{s * 1e3:.2f}' for s in secs)}) = {N / dt:.1f} img/s  launches {counts}")
         print(f"  {mode:6s} caption[0]: {caps[0]!r}")
@@ -1039,7 +1067,7 @@ def phase_end_to_end():
                 print(f"  {c.dtype} step logits, kernels vs plain, k={k}: "
                       f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
                 assert worst <= rtol, f"{c.dtype} k={k}: kernel path logits disagree with the plain path"
-    return launches, model, cfg, images, captions
+    return launches, model, cfg, images, captions, img_s
 
 
 def phase_beam_routes(model, cfg, images):
@@ -1965,12 +1993,13 @@ def _write_scene_corpus(tmp, rng):
     return paths, refs, dict(zip(keys, pixels))
 
 
-def phase_train_cli(smi, bare_img_s):
+def phase_train_cli(smi, bare_img_s, tmp):
     """The training user's path on the card: ``cli.preprocess`` ->
     memmap shards -> the loader -> ``cli.main`` (200 steps, CIDEr gates) ->
     a preempted and resumed ``Trainer`` -> ``cli.evaluate`` ->
-    ``cli.extract_features`` -> ``cli.main`` on the features. Returns the
-    figures."""
+    ``cli.extract_features`` -> ``cli.main`` on the features, its files under
+    ``tmp``. Returns the figures, and what phase 11 serves: the flags, the
+    best checkpoint's experiment dir and the scenes' pixels by key."""
     from show_and_tell_tpu_torch.ckpt.torch_import import load_encoder_weights
     from show_and_tell_tpu_torch.cli import evaluate as cli_evaluate
     from show_and_tell_tpu_torch.cli import extract_features as cli_extract
@@ -1998,214 +2027,680 @@ def phase_train_cli(smi, bare_img_s):
     built = os.path.exists(native.lib_path("libimage_loader.so"))
     print(f"  libimage_loader.so built on this host (phase 2): {built}")
     out["image_loader_built"] = built
-    with tempfile.TemporaryDirectory() as tmp:
-        paths, refs, pixels = _write_scene_corpus(tmp, np.random.default_rng(SEED + 10))
-        index = os.path.join(paths["memmap"], memmap.INDEX)
-        stamp = os.stat(index).st_mtime_ns
-        memmap.pack_memmap(list(pixels), paths["memmap"], size=256)
-        assert os.stat(index).st_mtime_ns == stamp, "pack_memmap did not reuse the complete shards"
+    paths, refs, pixels = _write_scene_corpus(tmp, np.random.default_rng(SEED + 10))
+    index = os.path.join(paths["memmap"], memmap.INDEX)
+    stamp = os.stat(index).st_mtime_ns
+    memmap.pack_memmap(list(pixels), paths["memmap"], size=256)
+    assert os.stat(index).st_mtime_ns == stamp, "pack_memmap did not reuse the complete shards"
 
-        # 3. the vocabulary and the records through the real preprocess
-        cli_preprocess.main(["--caption_json", paths["captions"], "--vocab_path", paths["vocab"],
-                             "--output_json", paths["data"], "--word_count_threshold", "1",
-                             "--print_stats", "false"])
-        vocab = Vocabulary.load(paths["vocab"])
-        records = json.load(open(paths["data"]))
-        n_train = sum(r["split"] == "train" for r in records)
-        print(f"  cli.preprocess: vocabulary {len(vocab)} words, {n_train} train records, "
-              f"{sum(r['split'] == 'val' for r in records)} val records")
-        assert len(vocab) == V_TRAIN and n_train == 5 * SCENES, (len(vocab), n_train)
-        assert all(r["file_path"] in pixels for r in records if r["split"] != "test")
+    # 3. the vocabulary and the records through the real preprocess
+    cli_preprocess.main(["--caption_json", paths["captions"], "--vocab_path", paths["vocab"],
+                         "--output_json", paths["data"], "--word_count_threshold", "1",
+                         "--print_stats", "false"])
+    vocab = Vocabulary.load(paths["vocab"])
+    records = json.load(open(paths["data"]))
+    n_train = sum(r["split"] == "train" for r in records)
+    print(f"  cli.preprocess: vocabulary {len(vocab)} words, {n_train} train records, "
+          f"{sum(r['split'] == 'val' for r in records)} val records")
+    assert len(vocab) == V_TRAIN and n_train == 5 * SCENES, (len(vocab), n_train)
+    assert all(r["file_path"] in pixels for r in records if r["split"] != "test")
 
-        trunk = os.path.join(tmp, "vgg16.pth")
-        torch.save(to_torch_vgg16(init_vgg16(torch.Generator().manual_seed(SEED))), trunk)
-        flags = ["--data_json", paths["data"], "--vocab_path", paths["vocab"], "--memmap_dir", paths["memmap"],
-                 "--encoder_weights", trunk, "--batch_size", "256", "--dtype", "bfloat16",
-                 "--ann_file", paths["ann"], "--learning_rate", str(TRAIN_LR), "--learning_rate_decay_start", "-1",
-                 "--scheduled_sampling_start", "-1", "--log_step", "5", "--language_eval", "1"]
-        cfg = parse_config(flags + ["--max_epochs", str(TRAIN_CLI_EPOCHS),
-                                    "--save_checkpoint_every", str(TRAIN_CLI_GATE),
-                                    "--expr_dir", os.path.join(tmp, "exp")])
+    trunk = os.path.join(tmp, "vgg16.pth")
+    torch.save(to_torch_vgg16(init_vgg16(torch.Generator().manual_seed(SEED))), trunk)
+    flags = ["--data_json", paths["data"], "--vocab_path", paths["vocab"], "--memmap_dir", paths["memmap"],
+             "--encoder_weights", trunk, "--batch_size", "256", "--dtype", "bfloat16",
+             "--ann_file", paths["ann"], "--learning_rate", str(TRAIN_LR), "--learning_rate_decay_start", "-1",
+             "--scheduled_sampling_start", "-1", "--log_step", "5", "--language_eval", "1"]
+    cfg = parse_config(flags + ["--max_epochs", str(TRAIN_CLI_EPOCHS),
+                                "--save_checkpoint_every", str(TRAIN_CLI_GATE),
+                                "--expr_dir", os.path.join(tmp, "exp")])
 
-        # 4. the loader alone: one epoch from the shards
-        train_ds = CocoCaptionDataset(records, vocab, "train", cfg.max_caption_len, cfg.num_buckets)
-        loader = make_loader(cfg, train_ds, mode="train")
-        t0 = time.perf_counter()
-        batches = [(b["images"].shape, b["captions"].shape) for b in loader]
-        secs = time.perf_counter() - t0
-        n = sum(s[0][0] for s in batches)
-        print(f"  loader alone: one epoch of {len(batches)} batches {sorted(set(batches))} from the memmap in "
-              f"{secs:.3f} s = {n / secs:.1f} img/s on the host, corrupt_skipped {loader.corrupt_skipped}  [{smi}]")
-        assert loader.corrupt_skipped == 0 and len(batches) == 5
-        out["loader_img_s"] = n / secs
+    # 4. the loader alone: one epoch from the shards
+    train_ds = CocoCaptionDataset(records, vocab, "train", cfg.max_caption_len, cfg.num_buckets)
+    loader = make_loader(cfg, train_ds, mode="train")
+    t0 = time.perf_counter()
+    batches = [(b["images"].shape, b["captions"].shape) for b in loader]
+    secs = time.perf_counter() - t0
+    n = sum(s[0][0] for s in batches)
+    print(f"  loader alone: one epoch of {len(batches)} batches {sorted(set(batches))} from the memmap in "
+          f"{secs:.3f} s = {n / secs:.1f} img/s on the host, corrupt_skipped {loader.corrupt_skipped}  [{smi}]")
+    assert loader.corrupt_skipped == 0 and len(batches) == 5
+    out["loader_img_s"] = n / secs
 
-        # 5. cli.main: 200 steps with the CIDEr gate every 50
-        steps, gates, lines, transfers = [], [], [], []
-        handler = _LogLines(lines)
-        tlog = logging.getLogger("show_and_tell_tpu_torch.train.trainer")
-        tlog.addHandler(handler)
-        tlog.setLevel(logging.INFO)
+    # 5. cli.main: 200 steps with the CIDEr gate every 50
+    steps, gates, lines, transfers = [], [], [], []
+    handler = _LogLines(lines)
+    tlog = logging.getLogger("show_and_tell_tpu_torch.train.trainer")
+    tlog.addHandler(handler)
+    tlog.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    try:
+        with _recording_steps(steps), _timed_evaluations(gates), _timed_transfers(transfers):
+            t0 = time.perf_counter()
+            trainer = cli_main.main(cfg)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+    finally:
+        tlog.removeHandler(handler)
+    expr_dir = trainer.cfg.expr_dir
+    infos = json.load(open(os.path.join(expr_dir, "infos.json")))
+    best = json.load(open(os.path.join(expr_dir, "infos-best.json")))
+    for ln in lines:
+        print(f"  cli.main log: epoch {ln[0]}, step {ln[1]}: loss {ln[2]:.4f}, {ln[3]:.1f} img/s, "
+              f"{ln[4]:.0f} ms/step")
+    ciders = {int(k): v["lang_stats"]["CIDEr"] for k, v in infos["val_result_history"].items()}
+    for (it, c), g in zip(sorted(ciders.items()), gates):
+        print(f"  gate at step {it}: CIDEr {c:.4f}, val loss {infos['val_result_history'][str(it)]['loss']:.4f}, "
+              f"evaluation {g['seconds']:.3f} s, launches {g['launches']}  [{smi}]")
+    img_s, ms = trainer.throughput.items_per_sec, 1e3 * trainer.timer.avg_s
+    print(f"  cli.main: {len(steps)} steps in {main_s:.1f} s with the gates; the trainer's meters "
+          f"{img_s:.1f} img/s, {ms:.1f} ms/step, against phase 7's {bare_img_s:.1f} img/s of bare steps "
+          f"on one fixed batch  [{smi}]")
+    # where a step of the loop goes, host clock: the meters' windows
+    # exclude the gates
+    loop_ms = 1e3 * trainer.throughput.seconds / (trainer.throughput.items / cfg.batch_size)
+    call_ms = 1e3 * statistics.mean(s["seconds"] for s in steps)
+    copy_ms = 1e3 * statistics.mean(transfers)
+    print(f"  per step of the loop {loop_ms:.1f} ms: the TrainStep call {call_ms:.1f} ms (it waits on its gradient "
+          f"norm), the batch to the card {copy_ms:.1f} ms (pinned copy, queued transfer), the rest "
+          f"{loop_ms - call_ms - copy_ms:.1f} ms (the loader's queue, logging, the generator)  [{smi}]")
+    per_step = [(s["shapes"]["captions"][1] - 1, s["launches"]) for s in steps]
+    bad = [(want, got) for want, got in per_step if got != {"lstm_cell": want, "additive_attention": want}]
+    cell_d, attn_d = cuda_lib.designs("lstm_cell"), cuda_lib.designs("additive_attention")
+    print(f"  launches of rows 1 and 2 per step: pad_len - 1 on {len(steps) - len(bad)} of {len(steps)} steps "
+          f"(pad_len - 1 in {sorted({w for w, _ in per_step})}); over the run, with the gates: "
+          f"cell {cell_d}, attention {attn_d}")
+    assert len(steps) == TRAIN_CLI_EPOCHS * 5 and not bad, bad[:3]
+    plan = attention_plan(cfg.batch_size, 196, 512, 2, True)
+    assert set(cell_d) == {"wgmma"} and set(attn_d) == {f"onepass{plan[1]}"}, (cell_d, attn_d)
+    losses = [float(s["loss"]) for s in steps]
+    log_losses = [ln[2] for ln in lines]
+    assert all(np.isfinite(losses)) and log_losses[-1] < log_losses[0], "the loss did not fall"
+    assert (infos["total_iter"], infos["epoch"]) == (TRAIN_CLI_EPOCHS * 5, TRAIN_CLI_EPOCHS), infos["total_iter"]
+    best_it = max(ciders, key=ciders.get)
+    print(f"  best: CIDEr {infos['best_val_score']:.4f} at step {best['total_iter']} "
+          f"(the gates' largest: {ciders[best_it]:.4f} at step {best_it}); corrupt_skipped train "
+          f"{trainer.trainloader.corrupt_skipped}, val {trainer.validloader.corrupt_skipped}")
+    assert len(ciders) == 4 and infos["best_val_score"] == ciders[best_it] and best["total_iter"] == best_it
+    assert ciders[best_it] >= 1.0, f"best CIDEr {ciders[best_it]}"
+    assert trainer.trainloader.corrupt_skipped == 0 and trainer.validloader.corrupt_skipped == 0
+    out["main"] = {"seconds": main_s, "img_s": img_s, "ms_per_step": ms, "bare_step_img_s": bare_img_s,
+                   "loop_ms": loop_ms, "step_call_ms": call_ms, "to_device_ms": copy_ms,
+                   "gates": [dict(g, step=it, cider=c) for (it, c), g in zip(sorted(ciders.items()), gates)],
+                   "log_losses": log_losses, "best_step": best_it, "best_cider": ciders[best_it],
+                   "launches": {"lstm_cell": cell_d, "additive_attention": attn_d}}
+    del trainer
+
+    # 6. preempt mid-epoch 2, then resume through start_from
+    rcfg = cfg.replace(max_epochs=2, save_checkpoint_every=1000, expr_dir=os.path.join(tmp, "resume"))
+    os.makedirs(rcfg.expr_dir)
+
+    def resume_trainer(c, loader):
+        model = build_model(c, len(vocab), device="cuda", generator=KeyChain(c.random_seed).generator("init"))
+        return Trainer(c, model, loader)
+
+    guard = PreemptionGuard()
+    first = _Watched(make_loader(rcfg, train_ds), guard, at=RESUME_AT)
+    infos = resume_trainer(rcfg, first).train(guard)
+    print(f"  preempted: total_iter {infos['total_iter']}, epoch {infos['epoch']}, iter {infos['iter']}, "
+          f"preempted {infos.get('preempted')}; state-last.pt "
+          f"{os.path.getsize(os.path.join(rcfg.expr_dir, 'state-last.pt')) / 1e6:.1f} MB")
+    assert infos.get("preempted") is True and (infos["total_iter"], infos["epoch"], infos["iter"]) == (7, 2, 2)
+    second = _Watched(make_loader(rcfg, train_ds))
+    infos = resume_trainer(rcfg.replace(start_from=rcfg.expr_dir), second).train(PreemptionGuard())
+    plain = make_loader(rcfg, train_ds)
+    plain.set_epoch(2)
+    order = [b["captions"] for b in plain]
+    same = np.array_equal(second.captions[0], order[2])
+    print(f"  resumed: skips {second.skips}, {len(second.captions)} batches taken, the first equal to the "
+          f"uninterrupted order's batch 3 of epoch 2: {same}; total_iter {infos['total_iter']}, "
+          f"epoch {infos['epoch']}, preempted {infos.get('preempted')}")
+    assert second.skips == [2] and len(second.captions) == 3 and same
+    assert (infos["total_iter"], infos["epoch"]) == (10, 2) and not infos.get("preempted")
+
+    # 7. cli.evaluate on the best checkpoint: greedy equals the gate, beam 3
+    val_ds = CocoCaptionDataset(records, vocab, "val", cfg.max_caption_len, cfg.num_buckets)
+    loss_launches = sum(p["pad_len"] - 1 for p in val_ds.iter_index_batches(256, shuffle=False))
+    gate = json.load(open(os.path.join(expr_dir, "infos.json")))["val_result_history"][str(best_it)]
+    out["evaluate"] = {}
+    for beam in (1, 3):
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
-        try:
-            with _recording_steps(steps), _timed_evaluations(gates), _timed_transfers(transfers):
-                t0 = time.perf_counter()
-                trainer = cli_main.main(cfg)
-                torch.cuda.synchronize()
-                main_s = time.perf_counter() - t0
-        finally:
-            tlog.removeHandler(handler)
-        expr_dir = trainer.cfg.expr_dir
-        infos = json.load(open(os.path.join(expr_dir, "infos.json")))
-        best = json.load(open(os.path.join(expr_dir, "infos-best.json")))
-        for ln in lines:
-            print(f"  cli.main log: epoch {ln[0]}, step {ln[1]}: loss {ln[2]:.4f}, {ln[3]:.1f} img/s, "
-                  f"{ln[4]:.0f} ms/step")
-        ciders = {int(k): v["lang_stats"]["CIDEr"] for k, v in infos["val_result_history"].items()}
-        for (it, c), g in zip(sorted(ciders.items()), gates):
-            print(f"  gate at step {it}: CIDEr {c:.4f}, val loss {infos['val_result_history'][str(it)]['loss']:.4f}, "
-                  f"evaluation {g['seconds']:.3f} s, launches {g['launches']}  [{smi}]")
-        img_s, ms = trainer.throughput.items_per_sec, 1e3 * trainer.timer.avg_s
-        print(f"  cli.main: {len(steps)} steps in {main_s:.1f} s with the gates; the trainer's meters "
-              f"{img_s:.1f} img/s, {ms:.1f} ms/step, against phase 7's {bare_img_s:.1f} img/s of bare steps "
-              f"on one fixed batch  [{smi}]")
-        # where a step of the loop goes, host clock: the meters' windows
-        # exclude the gates
-        loop_ms = 1e3 * trainer.throughput.seconds / (trainer.throughput.items / cfg.batch_size)
-        call_ms = 1e3 * statistics.mean(s["seconds"] for s in steps)
-        copy_ms = 1e3 * statistics.mean(transfers)
-        print(f"  per step of the loop {loop_ms:.1f} ms: the TrainStep call {call_ms:.1f} ms (it waits on its gradient "
-              f"norm), the batch to the card {copy_ms:.1f} ms (pinned copy, queued transfer), the rest "
-              f"{loop_ms - call_ms - copy_ms:.1f} ms (the loader's queue, logging, the generator)  [{smi}]")
-        per_step = [(s["shapes"]["captions"][1] - 1, s["launches"]) for s in steps]
-        bad = [(want, got) for want, got in per_step if got != {"lstm_cell": want, "additive_attention": want}]
-        cell_d, attn_d = cuda_lib.designs("lstm_cell"), cuda_lib.designs("additive_attention")
-        print(f"  launches of rows 1 and 2 per step: pad_len - 1 on {len(steps) - len(bad)} of {len(steps)} steps "
-              f"(pad_len - 1 in {sorted({w for w, _ in per_step})}); over the run, with the gates: "
-              f"cell {cell_d}, attention {attn_d}")
-        assert len(steps) == TRAIN_CLI_EPOCHS * 5 and not bad, bad[:3]
-        plan = attention_plan(cfg.batch_size, 196, 512, 2, True)
-        assert set(cell_d) == {"wgmma"} and set(attn_d) == {f"onepass{plan[1]}"}, (cell_d, attn_d)
-        losses = [float(s["loss"]) for s in steps]
-        log_losses = [ln[2] for ln in lines]
-        assert all(np.isfinite(losses)) and log_losses[-1] < log_losses[0], "the loss did not fall"
-        assert (infos["total_iter"], infos["epoch"]) == (TRAIN_CLI_EPOCHS * 5, TRAIN_CLI_EPOCHS), infos["total_iter"]
-        best_it = max(ciders, key=ciders.get)
-        print(f"  best: CIDEr {infos['best_val_score']:.4f} at step {best['total_iter']} "
-              f"(the gates' largest: {ciders[best_it]:.4f} at step {best_it}); corrupt_skipped train "
-              f"{trainer.trainloader.corrupt_skipped}, val {trainer.validloader.corrupt_skipped}")
-        assert len(ciders) == 4 and infos["best_val_score"] == ciders[best_it] and best["total_iter"] == best_it
-        assert ciders[best_it] >= 1.0, f"best CIDEr {ciders[best_it]}"
-        assert trainer.trainloader.corrupt_skipped == 0 and trainer.validloader.corrupt_skipped == 0
-        out["main"] = {"seconds": main_s, "img_s": img_s, "ms_per_step": ms, "bare_step_img_s": bare_img_s,
-                       "loop_ms": loop_ms, "step_call_ms": call_ms, "to_device_ms": copy_ms,
-                       "gates": [dict(g, step=it, cider=c) for (it, c), g in zip(sorted(ciders.items()), gates)],
-                       "log_losses": log_losses, "best_step": best_it, "best_cider": ciders[best_it],
-                       "launches": {"lstm_cell": cell_d, "additive_attention": attn_d}}
-        del trainer
-
-        # 6. preempt mid-epoch 2, then resume through start_from
-        rcfg = cfg.replace(max_epochs=2, save_checkpoint_every=1000, expr_dir=os.path.join(tmp, "resume"))
-        os.makedirs(rcfg.expr_dir)
-
-        def resume_trainer(c, loader):
-            model = build_model(c, len(vocab), device="cuda", generator=KeyChain(c.random_seed).generator("init"))
-            return Trainer(c, model, loader)
-
-        guard = PreemptionGuard()
-        first = _Watched(make_loader(rcfg, train_ds), guard, at=RESUME_AT)
-        infos = resume_trainer(rcfg, first).train(guard)
-        print(f"  preempted: total_iter {infos['total_iter']}, epoch {infos['epoch']}, iter {infos['iter']}, "
-              f"preempted {infos.get('preempted')}; state-last.pt "
-              f"{os.path.getsize(os.path.join(rcfg.expr_dir, 'state-last.pt')) / 1e6:.1f} MB")
-        assert infos.get("preempted") is True and (infos["total_iter"], infos["epoch"], infos["iter"]) == (7, 2, 2)
-        second = _Watched(make_loader(rcfg, train_ds))
-        infos = resume_trainer(rcfg.replace(start_from=rcfg.expr_dir), second).train(PreemptionGuard())
-        plain = make_loader(rcfg, train_ds)
-        plain.set_epoch(2)
-        order = [b["captions"] for b in plain]
-        same = np.array_equal(second.captions[0], order[2])
-        print(f"  resumed: skips {second.skips}, {len(second.captions)} batches taken, the first equal to the "
-              f"uninterrupted order's batch 3 of epoch 2: {same}; total_iter {infos['total_iter']}, "
-              f"epoch {infos['epoch']}, preempted {infos.get('preempted')}")
-        assert second.skips == [2] and len(second.captions) == 3 and same
-        assert (infos["total_iter"], infos["epoch"]) == (10, 2) and not infos.get("preempted")
-
-        # 7. cli.evaluate on the best checkpoint: greedy equals the gate, beam 3
-        val_ds = CocoCaptionDataset(records, vocab, "val", cfg.max_caption_len, cfg.num_buckets)
-        loss_launches = sum(p["pad_len"] - 1 for p in val_ds.iter_index_batches(256, shuffle=False))
-        gate = json.load(open(os.path.join(expr_dir, "infos.json")))["val_result_history"][str(best_it)]
-        out["evaluate"] = {}
-        for beam in (1, 3):
-            torch.cuda.synchronize()
-            cuda_lib.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            loss, preds, stats = cli_evaluate.main(flags + ["--load_model_path", expr_dir, "--beam_size", str(beam)])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention", "attention_beam")}
-            print(f"  cli.evaluate beam {beam}: val loss {loss:.4f}, CIDEr {stats['CIDEr']:.4f}, "
-                  f"{len(preds)} images in {secs:.2f} s = {len(preds) / secs:.1f} img/s (model build, checkpoint "
-                  f"and the whole evaluation), launches {launches}  [{smi}]")
-            if beam == 1:
-                held = _same_scores(stats, gate["lang_stats"]) and preds[:10] == gate["predictions_sample"]
-                print(f"  greedy lang_stats and first 10 predictions equal the gate's at step {best_it}: {held}")
-                assert held, (stats, gate["lang_stats"])
-                assert launches["additive_attention"] == launches["lstm_cell"] > loss_launches
-                assert launches["attention_beam"] == 0
-            else:
-                steps_b = launches["lstm_cell"] - loss_launches
-                assert launches["attention_beam"] == steps_b > 0 and launches["additive_attention"] == loss_launches
-            out["evaluate"][f"beam{beam}"] = {"val_loss": loss, "lang_stats": stats, "img_s": len(preds) / secs,
-                                               "launches": launches}
-
-        # 8. cli.extract_features over the shards, then cli.main on the features
-        npz = os.path.join(tmp, "features.npz")
         t0 = time.perf_counter()
-        path = cli_extract.main(flags + ["--output_json", npz])
-        ext_s = time.perf_counter() - t0
-        feats = np.load(path)
-        model = build_model(cfg, len(vocab), device="cuda", generator=KeyChain(cfg.random_seed).generator("init"))
-        load_encoder_weights(cfg, model)
-        ids = [r["cocoid"] for r in records if r["split"] != "test"]
-        keys = [r["file_path"] for r in records if r["split"] != "test"]
-        uniq = dict(zip(ids, keys))
-        worst = scale = 0.0
-        with torch.no_grad():
-            items = list(uniq.items())
-            for lo in range(0, len(items), 256):
-                chunk = items[lo:lo + 256]
-                x = torch.from_numpy(np.stack([pixels[k] for _, k in chunk])).cuda()
-                want = model.backbone_features(eval_transform(x, cfg.crop_size)).float().cpu().numpy()
-                got = np.stack([feats[str(c)] for c, _ in chunk])
-                worst = max(worst, float(np.abs(got - want).max()))
-                scale = max(scale, float(np.abs(want).max()))
-        print(f"  cli.extract_features: {len(feats.files)} images in {ext_s:.2f} s = {len(feats.files) / ext_s:.1f} "
-              f"img/s (model build, trunk, .npz written compressed); against backbone_features(eval_transform(x)) "
-              f"max|diff| {worst:.3e} of scale {scale:.3f} = {worst / scale:.2e} (tol {RTOL[torch.bfloat16]:g})  "
-              f"[{smi}]")
-        assert len(feats.files) == len(uniq) == 2 * SCENES and worst <= RTOL[torch.bfloat16] * scale
-        del model
-        fsteps = []
-        fcfg = parse_config(flags + ["--features_path", path, "--max_epochs", str(FEATURE_STEPS // 5),
-                                     "--save_checkpoint_every", "1000", "--expr_dir", os.path.join(tmp, "feat")])
-        with _recording_steps(fsteps):
-            t0 = time.perf_counter()
-            trainer = cli_main.main(fcfg)
-            torch.cuda.synchronize()
-            fsecs = time.perf_counter() - t0
-        shapes = {tuple(sorted(s["shapes"].items())) for s in fsteps}
-        flosses = [float(s["loss"]) for s in fsteps]
-        print(f"  cli.main on the features: {len(fsteps)} steps in {fsecs:.2f} s with the model build, the "
-              f"trainer's meters {trainer.throughput.items_per_sec:.1f} img/s; batch shapes {sorted(shapes)}; "
-              f"loss {flosses[0]:.4f} -> {flosses[-1]:.4f}  [{smi}]")
-        assert len(fsteps) == FEATURE_STEPS and all(np.isfinite(flosses))
-        assert all(s["shapes"]["features"] == (256, 196, 512) and "images" not in s["shapes"] for s in fsteps)
-        out["extract"] = {"seconds": ext_s, "img_s": len(feats.files) / ext_s, "rel_err": worst / scale,
-                          "feature_steps_img_s": trainer.throughput.items_per_sec}
-        del trainer, feats
+        loss, preds, stats = cli_evaluate.main(flags + ["--load_model_path", expr_dir, "--beam_size", str(beam)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention", "attention_beam")}
+        print(f"  cli.evaluate beam {beam}: val loss {loss:.4f}, CIDEr {stats['CIDEr']:.4f}, "
+              f"{len(preds)} images in {secs:.2f} s = {len(preds) / secs:.1f} img/s (model build, checkpoint "
+              f"and the whole evaluation), launches {launches}  [{smi}]")
+        if beam == 1:
+            held = _same_scores(stats, gate["lang_stats"]) and preds[:10] == gate["predictions_sample"]
+            print(f"  greedy lang_stats and first 10 predictions equal the gate's at step {best_it}: {held}")
+            assert held, (stats, gate["lang_stats"])
+            assert launches["additive_attention"] == launches["lstm_cell"] > loss_launches
+            assert launches["attention_beam"] == 0
+        else:
+            steps_b = launches["lstm_cell"] - loss_launches
+            assert launches["attention_beam"] == steps_b > 0 and launches["additive_attention"] == loss_launches
+        out["evaluate"][f"beam{beam}"] = {"val_loss": loss, "lang_stats": stats, "img_s": len(preds) / secs,
+                                           "launches": launches}
+
+    # 8. cli.extract_features over the shards, then cli.main on the features
+    npz = os.path.join(tmp, "features.npz")
+    t0 = time.perf_counter()
+    path = cli_extract.main(flags + ["--output_json", npz])
+    ext_s = time.perf_counter() - t0
+    feats = np.load(path)
+    model = build_model(cfg, len(vocab), device="cuda", generator=KeyChain(cfg.random_seed).generator("init"))
+    load_encoder_weights(cfg, model)
+    ids = [r["cocoid"] for r in records if r["split"] != "test"]
+    keys = [r["file_path"] for r in records if r["split"] != "test"]
+    uniq = dict(zip(ids, keys))
+    worst = scale = 0.0
+    with torch.no_grad():
+        items = list(uniq.items())
+        for lo in range(0, len(items), 256):
+            chunk = items[lo:lo + 256]
+            x = torch.from_numpy(np.stack([pixels[k] for _, k in chunk])).cuda()
+            want = model.backbone_features(eval_transform(x, cfg.crop_size)).float().cpu().numpy()
+            got = np.stack([feats[str(c)] for c, _ in chunk])
+            worst = max(worst, float(np.abs(got - want).max()))
+            scale = max(scale, float(np.abs(want).max()))
+    print(f"  cli.extract_features: {len(feats.files)} images in {ext_s:.2f} s = {len(feats.files) / ext_s:.1f} "
+          f"img/s (model build, trunk, .npz written compressed); against backbone_features(eval_transform(x)) "
+          f"max|diff| {worst:.3e} of scale {scale:.3f} = {worst / scale:.2e} (tol {RTOL[torch.bfloat16]:g})  "
+          f"[{smi}]")
+    assert len(feats.files) == len(uniq) == 2 * SCENES and worst <= RTOL[torch.bfloat16] * scale
+    del model
+    fsteps = []
+    fcfg = parse_config(flags + ["--features_path", path, "--max_epochs", str(FEATURE_STEPS // 5),
+                                 "--save_checkpoint_every", "1000", "--expr_dir", os.path.join(tmp, "feat")])
+    with _recording_steps(fsteps):
+        t0 = time.perf_counter()
+        trainer = cli_main.main(fcfg)
+        torch.cuda.synchronize()
+        fsecs = time.perf_counter() - t0
+    shapes = {tuple(sorted(s["shapes"].items())) for s in fsteps}
+    flosses = [float(s["loss"]) for s in fsteps]
+    print(f"  cli.main on the features: {len(fsteps)} steps in {fsecs:.2f} s with the model build, the "
+          f"trainer's meters {trainer.throughput.items_per_sec:.1f} img/s; batch shapes {sorted(shapes)}; "
+          f"loss {flosses[0]:.4f} -> {flosses[-1]:.4f}  [{smi}]")
+    assert len(fsteps) == FEATURE_STEPS and all(np.isfinite(flosses))
+    assert all(s["shapes"]["features"] == (256, 196, 512) and "images" not in s["shapes"] for s in fsteps)
+    out["extract"] = {"seconds": ext_s, "img_s": len(feats.files) / ext_s, "rel_err": worst / scale,
+                      "feature_steps_img_s": trainer.throughput.items_per_sec}
+    del trainer, feats
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 10: {out['seconds']:.1f} s")
+    return out, {"flags": flags, "expr_dir": expr_dir, "vocab": paths["vocab"], "pixels": pixels}
+
+
+# --- phase 11: serving over HTTP, and the last CLIs, on the card -------------
+
+HTTP_LEVELS = (1, 8, 32, 128)  # closed-loop clients, each posting batch-1 /caption requests
+HTTP_BATCH = 256  # images in the one /caption_batch request
+BURST, BURST_QUEUE = 64, 2  # concurrent requests against a server whose queue holds 2
+NBEST_PROBES = 4  # ?nbest=1 requests
+CHAIN_EPOCHS = 2  # cli.train_chain children, one epoch of phase 10's corpus (5 steps) each
+
+
+def http_load(port, path, blob_path, offsets_path, concurrency, out_path):
+    """Closed-loop load, run in a process of its own: its source is handed to
+    ``python -c``, so it imports the standard library only. ``concurrency``
+    threads POST ``path`` on 127.0.0.1:``port``, request i with body i
+    (``blob_path``'s bytes at the (start, end) pairs of ``offsets_path``),
+    one connection per request as urllib makes them; each thread posts its
+    next request when its last one is answered. Writes {"seconds": wall,
+    "requests": [[i, status, latency s, body], ...]} to ``out_path``; a
+    connection that fails (reset, refused) is status 0."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    with open(blob_path, "rb") as fh:
+        blob = fh.read()
+    with open(offsets_path) as fh:
+        offsets = json.load(fh)
+    lock = threading.Lock()
+    pending = list(range(len(offsets)))[::-1]
+    done = []
+
+    def client():
+        while True:
+            with lock:
+                if not pending:
+                    return
+                i = pending.pop()
+            a, b = offsets[i]
+            t0 = time.perf_counter()
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                conn.request("POST", path, body=blob[a:b], headers={"Connection": "close"})
+                r = conn.getresponse()
+                status, raw = r.status, r.read()
+                conn.close()
+            except OSError as e:
+                status, raw = 0, repr(e).encode()
+            latency = time.perf_counter() - t0
+            with lock:
+                done.append([i, status, latency, raw.decode()])
+
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(out_path, "w") as fh:
+        json.dump({"seconds": time.perf_counter() - t0, "requests": done}, fh)
+
+
+def _run_load(tmp, port, path, blob_path, offsets, concurrency):
+    """``http_load`` in a child process; returns what it wrote."""
+    offsets_path, out_path = os.path.join(tmp, "offsets.json"), os.path.join(tmp, "load.json")
+    with open(offsets_path, "w") as fh:
+        json.dump(offsets, fh)
+    src = inspect.getsource(http_load) + (
+        f"\nhttp_load({port}, {path!r}, {blob_path!r}, {offsets_path!r}, {concurrency}, {out_path!r})\n")
+    subprocess.run([sys.executable, "-c", src], check=True, timeout=600)
+    with open(out_path) as fh:
+        return json.load(fh)
+
+
+def _http(port, path, data=None):
+    """(status, body) of one request (POST with ``data``, else GET): the JSON
+    body, or the text of /metrics."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("GET" if data is None else "POST", path, body=data)
+        r = conn.getresponse()
+        status, raw, ctype = r.status, r.read(), r.getheader("Content-Type")
+    finally:
+        conn.close()
+    return status, (json.loads(raw) if ctype == "application/json" else raw.decode())
+
+
+@contextlib.contextmanager
+def _serving(srv):
+    """Serve ``srv`` from a thread; yields its port, then shuts it down and
+    closes it (and its batcher)."""
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+
+def _decode_npy(data: bytes, size: int = 256):
+    """Phase 11's stand-in for ``cli.serve_http._decode_image`` on a host
+    with no image codec: the ``.npy`` bytes of one [size, size, 3] uint8
+    image, or None."""
+    try:
+        img = np.load(io.BytesIO(data), allow_pickle=False)
+    except (ValueError, OSError, EOFError):
+        return None
+    return img if img.shape == (size, size, 3) and img.dtype == np.uint8 else None
+
+
+def _marked(images):
+    """A copy with each image's index in pixel (0, 0), outside the 224 px
+    centre crop that the model sees, so that a batch tells which images it
+    holds."""
+    out = images.copy()
+    out[:, 0, 0, 0], out[:, 0, 0, 1] = np.divmod(np.arange(len(images)), 256)
+    return out
+
+
+def _marks(images):
+    return (images[:, 0, 0, 0].astype(np.int64) * 256 + images[:, 0, 0, 1]).tolist()
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _metric_values(text):
+    return {k: float(v) for k, v in (ln.rsplit(" ", 1) for ln in text.splitlines() if ln and not ln.startswith("#"))}
+
+
+def phase_http(smi, trained, tmp, direct_img_s):
+    """The serving user's HTTP front door over phase 10's best checkpoint
+    (``trained``: its flags, experiment dir, vocabulary and scenes), then
+    ``cli.export_torch`` and ``cli.train_chain``, files under ``tmp``;
+    ``direct_img_s`` is phase 5's img/s by mode. Returns the figures."""
+    from show_and_tell_tpu_torch.cli import caption, export_torch, serve_http, train_chain
+    from show_and_tell_tpu_torch.config import parse_config
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import ERROR_CAPTION, Captioner
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    print(f"== 11. serving over HTTP (cli.serve_http.make_server, its DynamicBatcher) from phase 10's best "
+          f"checkpoint, cli.export_torch, cli.train_chain; VGG16 at 224 px, E=512, H=1024, V=10000, bf16  [{smi}]")
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    real_decode = serve_http._decode_image
+    if Image is None:
+        print("  decode: this host has no PIL (no image codec): for this phase serve_http._decode_image is bound to a "
+              "stand-in that reads .npy bytes of one [256, 256, 3] uint8 image; restored after it")
+        print("  cli.caption reads image files through PIL: not run here; held on the CPU (tests/test_torch_port_cli.py)")
+        print("  POST /caption?attention=1 renders its sheet through PIL: not run here; held on the CPU "
+              "(tests/test_torch_port_http.py)")
+        serve_http._decode_image = _decode_npy
+
+        def encode(img):
+            buf = io.BytesIO()
+            np.save(buf, img)
+            return buf.getvalue()
+    else:
+        print("  decode: PIL is importable on this host: the requests carry PNG bytes through the real "
+              "_decode_image, and cli.caption and ?attention=1 run")
+
+        def encode(img):
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="PNG")
+            return buf.getvalue()
+    out["decode"] = "npy stand-in" if Image is None else "PIL"
+    # the seconds of every request's decode, on the handler threads
+    decode_s = []
+    inner_decode = serve_http._decode_image
+
+    def timed_decode(data, size=256):
+        t0 = time.perf_counter()
+        img = inner_decode(data, size)
+        decode_s.append(time.perf_counter() - t0)
+        return img
+
+    serve_http._decode_image = timed_decode
+    servers = []
+    try:
+        cfg = parse_config(trained["flags"] + ["--load_model_path", trained["expr_dir"]])
+        vocab = Vocabulary.load(trained["vocab"])
+        images = _marked(np.stack(list(trained["pixels"].values())))
+        n = len(images)
+        blob = bytearray()
+        offsets = []
+        for img in images:
+            data = encode(img)
+            offsets.append((len(blob), len(blob) + len(data)))
+            blob += data
+        blob_path = os.path.join(tmp, "bodies.bin")
+        with open(blob_path, "wb") as fh:
+            fh.write(blob)
+        decoded = np.stack([serve_http._decode_image(bytes(blob[a:b])) for a, b in offsets])
+        assert np.array_equal(decoded, images), "the request bodies do not decode to the images"
+
+        # 1. the server a user starts: from the checkpoint, warmed over every bucket
+        records = _Records()
+        slog = logging.getLogger("show_and_tell_tpu_torch.cli.serve_http")
+        slog.addHandler(records)
+        try:
+            t0 = time.perf_counter()
+            srv0 = serve_http.make_server(cfg, vocab, "127.0.0.1", 0, warmup=True, warmup_surfaces="greedy")
+            make_s = time.perf_counter() - t0
+        finally:
+            slog.removeHandler(records)
+        servers.append(srv0)
+        cap = srv0.batcher.captioner
+        warm = [r.args[0] for r in records.records if r.msg.startswith("warmup done")]
+        print(f"  make_server(--load_model_path {os.path.basename(trained['expr_dir'])}, --encoder_weights, warmup of "
+              f"beam and greedy at buckets {cap.bucket_sizes}): {make_s:.2f} s, of which warmup {warm[0]:.1f} s")
+        out["make_server_s"], out["warmup_s"] = make_s, warm[0]
+
+        call = cap.caption_images
+        batches = []
+
+        def recorded(imgs, mode="beam", rng_offset=0):
+            # the batcher's worker is the one thread that captions while a
+            # server runs, so the counters' change is this batch's
+            before = dict(cuda_lib.LAUNCHES)
+            t0 = time.perf_counter()
+            caps = call(imgs, mode=mode, rng_offset=rng_offset)
+            batches.append({"mode": mode, "bucket": cap._bucket(len(imgs)), "ids": _marks(imgs), "captions": caps,
+                            "seconds": time.perf_counter() - t0,
+                            "launches": {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+                                         if v != before.get(k, 0)}})
+            return caps
+
+        cap.caption_images = recorded
+        rows = []  # (mode, image id, bucket, caption) of every caption served
+
+        def served(mode, answers):
+            """The batches' rows, each answer equal to its image's row."""
+            got = {}
+            for b in batches:
+                assert b["mode"] == mode, (b["mode"], mode)
+                for i, c in zip(b["ids"], b["captions"]):
+                    assert i not in got, f"image {i} captioned twice"
+                    got[i] = (b["bucket"], c)
+                    rows.append((mode, i, b["bucket"], c))
+            assert sorted(got) == sorted(answers), "the batches do not hold the answered requests"
+            bad = [i for i, c in answers.items() if c != got[i][1] or c == ERROR_CAPTION]
+            assert not bad, f"answers differ from their batches' captions at images {bad[:5]}"
+
+        def per_batch(mode):
+            """Launches per batch: the cell and the mode's attention once per
+            decode step, nothing else. Returns ({bucket: [steps]},
+            {bucket: designs})."""
+            att = "attention_beam" if mode == "beam" else "additive_attention"
+            steps, designs = {}, {}
+            for b in batches:
+                base = {k: v for k, v in b["launches"].items() if "/" not in k}
+                s = base.get("lstm_cell", 0)
+                assert set(base) == {"lstm_cell", att} and base[att] == s and 1 <= s <= cfg.max_decode_len, \
+                    (mode, b["bucket"], base)
+                steps.setdefault(b["bucket"], []).append(s)
+                d = designs.setdefault(b["bucket"], {})
+                for k, v in b["launches"].items():
+                    if "/" in k:
+                        d[k] = d.get(k, 0) + v
+            return steps, designs
+
+        # 2. closed-loop load: each level and mode on a fresh server over the
+        # same Captioner, so that the batcher's stats are that run's
+        out["levels"] = {}
+        for mode in ("beam", "greedy"):
+            for c in HTTP_LEVELS:
+                srv = serve_http.make_server(cfg, vocab, "127.0.0.1", 0, captioner=cap)
+                servers.append(srv)
+                del batches[:], decode_s[:]
+                with _serving(srv) as port:
+                    res = _run_load(tmp, port, "/caption" + ("" if mode == "beam" else "?mode=greedy"), blob_path,
+                                    offsets, c)
+                    stats = srv.batcher.stats()
+                codes = {r[1] for r in res["requests"]}
+                assert codes == {200} and len(res["requests"]) == n, \
+                    f"{mode} at {c} clients: status codes {codes}, e.g. {[r[3] for r in res['requests'] if r[1] != 200][:2]}"
+                answers = {r[0]: json.loads(r[3]) for r in res["requests"]}
+                assert all(a["mode"] == mode for a in answers.values())
+                served(mode, {i: a["caption"] for i, a in answers.items()})
+                steps, designs = per_batch(mode)
+                lat = np.percentile(np.array([r[2] for r in res["requests"]]) * 1e3, [50, 95, 99])
+                img_s = n / res["seconds"]
+                assert stats["requests"] == stats["batch_size_sum"] == n and stats["errors"] == 0, stats
+                by_bucket = {b: len(s) for b, s in sorted(steps.items())}
+                print(f"  {mode:6s} {c:3d} clients: {n} requests in {res['seconds']:.2f} s = {img_s:.1f} img/s; client "
+                      f"p50/p95/p99 {lat[0]:.1f}/{lat[1]:.1f}/{lat[2]:.1f} ms; batcher {stats['batches']} batches, mean "
+                      f"{stats['mean_batch_size']}, queue wait {stats['mean_queue_wait_ms']} ms, its p50/p95/p99 "
+                      f"{stats['latency_ms']['p50']}/{stats['latency_ms']['p95']}/{stats['latency_ms']['p99']} ms; "
+                      f"batches per bucket {by_bucket}  [{smi}]")
+                busy = sum(b["seconds"] for b in batches)
+                print(f"  {mode:6s} {c:3d} clients: the worker in caption_images {busy:.2f} s = "
+                      f"{busy / res['seconds']:.1%} of the run ({busy / len(batches) * 1e3:.2f} ms per batch); the "
+                      f"handlers' image decode {statistics.mean(decode_s) * 1e3:.2f} ms per request, "
+                      f"{sum(decode_s):.2f} s in all  [{smi}]")
+                print(f"  {mode:6s} {c:3d} clients: decode steps per batch by bucket "
+                      f"{ {b: (min(s), round(statistics.mean(s), 1), max(s)) for b, s in sorted(steps.items())} } "
+                      f"(min, mean, max); launches by design {designs}")
+                out["levels"][f"{mode}@{c}"] = {
+                    "seconds": res["seconds"], "img_s": img_s, "p50_ms": lat[0], "p95_ms": lat[1], "p99_ms": lat[2],
+                    "batcher": stats, "batches_per_bucket": by_bucket, "worker_busy_s": busy,
+                    "decode_ms": statistics.mean(decode_s) * 1e3,
+                    "steps_per_batch": {b: s for b, s in steps.items()}, "designs": designs}
+
+        # 3. one /caption_batch of 256, the health and metrics endpoints, n-best
+        with _serving(srv0) as port:
+            body = json.dumps([base64.b64encode(bytes(blob[a:b])).decode() for a, b in offsets[:HTTP_BATCH]]).encode()
+            del batches[:]
+            t0 = time.perf_counter()
+            status, answer = _http(port, "/caption_batch", body)
+            batch_s = time.perf_counter() - t0
+            assert status == 200 and answer["errors"] == [] and len(answer["captions"]) == HTTP_BATCH, status
+            served("beam", dict(enumerate(answer["captions"])))
+            steps, designs = per_batch("beam")
+            print(f"  POST /caption_batch of {HTTP_BATCH} ({len(body) / 1e6:.1f} MB of base64): {batch_s:.3f} s = "
+                  f"{HTTP_BATCH / batch_s:.1f} img/s; batches {[len(b['ids']) for b in batches]} at buckets "
+                  f"{[b['bucket'] for b in batches]}, decode steps by bucket {steps}, launches by design "
+                  f"{designs}  [{smi}]")
+            out["caption_batch"] = {"seconds": batch_s, "img_s": HTTP_BATCH / batch_s,
+                                    "batches": [len(b["ids"]) for b in batches]}
+            nbest = []
+            for i in range(NBEST_PROBES):
+                status, a = _http(port, "/caption?nbest=1", bytes(blob[offsets[i][0]:offsets[i][1]]))
+                assert status == 200 and a["mode"] == "beam" and len(a["nbest"]) == cfg.beam_size, (status, a)
+                scores = [x["score"] for x in a["nbest"]]
+                assert a["caption"] == a["nbest"][0]["caption"] and scores == sorted(scores, reverse=True), a
+                nbest.append((i, a["caption"]))
+            if Image is not None:
+                status, attn = _http(port, "/caption?attention=1", bytes(blob[offsets[0][0]:offsets[0][1]]))
+                assert status == 200 and attn["mode"] == "greedy", (status, attn)
+                sheet = Image.open(io.BytesIO(base64.b64decode(attn["attention_sheet_png_b64"])))
+                print(f"  POST /caption?attention=1: 200, greedy caption {attn['caption']!r}, a {sheet.size} contact "
+                      f"sheet")
+            health_status, health = _http(port, "/healthz")
+            metrics_status, metrics = _http(port, "/metrics")
+        assert health_status == 200 and health["ok"] and health["buckets"] == list(cap.bucket_sizes), health
+        vals = _metric_values(metrics)
+        want = {"sat_requests_total": HTTP_BATCH, "sat_batched_images_total": HTTP_BATCH,
+                'sat_requests_by_mode_total{mode="beam"}': HTTP_BATCH, 'sat_requests_by_mode_total{mode="greedy"}': 0,
+                "sat_request_errors_total": 0, "sat_requests_rejected_total": 0, "sat_requests_abandoned_total": 0}
+        assert metrics_status == 200 and all(vals[k] == v for k, v in want.items()), vals
+        print(f"  /healthz 200 (buckets {health['buckets']}); /metrics parses, its counters equal the requests sent: "
+              f"{ {k: int(vals[k]) for k in want} }")
+
+        # 4. a burst against a queue of 2: 429s, counted as rejected
+        qsrv = serve_http.make_server(cfg, vocab, "127.0.0.1", 0, captioner=cap, batch_max_queue=BURST_QUEUE)
+        servers.append(qsrv)
+        del batches[:]
+        with _serving(qsrv) as port:
+            res = _run_load(tmp, port, "/caption", blob_path, offsets[:BURST], BURST)
+            stats = qsrv.batcher.stats()
+        codes = [r[1] for r in res["requests"]]
+        ok = {r[0]: json.loads(r[3])["caption"] for r in res["requests"] if r[1] == 200}
+        n429 = codes.count(429)
+        served("beam", ok)
+        print(f"  burst of {BURST} against batch_max_queue {BURST_QUEUE}: {len(ok)} answered 200, {n429} answered 429; "
+              f"stats rejected {stats['rejected']}, requests {stats['requests']}")
+        assert n429 > 0 and len(ok) + n429 == BURST and stats["rejected"] == n429 and stats["requests"] == len(ok)
+        out["burst"] = {"ok": len(ok), "429": n429}
+
+        # 5. every served caption against the direct call at its bucket: at a
+        # fixed bucket every op is row-independent
+        cap.caption_images = call
+        direct, direct_s = {}, {}
+        checked = {("beam", 1), ("beam", 8), ("beam", 256), ("greedy", 1), ("greedy", 256)}  # read below
+        for mode, bucket in sorted({(m, b) for m, _, b, _ in rows} | checked):
+            caps = []
+            t0 = time.perf_counter()
+            for k in range(0, n, bucket):
+                caps += cap.caption_images(images[k:k + bucket], mode=mode)
+            direct_s[(mode, bucket)] = time.perf_counter() - t0
+            direct[(mode, bucket)] = caps
+        diff = [(m, i, b, c, direct[(m, b)][i]) for m, i, b, c in rows if c != direct[(m, b)][i]]
+        print(f"  {len(rows)} HTTP captions against the direct Captioner.caption_images caption of the same image at "
+              f"the same bucket: {len(rows) - len(diff)} equal" + (f"; first difference {diff[0]}" if diff else ""))
+        assert not diff and len(rows) == 2 * len(HTTP_LEVELS) * n + HTTP_BATCH + len(ok)
+        if Image is not None:
+            assert attn["caption"] == direct[("greedy", 1)][0], (attn["caption"], direct[("greedy", 1)][0])
+            # cli.caption over 8 of the scenes as PNG files, with contact sheets
+            os.makedirs(os.path.join(tmp, "files"))
+            files = [os.path.join(tmp, "files", f"scene{i}.png") for i in range(8)]
+            for f, img in zip(files, images):
+                Image.fromarray(img).save(f)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                caption.main(trained["flags"] + ["--load_model_path", trained["expr_dir"], "--attention_dir",
+                                                 os.path.join(tmp, "sheets")] + files)
+            caption_s = time.perf_counter() - t0
+            recs = [json.loads(ln) for ln in printed.getvalue().splitlines()]
+            same = [r["caption"] for r in recs] == direct[("beam", 8)][:8]
+            print(f"  cli.caption over {len(files)} PNG files with --attention_dir: {caption_s:.2f} s (the Captioner's "
+                  f"build, the trunk file, the checkpoint); captions equal the direct beam captions at bucket 8: "
+                  f"{same}; {sum(os.path.exists(r['attention_sheet']) for r in recs)} sheets written; the attention "
+                  f"request's caption equals the direct greedy caption at bucket 1  [{smi}]")
+            assert same and [r["image"] for r in recs] == files and all(os.path.exists(r["attention_sheet"]) for r in recs)
+        bad = [(i, c) for i, c in nbest if c != direct[("beam", 1)][i]]
+        print(f"  ?nbest=1 on {NBEST_PROBES} images: the best entry is the beam caption at bucket 1 on "
+              f"{NBEST_PROBES - len(bad)} of {NBEST_PROBES}; scores not increasing")
+        assert not bad, bad
+        out["compared"] = len(rows)
+        for mode in ("beam", "greedy"):
+            own = n / direct_s[(mode, 256)]
+            best = max(v["img_s"] for k, v in out["levels"].items() if k.startswith(mode))
+            print(f"  {mode:6s} HTTP to direct: best HTTP {best:.1f} img/s against this Captioner's direct "
+                  f"caption_images at bucket 256 {own:.1f} img/s = {best / own:.3f}, and against phase 5's (random "
+                  f"weights, every batch 20 steps) {direct_img_s[mode]:.1f} img/s = {best / direct_img_s[mode]:.3f}  "
+                  f"[{smi}]")
+            out[f"direct_{mode}_img_s"] = own
+        print(f"  direct calls over the {n} images by bucket, s: "
+              f"{ {f'{m}@{b}': round(s, 3) for (m, b), s in sorted(direct_s.items())} }")
+    finally:
+        serve_http._decode_image = real_decode
+    alive = [s for s in servers if s.batcher._worker.is_alive()]
+    print(f"  after server_close(): the batcher's worker has exited on {len(servers) - len(alive)} of "
+          f"{len(servers)} servers")
+    assert not alive
+
+    # 6. cli.export_torch on the same checkpoint, served through cfg.torch_checkpoint
+    pth = os.path.join(tmp, "model-best.pth")
+    t0 = time.perf_counter()
+    export_torch.main(trained["flags"] + ["--load_model_path", trained["expr_dir"], "--export_path", pth])
+    export_s = time.perf_counter() - t0
+    ecap = Captioner.from_checkpoint(cfg.replace(torch_checkpoint=pth, load_model_path=None), None, vocab)
+    same = {mode: ecap.caption_images(images[:256], mode=mode) == direct[(mode, 256)][:256]
+            for mode in ("beam", "greedy")}
+    print(f"  cli.export_torch: {os.path.getsize(pth) / 1e6:.1f} MB reference-format .pth in {export_s:.2f} s; a "
+          f"Captioner from it (cfg.torch_checkpoint) captions 256 images as the served model does: {same}")
+    assert all(same.values())
+    out["export"] = {"seconds": export_s, "mb": os.path.getsize(pth) / 1e6}
+    del ecap, cap, srv0, servers
+
+    # 7. cli.train_chain: one child process per epoch, on the card
+    ccfg = parse_config(trained["flags"] + ["--max_epochs", str(CHAIN_EPOCHS), "--save_checkpoint_every", "1000",
+                                            "--expr_dir", os.path.join(tmp, "chain")])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.chdir(os.path.dirname(os.path.abspath(__file__))):  # the children import the package from here
+        record = train_chain.run_chain(ccfg)
+    chain_s = time.perf_counter() - t0
+    expr = train_chain.resolved_expr_dir(ccfg)
+    with open(os.path.join(expr, f"chain_epoch{CHAIN_EPOCHS}_try1.log")) as fh:
+        last = fh.read().rstrip().splitlines()[-1]
+    spawns = record["spawns"]
+    print(f"  cli.train_chain, {CHAIN_EPOCHS} epochs of 5 steps: {chain_s:.1f} s; children "
+          f"{[(s['epoch'], s['returncode'], s['total_iter'], s['wall_s']) for s in spawns]} (epoch, exit code, "
+          f"total_iter, seconds); completed_epochs {record['completed_epochs']}; the last child's log ends "
+          f"{last!r}  [{smi}]")
+    assert record["completed_epochs"] == CHAIN_EPOCHS and [s["returncode"] for s in spawns] == [0] * CHAIN_EPOCHS
+    assert spawns[-1]["total_iter"] == 5 * CHAIN_EPOCHS and last.endswith("done"), (spawns, last)
+    out["chain"] = {"seconds": chain_s, "child_s": [s["wall_s"] for s in spawns]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 11: {out['seconds']:.1f} s")
     return out
 
 
@@ -2239,7 +2734,7 @@ def main() -> int:
     errs = phase_check()
     rows = phase_times()
     probe_launches = phase_probe()
-    launches, model, cfg, images, captions = phase_end_to_end()
+    launches, model, cfg, images, captions, serve_img_s = phase_end_to_end()
     launches.update(probe_launches)
     launches.update(phase_beam_routes(model, cfg, images))
     training, train_state, train_cfg = phase_training(images)
@@ -2248,8 +2743,11 @@ def main() -> int:
     del model, train_state
     # phase 9's launches stay in its own lines and in the --out file's "eval"
     evaluation = phase_eval(cfg)
-    # phase 10's likewise, under "train_cli"
-    train_cli = phase_train_cli(smi, training["img_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 10's likewise, under "train_cli"
+        train_cli, trained = phase_train_cli(smi, training["img_s"], tmp)
+        # phase 11 serves phase 10's best checkpoint; its figures go under "http"
+        http = phase_http(smi, trained, tmp, serve_img_s)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -2260,7 +2758,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
-                       "eval": evaluation, "train_cli": train_cli}, fh, indent=1)
+                       "eval": evaluation, "train_cli": train_cli, "http": http}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

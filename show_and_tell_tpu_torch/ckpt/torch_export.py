@@ -11,7 +11,7 @@ inverse of ``ckpt.torch_import``, key for key the JAX package's
   strictly.
 
 Only Show-Attend-Tell is ported; ``show_tell`` raises (ROADMAP.md A7). The
-command-line exporter waits for ROADMAP.md A5-A6.
+command-line exporter is ``cli/export_torch.py``.
 """
 
 from __future__ import annotations

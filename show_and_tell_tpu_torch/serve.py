@@ -3,12 +3,15 @@
     captioner = Captioner.from_checkpoint(cfg, "experiment/u/e", vocab)   # on the GPU
     captions = captioner.caption_images(images_u8, mode="beam")
     captions = captioner.caption_paths(["img1.jpg", "img2.jpg"])
+    batcher = DynamicBatcher(captioner)                      # one worker thread
+    caption = batcher.caption(image_u8, mode="greedy")       # from any thread
 
 Requests are cut into chunks of the bucket sizes, and a short last chunk is
 padded to its bucket by repeating its last image, so every batch has one of
 a few shapes. Center crop, normalisation, the VGG16 trunk and the decode all
 run on the device. Every entry point holds one re-entrant lock, so threads
-may share a Captioner.
+may share a Captioner. The ``DynamicBatcher`` coalesces single-image
+requests from many threads into bucketed batches on one worker thread.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -314,3 +318,262 @@ class Captioner:
                         self.last_errors.append((i + j, paths[i + j]))
                 out.extend(caps)
             return out
+
+
+# ----------------------------------------------------------------------
+# Dynamic batching: many single-image requests, one device batch. Requests
+# queue; one worker thread drains up to ``max_batch`` same-mode requests
+# (waiting at most ``max_delay_ms`` after the first) and serves them with one
+# bucketed ``caption_images`` call. That worker is the only thread of the
+# batcher that issues device work.
+
+
+class QueueFull(RuntimeError):
+    """The DynamicBatcher's queue holds ``max_queue`` requests: shed load
+    (HTTP 429)."""
+
+
+class _Ticket:
+    """One request in flight; the worker fills in its caption or error."""
+
+    __slots__ = ("image", "mode", "event", "caption", "error", "t_submit", "abandoned")
+
+    def __init__(self, image, mode: str):
+        self.image = image
+        self.mode = mode
+        self.event = threading.Event()
+        self.caption: Optional[str] = None
+        self.error: Optional[BaseException] = None
+        self.t_submit = time.perf_counter()
+        self.abandoned = False  # the client's result() timed out
+
+    def result(self, timeout: Optional[float] = None) -> str:
+        if not self.event.wait(timeout):
+            # the worker skips an abandoned ticket instead of spending a
+            # device slot on a caption nobody reads
+            self.abandoned = True
+            raise TimeoutError("caption request timed out")
+        if self.error is not None:
+            raise RuntimeError(f"caption request failed: {self.error}") from self.error
+        return self.caption
+
+
+class DynamicBatcher:
+    """Thread-safe request coalescer over a :class:`Captioner`.
+
+    - ``submit(image_u8, mode)`` returns a ticket at once; ``caption(...)``
+      is submit and wait.
+    - Batches are FIFO runs of same-mode requests: the worker pops the head,
+      then appends queued requests of its mode until ``max_batch`` or
+      ``max_delay_ms`` after the pop; a request of another mode at the head
+      closes the batch and leads the next one.
+    - Past ``max_queue`` queued requests (default 8 x ``max_batch``),
+      ``submit`` raises ``QueueFull``.
+    - ``stats()`` reports requests, batches, mean batch size, the mean queue
+      wait per request, errors, rejected and abandoned requests, requests
+      per mode, and p50/p95/p99 of submit-to-caption latency over the last
+      2,048 served requests.
+    - ``close()`` stops the worker; pending tickets fail.
+    """
+
+    def __init__(
+        self,
+        captioner: Captioner,
+        max_batch: Optional[int] = None,
+        max_delay_ms: float = 10.0,
+        autostart: bool = True,
+        max_queue: Optional[int] = None,
+    ):
+        self.captioner = captioner
+        self.max_batch = max_batch or max(captioner.bucket_sizes)
+        self.max_delay_s = max_delay_ms / 1e3
+        # requests queued past this depth would reach the device long after
+        # their clients have timed out
+        self.max_queue = self.max_batch * 8 if max_queue is None else max_queue
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._running = False
+        self._closed = False
+        self._worker: Optional[threading.Thread] = None
+        self._stats = {
+            "requests": 0, "batches": 0, "batch_size_sum": 0,
+            "queue_wait_s_sum": 0.0, "errors": 0, "rejected": 0, "abandoned": 0,
+        }
+        # submit-to-caption seconds of the most recent served requests
+        self._latencies: deque = deque(maxlen=2048)
+        self._mode_counts = {"beam": 0, "greedy": 0, "sample": 0}
+        if autostart:
+            self.start()
+
+    def start(self) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if self._running:
+                return
+            self._running = True
+        self._worker = threading.Thread(target=self._run, name="caption-batcher", daemon=True)
+        self._worker.start()
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the worker; pending tickets fail with a closed error."""
+        with self._cv:
+            self._running = False
+            self._closed = True
+            self._cv.notify_all()
+        if self._worker is not None:
+            self._worker.join(timeout)
+        with self._cv:
+            while self._q:
+                t = self._q.popleft()
+                t.error = RuntimeError("batcher closed")
+                t.event.set()
+
+    def _fail_abandoned(self, tickets) -> None:
+        """Count the abandoned tickets and fail them, so that a retried
+        ``result()`` raises instead of returning None. Holds ``_cv``."""
+        self._stats["abandoned"] += len(tickets)
+        for t in tickets:
+            t.error = TimeoutError("abandoned: client result() timed out before dispatch")
+            t.event.set()
+
+    def submit(self, image_u8, mode: str = "beam") -> _Ticket:
+        if mode not in ("beam", "greedy", "sample"):
+            raise ValueError(f"unknown mode {mode!r}")
+        # tickets are stacked into one batch: a malformed image accepted here
+        # would fail every request coalesced with it. Shapes need only match
+        # the queued requests (the queue's tail), so a lone odd-shaped
+        # request still reaches the model and fails alone.
+        image_u8 = np.asarray(image_u8)
+        if image_u8.ndim != 3 or image_u8.shape[-1] != 3 or image_u8.dtype != np.uint8:
+            raise ValueError(
+                f"submit() expects one [H, W, 3] uint8 image, got shape {image_u8.shape} dtype {image_u8.dtype}"
+            )
+        ticket = _Ticket(image_u8, mode)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if len(self._q) >= self.max_queue:
+                # abandoned tickets cost no device work: purge them before
+                # shedding load
+                dead = [t for t in self._q if t.abandoned]
+                if dead:
+                    self._fail_abandoned(dead)
+                    self._q = deque(t for t in self._q if not t.abandoned)
+            if len(self._q) >= self.max_queue:
+                self._stats["rejected"] += 1
+                raise QueueFull(f"caption queue full ({self.max_queue} pending)")
+            if self._q and self._q[-1].image.shape != image_u8.shape:
+                raise ValueError(
+                    f"submit() image shape {image_u8.shape} does not match the queued requests' "
+                    f"{self._q[-1].image.shape} — mixed shapes cannot be coalesced into one batch"
+                )
+            self._q.append(ticket)
+            self._stats["requests"] += 1
+            self._mode_counts[mode] += 1
+            self._cv.notify()
+        return ticket
+
+    def caption(self, image_u8, mode: str = "beam", timeout: Optional[float] = 120.0) -> str:
+        return self.submit(image_u8, mode).result(timeout)
+
+    def stats(self) -> dict:
+        with self._cv:
+            s = dict(self._stats)
+            s["requests_by_mode"] = dict(self._mode_counts)
+            window = list(self._latencies)
+        s["mean_batch_size"] = round(s["batch_size_sum"] / max(s["batches"], 1), 2)
+        # per request: the wait sum is accumulated per dispatched ticket
+        s["mean_queue_wait_ms"] = round(s["queue_wait_s_sum"] / max(s["batch_size_sum"], 1) * 1e3, 2)
+        s["latency_ms"] = self._percentiles(window)
+        return s
+
+    @staticmethod
+    def _percentiles(window) -> dict:
+        if not window:
+            return {"n": 0, "p50": None, "p95": None, "p99": None}
+        q = np.percentile(np.asarray(window, np.float64), [50, 95, 99])
+        return {"n": len(window), "p50": round(float(q[0]) * 1e3, 2), "p95": round(float(q[1]) * 1e3, 2),
+                "p99": round(float(q[2]) * 1e3, 2)}
+
+    # -- worker ---------------------------------------------------------
+
+    def _pop_live(self, mode: Optional[str] = None) -> Optional[_Ticket]:
+        """The first live ticket of the queue, failing the abandoned ones
+        before it. With ``mode`` set, a live ticket of another mode stays
+        at the head and None is returned: the mode is checked after the
+        abandoned ones are skipped, so a skip never pulls a ticket of
+        another mode into the batch. Holds ``_cv``."""
+        while self._q:
+            t = self._q.popleft()
+            if t.abandoned:
+                self._fail_abandoned([t])
+                continue
+            if mode is not None and t.mode != mode:
+                self._q.appendleft(t)
+                return None
+            return t
+        return None
+
+    def _collect(self) -> List[_Ticket]:
+        """Block for the first request, then gather its same-mode run."""
+        with self._cv:
+            batch: List[_Ticket] = []
+            while self._running and not batch:
+                head = self._pop_live()
+                if head is not None:
+                    batch.append(head)
+                    break
+                if not self._q:
+                    self._cv.wait()
+            if not self._running:
+                return []
+            deadline = time.perf_counter() + self.max_delay_s
+            while len(batch) < self.max_batch and self._running:
+                if self._q:
+                    t = self._pop_live(batch[0].mode)
+                    if t is not None:
+                        batch.append(t)
+                        continue
+                    if self._q:
+                        break  # a live head of another mode: the next round
+                    continue  # drained abandoned tickets: check again, or wait
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0 or not self._cv.wait(remaining):
+                    break
+            return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._collect()
+            if not batch:
+                return  # closed
+            live = [t for t in batch if not t.abandoned]
+            if len(live) < len(batch):  # abandoned while the batch formed
+                with self._cv:
+                    self._fail_abandoned([t for t in batch if t.abandoned])
+                if not live:
+                    continue
+                batch = live
+            t_dispatch = time.perf_counter()
+            try:
+                caps = self.captioner.caption_images(np.stack([t.image for t in batch]), mode=batch[0].mode)
+                for t, c in zip(batch, caps):
+                    t.caption = c
+            except Exception as e:  # one bad batch must not kill the worker
+                log.exception("batcher dispatch failed (%d requests)", len(batch))
+                for t in batch:
+                    t.error = e
+                with self._cv:
+                    self._stats["errors"] += len(batch)
+            finally:
+                t_done = time.perf_counter()
+                with self._cv:
+                    self._stats["batches"] += 1
+                    self._stats["batch_size_sum"] += len(batch)
+                    self._stats["queue_wait_s_sum"] += sum(t_dispatch - t.t_submit for t in batch)
+                    for t in batch:
+                        if t.error is None:
+                            self._latencies.append(t_done - t.t_submit)
+                for t in batch:
+                    t.event.set()

@@ -10,7 +10,8 @@ the training forward, the autograd Functions' gradients, the train step,
 the n-best scores and attention maps of the Captioner, the sampler's
 distance from its filtered softmax, a JAX train state resumed in the
 port, and the trainer's losses and final params against the JAX trainer's
-from one checkpoint. Not a test module: it reports the numbers that the tests only bound.
+from one checkpoint, and the HTTP server's n-best scores and attention
+sheets and the export CLI's ``.pth`` against the JAX package's. Not a test module: it reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
 ``ckpt.convert.from_jax_params``, which the training tests use to compare
@@ -282,6 +283,47 @@ def trainer():
             row(f"Trainer vs JAX Trainer, 8 steps fp32, {gate} gate", **figures)
 
 
+def front_door():
+    """The HTTP server's n-best scores and attention sheet, and the export
+    CLI's .pth, against the JAX package's (``tests/test_torch_port_http.py``
+    and ``test_torch_port_cli.py``)."""
+    import base64
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    import test_torch_port_cli as tc
+    import test_torch_port_http as th
+    from show_and_tell_tpu_torch.cli import serve_http
+
+    jcap, tcap = th.make_pair()
+    images = np.stack([serve_http._decode_image(th.png_bytes(seed)) for seed in range(8)])
+    want, got = jcap.caption_nbest(images), tcap.caption_nbest(images)
+    row("caption_nbest fp32 at the HTTP tests' weights, 8 scenes x 2", scores=max(
+        abs(a[1] - b[1]) for w, g in zip(want, got) for a, b in zip(w, g)))
+    with th.serving("jax", jcap) as (jurl, _), th.serving("torch", tcap) as (turl, _):
+        servers = {"jax": jurl, "torch": turl}
+        answers = [th.both(servers, "/caption?nbest=1", th.png_bytes(seed)) for seed in range(8)]
+        row("POST /caption?nbest=1, 8 scenes: scores as answered (4 places)", scores=max(
+            abs(a["score"] - b["score"]) for x in answers for a, b in zip(x["jax"][1]["nbest"], x["torch"][1]["nbest"])))
+        sheets = [th.both(servers, "/caption?attention=1", th.png_bytes(seed)) for seed in range(8)]
+        pixels = [[np.asarray(Image.open(io.BytesIO(base64.b64decode(x[pkg][1]["attention_sheet_png_b64"]))), np.int16)
+                   for pkg in ("jax", "torch")] for x in sheets]
+        row("POST /caption?attention=1, 8 scenes: the sheets' grey levels", sheet=float(max(
+            np.abs(j - t).max() for j, t in pixels)))
+    with tempfile.TemporaryDirectory() as root:
+        cwd = os.getcwd()
+        os.chdir(root)  # the CLIs' logs
+        try:
+            paths = tc.export_both(tc.write_experiment(root)["flags"], root)
+        finally:
+            os.chdir(cwd)
+        want, got = (torch.load(paths[pkg], weights_only=True) for pkg in ("jax", "torch"))
+        row("cli.export_torch .pth vs the JAX CLI's, every key", pth=max(
+            float((got[k] - want[k]).abs().max()) for k in want))
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -292,6 +334,7 @@ def main():
     training()
     serving()
     trainer()
+    front_door()
 
 
 if __name__ == "__main__":
