@@ -157,9 +157,30 @@ Phases, each printing its own lines:
    batcher's worker gone after ``server_close()``; ``cli.export_torch`` on
    the checkpoint, its ``.pth`` served through ``cfg.torch_checkpoint`` with
    the same captions; ``cli.train_chain`` over two epochs as child
-   processes on the card (seconds per child).
+   processes on the card (seconds per child);
+12. Show-and-Tell on the card (phases 3 and 4 also hold and time the cell at
+   its layer-0 shapes, I=512): the ``Config`` defaults with
+   ``model="show_tell"`` (ResNet-152, crop 224, E=512, H=1024, one layer,
+   V=10,000, bf16) served by the ``Captioner`` over phase 5's 256 images,
+   beam-3 and greedy (img/s, the cell's launches per batch: a layer per
+   decode step, by ``wgmma``, and no attention kernel; greedy's launches
+   against the steps its ids show; trunk and decode apart, the trunk's
+   device time beside its bound, a traced decode), the decode-step logits
+   against the same weights on the CPU (bf16 and fp32, at B and 3B), fp32
+   greedy ids against the plain path on the card (differences only at
+   ties); ``TrainStep`` at batch 256 (img/s, the split, (T-1) cell
+   launches per step, the running statistics after a step against 0.99 old
+   + 0.01 the batch's recomputed in float64, the loss falling, a traced
+   step, fp32 gradients against the plain path); the trained model through
+   ``model-best.pt`` with its statistics and a torchvision ResNet-152 file
+   back into a ``Captioner``, and through ``cli.export_torch``'s reference
+   ``.pth``, both captioning as the live model; then the scaled
+   configuration (Inception-v3 at crop 299, two layers) at batch 64 of
+   342-px images: beam and greedy, the logits against the CPU, one train
+   step.
 Phases 8-11 count their launches in their own lines and the ``--out``
-file's; the kernels line counts phases 4-6 as before.
+file's; the kernels line counts phases 4-6 as before, and phase 12's
+launches of the cell on its main path.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -530,8 +551,12 @@ def phase_check():
         # the serving shapes, phase 9's (the eval driver's 64 images: B=64
         # greedy and loss, B=192 beam), then: ragged B, ragged H and k-tiles
         # on the TMA path, one row; ragged H, I+H not a multiple of the
-        # k-tile, and I not a multiple of the vector width (element-wise loads)
+        # k-tile, and I not a multiple of the vector width (element-wise loads);
+        # Show-and-Tell's layer 0 (phase 12: I=512 at B=768 and 256; B=192 and
+        # 64 for its scaled configuration)
         for B, I, H, serving in ((768, 1024, 1024, True), (256, 1024, 1024, True),
+                                 (768, 512, 1024, False), (256, 512, 1024, False),
+                                 (192, 512, 1024, False), (64, 512, 1024, False),
                                  (64, 1024, 1024, False), (192, 1024, 1024, False),
                                  (300, 1024, 1024, False), (64, 1000, 1000, False),
                                  (1, 1024, 1024, False), (13, 40, 24, False), (9, 48, 40, False),
@@ -797,6 +822,25 @@ def phase_times():
         )
         if B == 768:  # the beam-3 serving batch, 256 images x 3 beams
             rows["lstm_cell"] = row
+    # Show-and-Tell's layer 0 (phase 12): the 512-wide image or word
+    # embedding, at the later beam steps (768) and at greedy, the first beam
+    # step and training (256)
+    st_rows = {}
+    for B in (768, 256):
+        I, H = 512, 1024
+        p, x, h, c = cell_inputs(B, I, H, dt, SEED)
+        w_ih = p["w"][:I].t().contiguous()
+        w_hh = p["w"][I:].t().contiguous()
+        b_ih = p["b"].to(dt)
+        b_hh = torch.zeros_like(b_ih)
+        c_lib = c.to(dt)
+        st_rows[f"B={B} I={I} H={H}"] = show(
+            "lstm_cell", f"B={B} I={I} H={H}",
+            lambda: lstm.lstm_cell_cuda(p, x, h, c),
+            lambda: lstm.lstm_cell_reference(p, x, h, c),
+            cell_bound(B, I, H, dt),
+            lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh),
+        )
     B, L, D = 256, 196, 512
     ce, f, hp, watt = attention_inputs(B, 1, L, D, dt, SEED + 1)
     hp1 = hp[:, 0].contiguous()
@@ -921,7 +965,7 @@ def phase_times():
     ).stdout.strip().splitlines()[0]
     torch.cuda.synchronize()
     print(f"    clocks under load (sm, max sm, mem, power draw): {clocks}")
-    return rows
+    return rows, st_rows
 
 
 def phase_probe():
@@ -1171,14 +1215,16 @@ def plain_ops():
     """Route the model's training-step calls to the plain versions (autograd
     through plain PyTorch on the card), to hold the kernel path against."""
     from show_and_tell_tpu_torch.models import show_attend_tell as sat
+    from show_and_tell_tpu_torch.models import show_tell as st
     from show_and_tell_tpu_torch.ops import attention, lstm
 
-    saved = sat.fused_additive_attention, sat.lstm_cell
+    saved = sat.fused_additive_attention, sat.lstm_cell, st.lstm_cell
     sat.fused_additive_attention, sat.lstm_cell = attention.additive_attention, lstm.lstm_cell_reference
+    st.lstm_cell = lstm.lstm_cell_reference
     try:
         yield
     finally:
-        sat.fused_additive_attention, sat.lstm_cell = saved
+        sat.fused_additive_attention, sat.lstm_cell, st.lstm_cell = saved
 
 
 def phase_training(images):
@@ -2704,6 +2750,357 @@ def phase_http(smi, trained, tmp, direct_img_s):
     return out
 
 
+# --- phase 12: Show-and-Tell on the card ----------------------------------------
+
+ST_SCALED_BATCH = 64  # the scaled configuration (Inception-v3, 2 layers) is held at this batch
+ST_SCALED_PX = 342  # uint8 images for crop 299: 299 / 0.875
+
+
+def _greedy_steps(ids, T):
+    """Step functions that a greedy decode with early exit ran after its
+    first step, from its ids: until every row holds <end>, at most T - 1."""
+    from show_and_tell_tpu_torch.utils.vocab import END_ID
+
+    has_end = ids == END_ID
+    first_end = torch.where(has_end.any(1), has_end.int().argmax(1), torch.full_like(ids[:, 0], T))
+    return min(int(first_end.max()), T - 1)
+
+
+def _st_serving(cap, images, label, layers):
+    """Captions of ``images`` by beam and greedy: img/s as the median of REPS
+    after a warm call, the cell's launches per batch (``layers`` per decode
+    step, by wgmma) and no attention kernel. Returns (captions, img/s,
+    launches of the cell per mode summed over the timed calls)."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    N, T = images.shape[0], cap.cfg.max_decode_len
+    captions, img_s, cell = {}, {}, {}
+    for mode in ("beam", "greedy"):
+        dt, secs, caps, per_call, designs = _timed_calls(lambda: cap.caption_images(images, mode=mode), REPLACES)
+        img_s[mode] = N / dt
+        cell[mode] = int(per_call["lstm_cell"] * REPS)
+        n = per_call["lstm_cell"]
+        others = {k: v for k, v in per_call.items() if k != "lstm_cell" and v}
+        print(f"  {label} {mode:6s}: {N} images in {dt * 1e3:.2f} ms (median of {REPS}: "
+              f"{', '.join(f'{s * 1e3:.2f}' for s in secs)}) = {N / dt:.1f} img/s; cell launches per batch {n:g} "
+              f"({n / layers:g} steps x {layers} layers), designs {designs['lstm_cell']}; caption[0] {caps[0]!r}")
+        assert len(caps) == N and all(isinstance(s, str) for s in caps)
+        assert not others, f"{label} {mode}: attention kernels launched: {others}"
+        assert n % layers == 0 and 1 <= n / layers <= T, f"{label} {mode}: {n} cell launches per batch"
+        assert designs["lstm_cell"] == {"wgmma": n}, f"{label} {mode}: cell designs {designs['lstm_cell']}"
+        captions[mode] = caps
+    return captions, img_s, cell
+
+
+def _st_logits_vs_plain(model, cfg, x_u8, label):
+    """The decode-step logits through the kernels against the same weights on
+    the CPU (plain path) fed the card's features: the first step at B, five
+    forced steps at B and at B x 3 (the beam's later steps). Returns the
+    worst max|diff|/max|logit|."""
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.beam import _tile_beams
+    from show_and_tell_tpu_torch.models.registry import build_model
+
+    V = model.vocab_size
+    m_cpu = build_model(cfg, V, device="cpu", generator=torch.Generator().manual_seed(SEED + 12))
+    m_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(SEED + 12)
+    rtol = LOGITS_RTOL[model.cdtype]
+    worst = 0.0
+    with torch.inference_mode():
+        feats = model.backbone_features(eval_transform(x_u8, cfg.crop_size))
+        assert feats.shape == (x_u8.shape[0], 2048) and torch.isfinite(feats).all()
+        B = feats.shape[0]
+        for k in (1, 3):
+            sk, ck, fk, _ = model.decode_state(feats)
+            sp, cp, fp, _ = m_cpu.decode_state(feats.cpu())
+            worst = max(worst, _diffs(fk.cpu(), fp)[1])
+            ck, cp = _tile_beams(ck, k), _tile_beams(cp, k)
+            toks = torch.from_numpy(rng.integers(0, V, (5, B * k)))
+            for t in range(5):
+                ck, lk = sk(ck, toks[t].cuda())
+                cp, lp = sp(cp, toks[t])
+                assert lk.shape == (B * k, V) and torch.isfinite(lk).all()
+                worst = max(worst, _diffs(lk.cpu(), lp)[1])
+    print(f"  {label} {cfg.dtype} step logits, kernels vs the plain path on the CPU (B={B} and {3 * B}): "
+          f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
+    assert worst <= rtol, f"{label} {cfg.dtype}: kernel path logits disagree with the plain path"
+    return worst
+
+
+def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=True):
+    """TrainStep on uint8 images with synthetic captions (T=20): warm steps,
+    then timed ones; the cell's launches per step; the loss finite and
+    falling on the fixed batch; the running statistics after one step
+    against 0.99 old + 0.01 the batch's, recomputed in fp32 (float64) from
+    that step's projected features. Returns the figures."""
+    from show_and_tell_tpu_torch.models.layers import dense
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils.vocab import START_ID
+
+    V, T, N = model.vocab_size, 20, images.shape[0]
+    layers = cfg.num_layers
+    state = make_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    rng = np.random.default_rng(SEED + 12)
+    caps = np.concatenate([np.full((N, 1), START_ID), rng.integers(4, V, (N, T - 1))], 1)
+    batch = {"images": torch.from_numpy(images).cuda(), "captions": torch.from_numpy(caps).cuda(),
+             "lengths": torch.full((N,), T, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = cfg.learning_rate
+    losses = []
+    out = {}
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch, lr, generator=gen)
+        losses.append(m["loss"])
+        return m
+
+    warm, timed = steps
+    cuda_lib.LAUNCHES.clear()
+    for _ in range(warm):
+        one_step()
+    torch.cuda.synchronize()
+    if timed:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            one_step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out.update(img_s=timed * N / dt, ms_per_step=dt * 1e3 / timed)
+        print(f"  {label} training: {timed} timed steps at batch {N}: {dt * 1e3 / timed:.2f} ms/step = "
+              f"{timed * N / dt:.1f} img/s")
+
+    # one step by phases: the split, and the running statistics it commits
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    total = cuda_lib.LAUNCHES["lstm_cell"]
+    cuda_lib.LAUNCHES.clear()
+    mark()
+    feats = step.features(batch, gen)
+    mark()
+    loss, _ = step.forward(feats, batch, generator=gen)
+    mark()
+    grads = step.backward(state, loss)
+    mark()
+    proj = {k: v.detach().clone() for k, v in model.proj.items()}
+    old = {k: v.clone() for k, v in state.batch_stats.items()}
+    state, _ = step.apply(state, grads, lr)
+    mark()
+    losses.append(loss.detach())
+    n = cuda_lib.LAUNCHES["lstm_cell"]
+    designs = cuda_lib.designs("lstm_cell")
+    others = {k: cuda_lib.LAUNCHES[k] for k in REPLACES if k != "lstm_cell" and cuda_lib.LAUNCHES[k]}
+    out["split_ms"] = dict(zip(("trunk", "forward", "backward", "apply"),
+                               (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    if split:
+        print(f"  {label} split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in out["split_ms"].items()))
+    print(f"  {label} launches per step: cell {n} ((T-1) x {layers} layers = {(T - 1) * layers}), designs "
+          f"{designs}; attention kernels {others or 'none'}")
+    assert n == (T - 1) * layers and designs == {"wgmma": n} and not others, \
+        f"{label}: training launches {n}, designs {designs}, others {others}"
+    with torch.no_grad():
+        f = dense(proj, feats).double()
+        rel = {}
+        for k, batch_stat in (("mean", f.mean(0)), ("var", f.var(0, unbiased=True))):
+            want = 0.99 * old[k].double() + 0.01 * batch_stat
+            rel[k] = float((state.batch_stats[k].double() - want).abs().max() / want.abs().max())
+    print(f"  {label} running statistics after the step against 0.99 old + 0.01 the batch's (float64): "
+          f"max|diff|/max|value| mean {rel['mean']:.2e}, var {rel['var']:.2e} (limit 1e-5); moved: "
+          f"{not torch.equal(old['mean'], state.batch_stats['mean'])}")
+    assert max(rel.values()) <= 1e-5 and not torch.equal(old["var"], state.batch_stats["var"])
+    out["stats_rel_err"] = rel
+    out["launches"] = total + n
+    # values of the steps so far (one_step goes on appending to ``losses``)
+    values = [float(x) for x in losses]
+    print(f"  {label} loss by step: {', '.join(f'{x:.4f}' for x in values)}")
+    assert all(np.isfinite(values)) and values[-1] < values[0], f"{label}: the loss is not finite and falling"
+    out["losses"] = values
+    out["one_step"] = one_step
+    return out, state
+
+
+def phase_show_tell(tmp, images):
+    """Show-and-Tell at full width (ResNet-152, one layer) served, trained and
+    checkpointed on the card, then the scaled configuration (Inception-v3 at
+    299 px, two layers) at batch 64. Returns the figures and, under
+    ``launches``, the cell's launches of the phase's runs."""
+    from show_and_tell_tpu_torch import ckpt
+    from show_and_tell_tpu_torch.ckpt.torch_import import load_reference_checkpoint
+    from show_and_tell_tpu_torch.cli import export_torch
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.models.encoders import to_torch_resnet152
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    t_phase = time.perf_counter()
+    V, N = 10000, images.shape[0]
+    vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
+    cfg = Config(model="show_tell", dtype="bfloat16")
+    out = {"launches": 0}
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    print(f"== 12. Show-and-Tell: {cfg.encoder} -> {model.encoder_name}, crop {cfg.crop_size}, E={cfg.embed_size} "
+          f"H={cfg.hidden_size} num_layers {cfg.num_layers} V={V}, beam {cfg.beam_size}, {cfg.dtype}, "
+          f"{N} uint8 images (phase 5's)")
+    cap = Captioner(cfg, model, None, vocab, device="cuda")
+    warm = cap.warmup(modes=("beam", "greedy", "attention"), buckets=(N,))
+    print(f"  warmup (beam and greedy at bucket {N}; attention skipped: no attention maps): {warm:.2f} s")
+    captions, img_s, cell = _st_serving(cap, images, "serving", cfg.num_layers)
+    out["launches"] += sum(cell.values())
+    out.update(serve_img_s=img_s)
+
+    # trunk and decode apart, a traced decode, and the greedy launches
+    # against the steps its ids show
+    with torch.inference_mode():
+        x = torch.from_numpy(images).cuda()
+        split = {}
+        for mode in ("beam", "greedy"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = model.backbone_features(eval_transform(x, cfg.crop_size))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cuda_lib.LAUNCHES.clear()
+            ids = decode_ids(model, cfg, feats, mode)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n = cuda_lib.LAUNCHES["lstm_cell"]
+            out["launches"] += n
+            split[mode] = {"trunk_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3}
+            print(f"  {mode:6s} split: transform+trunk {(t1 - t0) * 1e3:.2f} ms, decode {(t2 - t1) * 1e3:.2f} ms, "
+                  f"cell launches {n}")
+            if mode == "greedy":
+                want = cfg.num_layers * (1 + _greedy_steps(ids, cfg.max_decode_len))
+                assert n == want, f"greedy: {n} cell launches, its ids show {want}"
+            profile_window(lambda: decode_ids(model, cfg, feats, mode), mode)
+        trunk_ms = time_cold(lambda: model.backbone_features(eval_transform(x, cfg.crop_size)), iters=5, warmup=1)
+    flops = 2 * 11.56e9 * N  # ResNet-152 at 224 px: 11.56 GMAC per image
+    print(f"  trunk (transform + ResNet-152, batch {N}): {trunk_ms:.2f} ms device time against "
+          f"{flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.2f} ms at the bf16 peak ({flops / 1e12:.2f} TFLOP)")
+    out.update(split=split, trunk_ms=trunk_ms)
+    _st_logits_vs_plain(model, cfg, torch.from_numpy(images[:8]).cuda(), "full width")
+
+    # fp32: greedy ids through the kernels against the plain path on the card
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    _st_logits_vs_plain(m32, cfg32, torch.from_numpy(images[:8]).cuda(), "full width")
+    with torch.no_grad():
+        f32 = m32.backbone_features(eval_transform(torch.from_numpy(images).cuda(), cfg.crop_size))
+        ids = {}
+        for path in ("kernels", "plain"):
+            cuda_lib.LAUNCHES.clear()
+            with plain_ops() if path == "plain" else contextlib.nullcontext():
+                ids[path] = decode_ids(m32, cfg32, f32, "greedy")
+            torch.cuda.synchronize()
+            assert (cuda_lib.LAUNCHES["lstm_cell"] > 0) == (path == "kernels")
+        differ = (ids["kernels"] != ids["plain"]).any(1).nonzero().squeeze(1).tolist()
+        gaps = []
+        for r in differ:  # the plain path's two top logits at the first differing step
+            t_diff = int((ids["kernels"][r] != ids["plain"][r]).int().argmax())
+            with plain_ops():
+                step_fn, carry, logits, _ = m32.decode_state(f32[r:r + 1])
+                for s in range(1, t_diff + 1):
+                    carry, logits = step_fn(carry, ids["plain"][r:r + 1, s - 1])
+            top2 = logits[0].float().topk(2).values
+            gaps.append(float(top2[0] - top2[1]))
+    print(f"  fp32 greedy ids, kernels vs plain on the card: {N - len(differ)} of {N} identical; differences at "
+          f"top-two gaps under {TIE_GAP:g}: {all(g < TIE_GAP for g in gaps)} {gaps[:8]}")
+    assert all(g < TIE_GAP for g in gaps), f"fp32 greedy ids differ away from a tie: gaps {gaps}"
+    out["fp32_greedy_differ"] = len(differ)
+
+    # training at batch 256
+    train, state = _st_train(model, cfg, images, "full width")
+    one_step = train.pop("one_step")
+    cuda_lib.LAUNCHES.clear()
+    profile_window(one_step, "train step")
+    out["launches"] += train.pop("launches") + cuda_lib.LAUNCHES["lstm_cell"]
+    out["train"] = train
+    # one fp32 step's gradients through the kernel against the plain path
+    st32, s32 = make_train_state(cfg32, m32), make_train_step(m32, cfg32)
+    b32 = {"captions": torch.from_numpy(np.concatenate(
+        [np.ones((N, 1), np.int64), np.random.default_rng(SEED + 13).integers(4, V, (N, 19))], 1)).cuda(),
+        "lengths": torch.full((N,), 20, device="cuda")}
+    grads = {}
+    for path in ("kernels", "plain"):
+        cuda_lib.LAUNCHES.clear()
+        with plain_ops() if path == "plain" else contextlib.nullcontext():
+            loss, _ = s32.forward(f32, b32)
+            grads[path] = s32.backward(st32, loss)
+        torch.cuda.synchronize()
+        n = cuda_lib.LAUNCHES["lstm_cell"]
+        assert n == (19 if path == "kernels" else 0), f"fp32 {path} step: {n} cell launches"
+    rel = {k: _diffs(grads["kernels"][k], grads["plain"][k])[1] for k in grads["plain"]}
+    # the projection's bias: the train-mode BatchNorm subtracts the batch
+    # mean, so its gradient is zero but for rounding; it is held against the
+    # projection weight's gradient scale
+    rel["proj.b"] = _maxdiff(grads["kernels"]["proj.b"], grads["plain"]["proj.b"]) / float(
+        grads["plain"]["proj.w"].abs().max())
+    worst = max(rel, key=rel.get)
+    print(f"  fp32 gradients, kernels vs plain, max|diff|/max|grad| (proj.b: / max|grad proj.w|): worst {worst} "
+          f"{rel[worst]:.3e} (limit {GRAD_RTOL:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    assert rel[worst] <= GRAD_RTOL, "kernel-path gradients disagree with the plain path"
+    del m32, st32, s32, grads, f32
+
+    # checkpoints: the trained model through model-best.pt (with its
+    # statistics) and a torchvision ResNet-152 file, then cli.export_torch
+    captions = {mode: cap.caption_images(images, mode=mode) for mode in ("beam", "greedy")}
+    exp = os.path.join(tmp, "show_tell")
+    ckpt.save_best(exp, ckpt.trainable_state_dict(model), state.batch_stats, {"iter": 1})
+    trunk = os.path.join(tmp, "resnet152.pth")
+    torch.save(to_torch_resnet152(model.frozen_tree()), trunk)
+    cfg_b = cfg.replace(encoder_weights=trunk)
+    back = Captioner.from_checkpoint(cfg_b, exp, vocab)
+    assert all(torch.equal(back.model.batch_stats[k], state.batch_stats[k]) for k in ("mean", "var"))
+    same = {mode: back.caption_images(images, mode=mode) == captions[mode] for mode in captions}
+    print(f"  model-best.pt (params and batch statistics) + a torchvision ResNet-152 file -> "
+          f"Captioner.from_checkpoint: captions identical to the trained model's {same}")
+    assert all(same.values()), "the restored Show-and-Tell Captioner's captions differ"
+    vocab_path = os.path.join(tmp, "show_tell_vocab.json")
+    vocab.save(vocab_path)
+    pth = os.path.join(tmp, "show_tell.pth")
+    export_torch.main(["--model", "show_tell", "--dtype", "bfloat16", "--vocab_path", vocab_path,
+                       "--load_model_path", exp, "--export_path", pth])
+    t, stats, fr = load_reference_checkpoint(pth, model="show_tell", num_layers=cfg.num_layers)
+    assert fr is None and all(torch.equal(stats[k], state.batch_stats[k].cpu()) for k in stats)
+    ref = Captioner.from_checkpoint(cfg_b.replace(torch_checkpoint=pth), None, vocab)
+    same = {mode: ref.caption_images(images, mode=mode) == captions[mode] for mode in captions}
+    print(f"  cli.export_torch -> reference .pth ({os.path.getsize(pth) / 1e6:.1f} MB, {len(t)} decoder and encoder "
+          f"tensors + statistics) -> Captioner (cfg.torch_checkpoint): captions identical {same}")
+    assert all(same.values()), "the exported .pth's captions differ"
+    del back, ref, cap, model, state
+
+    # the scaled configuration: Inception-v3 at crop 299, two layers, batch 64
+    cfg_s = Config(model="show_tell", encoder="inception_v3", crop_size=299, num_layers=2, dtype="bfloat16")
+    ms = build_model(cfg_s, V, device="cuda", generator=torch.Generator().manual_seed(SEED + 1))
+    px = np.random.default_rng(SEED + 14).integers(0, 256, (ST_SCALED_BATCH, ST_SCALED_PX, ST_SCALED_PX, 3),
+                                                  dtype=np.uint8)
+    print(f"  scaled configuration: {ms.encoder_name}, crop {cfg_s.crop_size}, num_layers {cfg_s.num_layers}, batch "
+          f"{ST_SCALED_BATCH} of {ST_SCALED_PX}-px uint8 images through the Captioner (its centre crop takes any "
+          f"size of at least the crop)")
+    caps_s = Captioner(cfg_s, ms, None, vocab, device="cuda", bucket_sizes=(ST_SCALED_BATCH,))
+    _, img_s_s, cell_s = _st_serving(caps_s, px, "scaled", cfg_s.num_layers)
+    out["launches"] += sum(cell_s.values())
+    _st_logits_vs_plain(ms, cfg_s, torch.from_numpy(px[:8]).cuda(), "scaled")
+    train_s, _ = _st_train(ms, cfg_s, px, "scaled", steps=(1, 0), split=False)
+    out["launches"] += train_s.pop("launches")
+    train_s.pop("one_step")
+    out["scaled"] = {"serve_img_s": img_s_s, "train": train_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 class _LogLines(logging.Handler):
     """Collects the trainer's step lines as (epoch, step, loss, img/s,
     ms/step)."""
@@ -2732,7 +3129,7 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     errs = phase_check()
-    rows = phase_times()
+    rows, st_cell_rows = phase_times()
     probe_launches = phase_probe()
     launches, model, cfg, images, captions, serve_img_s = phase_end_to_end()
     launches.update(probe_launches)
@@ -2748,6 +3145,9 @@ def main() -> int:
         train_cli, trained = phase_train_cli(smi, training["img_s"], tmp)
         # phase 11 serves phase 10's best checkpoint; its figures go under "http"
         http = phase_http(smi, trained, tmp, serve_img_s)
+        # phase 12's cell launches join the kernels line; its figures go under "show_tell"
+        show_tell = phase_show_tell(tmp, images)
+    launches["lstm_cell"] += show_tell["launches"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -2758,7 +3158,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
-                       "eval": evaluation, "train_cli": train_cli, "http": http}, fh, indent=1)
+                       "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell,
+                       "show_tell_cell": st_cell_rows}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,14 @@ The layout of an experiment directory is the JAX package's:
 
 - ``infos.json`` and ``infos-best.json``, written by the same JSON rules;
 - ``model-best.pt``: ``torch.save`` of ``{"params": <trainable state dict>,
-  "batch_stats": None}`` (the JAX package writes ``model-best.msgpack``);
+  "batch_stats": <{mean, var}>}``, the batch statistics being Show-and-Tell's
+  BatchNorm running statistics and None for Show-Attend-Tell (the JAX
+  package writes ``model-best.msgpack``);
 - ``state-last.pt``: the whole ``TrainState``, so that a resumed run goes on
   bit for bit: the params, Adam's ``count``, ``mu`` and ``nu``, under
-  gradient accumulation ``mini_step`` and ``acc_grads``, ``step`` and
-  ``ema_params`` (the JAX package writes ``state-last.msgpack``).
+  gradient accumulation ``mini_step`` and ``acc_grads``, ``step``,
+  ``ema_params`` and ``batch_stats`` (the JAX package writes
+  ``state-last.msgpack``).
 
 Every write goes to a ``.tmp`` file first and is published by
 ``os.replace``, so a crash never leaves a torn file. The loaders read the
@@ -129,18 +132,35 @@ def save_best(expr_dir: str, params: Mapping[str, torch.Tensor], batch_stats: An
     os.makedirs(expr_dir, exist_ok=True)
     path = os.path.join(expr_dir, MODEL_BEST)
     tmp = path + ".tmp"
-    torch.save({"params": _cpu(params), "batch_stats": batch_stats}, tmp)
+    torch.save({"params": _cpu(params), "batch_stats": _cpu(batch_stats)}, tmp)
     save_infos(expr_dir, infos, best=True)
     os.replace(tmp, path)
     return path
 
 
+def _stats_pair(template: Optional[Mapping[str, torch.Tensor]], stats, path: str, what: str):
+    """(template, source) of the batch statistics to copy, after checking
+    that a template's statistics are in the file; None without a
+    template."""
+    if template is None:
+        return None
+    if stats is None:
+        raise ValueError(f"{path}: holds no {what} (a model with BatchNorm statistics needs them)")
+    check_like(template, stats, f"{path}: {what}")
+    return template, stats
+
+
 def load_best_params(
-    expr_dir: str, params_template: Mapping[str, torch.Tensor]
+    expr_dir: str,
+    params_template: Mapping[str, torch.Tensor],
+    batch_stats_template: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Optional[Tuple[Mapping[str, torch.Tensor], Any]]:
-    """Copy the best params into ``params_template``; returns ``(params,
-    batch_stats)``, or None when ``expr_dir`` holds neither the port's
-    ``model-best.pt`` nor the JAX package's ``model-best.msgpack``."""
+    """Copy the best params into ``params_template``, and the batch
+    statistics into ``batch_stats_template`` when one is given (a
+    Show-and-Tell model's ``batch_stats``, its own buffers); returns
+    ``(params, batch_stats)``, the file's statistics without a template. None
+    when ``expr_dir`` holds neither the port's ``model-best.pt`` nor the JAX
+    package's ``model-best.msgpack``."""
     path = os.path.join(expr_dir, MODEL_BEST)
     jax_path = os.path.join(expr_dir, JAX_MODEL_BEST)
     if os.path.exists(path):
@@ -149,11 +169,17 @@ def load_best_params(
     elif os.path.exists(jax_path):
         from show_and_tell_tpu_torch.ckpt.jax_msgpack import load_jax_best
 
-        path, params, batch_stats = jax_path, load_jax_best(jax_path), None
+        path = jax_path
+        params, batch_stats = load_jax_best(jax_path)
     else:
         return None
     log.info("reading the best params from %s", path)
-    copy_into(params_template, params, path)
+    check_like(params_template, params, path)
+    stats = _stats_pair(batch_stats_template, batch_stats, path, "batch_stats")
+    _copy(params_template, params)
+    if stats is not None:
+        _copy(*stats)
+        batch_stats = batch_stats_template
     return params_template, batch_stats
 
 
@@ -163,7 +189,7 @@ def _state_blob(state) -> Dict[str, Any]:
     if "acc_grads" in opt:
         opt_blob.update(mini_step=int(opt["mini_step"]), acc_grads=_cpu(opt["acc_grads"]))
     return {"params": _cpu(state.params), "opt_state": opt_blob, "step": int(state.step),
-            "ema_params": _cpu(state.ema_params)}
+            "ema_params": _cpu(state.ema_params), "batch_stats": _cpu(state.batch_stats)}
 
 
 def save_train_state(expr_dir: str, state) -> str:
@@ -176,8 +202,8 @@ def save_train_state(expr_dir: str, state) -> str:
 def load_train_state(expr_dir: str, state_template):
     """Restore ``state-last.pt`` (else the JAX package's
     ``state-last.msgpack``) into ``state_template``, a ``TrainState`` made
-    by ``make_train_state`` for the same config. Returns it, or None when
-    neither file exists.
+    by ``make_train_state`` for the same config, its batch statistics too
+    when it has them. Returns it, or None when neither file exists.
 
     The EMA follows the JAX package's three rules:
     - a file without an average (older, or saved with ``ema_decay`` 0) and
@@ -217,8 +243,11 @@ def load_train_state(expr_dir: str, state_template):
         pairs.append((state.ema_params, ema, "ema_params"))
     for template, source, what in pairs:
         check_like(template, source, f"{path}: {what}")
+    stats = _stats_pair(state.batch_stats, blob.get("batch_stats"), path, "batch_stats")
     for template, source, _ in pairs:
         _copy(template, source)
+    if stats is not None:
+        _copy(*stats)
     opt["count"] = int(opt_blob["count"])
     if "acc_grads" in opt:
         opt["mini_step"] = int(opt_blob["mini_step"])

@@ -1,28 +1,34 @@
 """The weights bridge between the JAX package's parameter trees and the port.
 
-``from_jax_params(trainable, frozen)`` takes the ``(trainable, frozen)``
-trees of the JAX Show-Attend-Tell model as arrays (anything that
-``numpy.asarray`` accepts, or torch tensors) and returns a state dict for
-``ShowAttendTell.load_state_dict``; ``from_jax_trainable(trainable)`` gives
-the trainable part alone, which is all that a JAX checkpoint holds, and
-``to_jax_trainable`` is its inverse. Layouts stay as they are, except:
+A state-dict name is the leaf's path in the JAX tree, joined by dots: the
+Show-Attend-Tell ``{"att": {"w_img": ...}, "lstm": {"w", "b"}, ...}`` gives
+``att.w_img`` and ``lstm.w``; the Show-and-Tell ``{"proj", "bn": {scale,
+bias}, "embed", "lstm": [{w, b}, ...], "out"}`` gives ``bn.scale`` and
+``lstm.0.w``. A list, or flax's map of it keyed "0", "1", ..., becomes
+numbered names. So
 
-- the fused LSTM ``w [I+H, 4H]`` (gate order i, f, g, o, one bias) is kept
-  whole, because the cell kernel consumes it;
-- VGG conv weights move from HWIO ``[kh, kw, cin, cout]`` to PyTorch's
-  ``[cout, cin, kh, kw]``.
+- ``from_jax_trainable(trainable)`` gives the trainable state dict, all that
+  a JAX checkpoint holds besides the batch statistics, and
+  ``to_jax_trainable`` is its inverse;
+- ``from_jax_params(trainable, frozen, batch_stats)`` gives the whole state
+  dict for ``model.load_state_dict``: the trunk under ``encoder.`` and, for
+  Show-and-Tell, the BatchNorm's running ``{mean, var}`` as ``bn.mean`` and
+  ``bn.var``.
+
+Layouts stay as they are, except that conv weights (the trunk's 4-D leaves)
+move from HWIO ``[kh, kw, cin, cout]`` to PyTorch's ``[cout, cin, kh, kw]``.
+The fused LSTM ``w [I+H, 4H]`` (gate order i, f, g, o, one bias) is kept
+whole, because the cell kernel consumes it.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 Params = Dict
-
-_DENSE = ("init_h", "init_c", "lstm", "c2o", "h2o", "classifier")
 
 
 def _t(a) -> torch.Tensor:
@@ -31,31 +37,59 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
+def flatten_tree(tree: Any, prefix: str, out: Dict[str, torch.Tensor], hwio: bool = False) -> None:
+    """Put ``tree``'s leaves into ``out`` as fp32 tensors under their
+    dotted paths after ``prefix``; with ``hwio`` its 4-D leaves move from
+    HWIO to [cout, cin, kh, kw]."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        t = _t(tree)
+        if hwio and t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[prefix[:-1]] = t
+        return
+    for k, v in items:
+        flatten_tree(v, f"{prefix}{k}.", out, hwio)
+
+
 def from_jax_trainable(trainable: Params) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for k in ("w_img", "w_hh", "b_hh", "w_att"):
-        sd[f"att.{k}"] = _t(trainable["att"][k])
-    for name in _DENSE:
-        sd[f"{name}.w"] = _t(trainable[name]["w"])
-        sd[f"{name}.b"] = _t(trainable[name]["b"])
-    sd["embed"] = _t(trainable["embed"])
+    flatten_tree(trainable, "", sd)
     return sd
+
+
+def _lists(tree: Any) -> Any:
+    """Nested dicts whose keys are all "0", "1", ... become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _lists(v) for k, v in tree.items()}
+    if tree and all(k.isdigit() for k in tree):
+        return [tree[str(i)] for i in range(len(tree))]
+    return tree
 
 
 def to_jax_trainable(sd: Dict[str, torch.Tensor]) -> Params:
     """A state dict (or any dict keyed by the trainable parameters' names,
     such as the Adam moments) -> the JAX trainable tree, fp32 numpy."""
-    a = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
-    trainable: Params = {"att": {k: a[f"att.{k}"] for k in ("w_img", "w_hh", "b_hh", "w_att")}}
-    for name in _DENSE:
-        trainable[name] = {"w": a[f"{name}.w"], "b": a[f"{name}.b"]}
-    trainable["embed"] = a["embed"]
-    return trainable
+    tree: Dict[str, Any] = {}
+    for name, v in sd.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v.detach().cpu().float().numpy()
+    return _lists(tree)
 
 
-def from_jax_params(trainable: Params, frozen: Params) -> Dict[str, torch.Tensor]:
+def from_jax_params(
+    trainable: Params, frozen: Params, batch_stats: Optional[Params] = None
+) -> Dict[str, torch.Tensor]:
     sd = from_jax_trainable(trainable)
-    for i, conv in enumerate(frozen["convs"]):
-        sd[f"encoder.convs.{i}.w"] = _t(np.asarray(conv["w"]).transpose(3, 2, 0, 1))
-        sd[f"encoder.convs.{i}.b"] = _t(conv["b"])
+    flatten_tree(frozen, "encoder.", sd, hwio=True)
+    if batch_stats is not None:
+        sd["bn.mean"] = _t(batch_stats["mean"])
+        sd["bn.var"] = _t(batch_stats["var"])
     return sd

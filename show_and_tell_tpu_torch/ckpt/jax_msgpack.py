@@ -21,7 +21,7 @@ by ``ckpt.convert.from_jax_trainable``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,10 +76,16 @@ def read_msgpack(path: str) -> Any:
     return _unchunk(tree)
 
 
-def load_jax_best(path: str) -> Dict[str, torch.Tensor]:
-    """``model-best.msgpack`` -> the trainable state dict (Show-Attend-Tell
-    has no batch stats)."""
-    return from_jax_trainable(read_msgpack(path)["params"])
+def _stats(tree) -> Optional[Dict[str, torch.Tensor]]:
+    """A file's ``batch_stats``: Show-and-Tell's {mean, var} as fp32, or
+    None (Show-Attend-Tell has none)."""
+    return None if tree is None else {k: tree[k].float() for k in ("mean", "var")}
+
+
+def load_jax_best(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """``model-best.msgpack`` -> ``(trainable state dict, batch_stats)``."""
+    d = read_msgpack(path)
+    return from_jax_trainable(d["params"]), _stats(d.get("batch_stats"))
 
 
 def load_jax_train_state(path: str) -> Dict[str, Any]:
@@ -88,6 +94,7 @@ def load_jax_train_state(path: str) -> Dict[str, Any]:
 
     - ``params``, and ``ema_params`` when the file has that field (None
       when it was saved without an average);
+    - ``batch_stats``: Show-and-Tell's {mean, var}, else None;
     - ``opt_state``: Adam's ``count``, ``mu``, ``nu`` (``opt_state/1`` of
       the clip, Adam, scale chain), and under gradient accumulation
       (``optax.MultiSteps``, whose Adam state sits in ``inner_opt_state``)
@@ -109,6 +116,7 @@ def load_jax_train_state(path: str) -> Dict[str, Any]:
         "params": from_jax_trainable(d["params"]),
         "opt_state": opt_state,
         "step": int(d["step"]),
+        "batch_stats": _stats(d.get("batch_stats")),
     }
     if "ema_params" in d:
         ema = d["ema_params"]

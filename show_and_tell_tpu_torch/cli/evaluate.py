@@ -79,7 +79,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda"):
                 "initialized (checkpoints do not store it). Pass the same --encoder_weights used in "
                 "training, or expect near-zero scores."
             )
-        if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model)) is None:
+        if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model), model.batch_stats) is None:
             raise SystemExit(f"no checkpoint found in {cfg.load_model_path}")
 
     mode = "beam" if cfg.beam_size > 1 else "greedy"

@@ -1,6 +1,8 @@
 """Export a trained checkpoint as a reference-format ``model-best.pth``: a
-``state_dict`` keyed like the reference's ``ShowAttendTellModel``, which
-``torch.load`` + ``load_state_dict`` read (``ckpt/torch_export.py``).
+``state_dict`` keyed like the reference's ``ShowAttendTellModel``, or with
+``--model show_tell`` its ``DecoderRNN``/``EncoderCNN`` under ``decoder.`` and
+``encoder.``, which ``torch.load`` + ``load_state_dict`` read
+(``ckpt/torch_export.py``).
 
 Usage::
 
@@ -8,10 +10,11 @@ Usage::
         --vocab_path data/vocab.json --load_model_path experiment/u/e \
         --encoder_weights vgg16.pth --export_path model-best.pth
 
-The export holds the ``encoder.*`` VGG16 trunk, as the reference's save
-does, and checkpoints hold none: pass the ``--encoder_weights`` the model
-was trained with, or the export carries a random trunk (warned about).
-``show_tell`` is not ported yet (ROADMAP.md A7).
+A Show-Attend-Tell export holds the ``encoder.*`` VGG16 trunk, as the
+reference's save does, and checkpoints hold none: pass the
+``--encoder_weights`` the model was trained with, or the export carries a
+random trunk (warned about). A Show-and-Tell export holds the projection,
+the BatchNorm and its running statistics, and no trunk.
 
 It runs on the GPU and raises without one; ``main(argv, device="cpu")`` runs
 on the CPU.
@@ -70,12 +73,12 @@ def main(argv=None, device: Union[str, torch.device] = "cuda"):
         from show_and_tell_tpu_torch.ckpt.torch_import import load_encoder_weights
 
         load_encoder_weights(cfg, model)
-    else:
+    elif cfg.model == "show_attend_tell":
         log.warning(
             "exporting without --encoder_weights: the state_dict's encoder.* trunk is randomly initialized "
             "(checkpoints do not store it)"
         )
-    if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model)) is None:
+    if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model), model.batch_stats) is None:
         raise SystemExit(f"no checkpoint found under {cfg.load_model_path}")
     export_checkpoint(cfg, model.state_dict(), out_path)
     log.info("exported %s (%s) -> %s", cfg.load_model_path, cfg.model, out_path)

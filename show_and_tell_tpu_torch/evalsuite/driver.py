@@ -19,7 +19,9 @@ Against the JAX package's driver: nothing is jitted, and there are no
 ``params`` / ``batch_stats`` / ``frozen`` arguments. The ``nn.Module`` holds
 its weights, and the batches go to the model's device. Evaluating other
 weights (an EMA) goes through :func:`make_trainer_eval_fn`, which swaps
-them in for the call. Sample mode draws from a ``torch.Generator`` seeded
+the trainable parameters in for the call; Show-and-Tell's BatchNorm
+statistics are buffers, not swapped, so the gate always evaluates with the
+running statistics. Sample mode draws from a ``torch.Generator`` seeded
 from ``(cfg.random_seed, batch index)``: two runs give the same captions,
 but not the JAX package's, whose random streams differ.
 """
@@ -97,7 +99,8 @@ def evaluation(
     """Returns ``(val_loss, predictions, lang_stats)`` (eval.py:58-122).
 
     Each batch holds ``captions`` and ``lengths``, ``imgids`` and
-    ``cocoids``, and either ``features`` [B, L, 512] or uint8 ``images``
+    ``cocoids``, and either ``features`` (the trunk's output: [B, L, 512]
+    for Show-Attend-Tell, [B, 2048] for Show-and-Tell) or uint8 ``images``
     [B, H, W, 3] (centre crop, normalisation and the trunk), as numpy arrays
     or tensors. ``_fns`` lets periodic callers reuse one set of step
     functions (:func:`make_eval_fns`, :func:`make_trainer_eval_fn`).

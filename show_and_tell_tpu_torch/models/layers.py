@@ -3,13 +3,16 @@
 Parameters keep the JAX package's layouts where a public function sees them:
 dense weights are [in, out] (``y = x @ w + b``). Convolution weights are in
 PyTorch's [out, in, kh, kw] layout and activations are NCHW inside the
-trunk; ``ckpt/convert.py`` moves the JAX package's HWIO weights across.
+trunk (``conv2d``, ``conv_bn``, the pools); ``ckpt/convert.py`` moves the
+JAX package's HWIO weights across. BatchNorm parameters are ``{scale, bias,
+mean, var}``; ``batch_norm_inference`` and ``batch_norm_train`` normalise
+the last axis, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,12 +34,24 @@ def uniform_dense(
 
 def init_conv(
     kh: int, kw: int, cin: int, cout: int, generator: Optional[torch.Generator] = None,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, bias: bool = True,
 ) -> Params:
-    """Kaiming-normal weight [cout, cin, kh, kw] and a zero bias."""
+    """Kaiming-normal weight [cout, cin, kh, kw], and a zero bias unless
+    ``bias`` is False."""
     std = math.sqrt(2.0 / (kh * kw * cin))
-    w = torch.randn(cout, cin, kh, kw, generator=generator, dtype=dtype) * std
-    return {"w": w, "b": torch.zeros(cout, dtype=dtype)}
+    p = {"w": torch.randn(cout, cin, kh, kw, generator=generator, dtype=dtype) * std}
+    if bias:
+        p["b"] = torch.zeros(cout, dtype=dtype)
+    return p
+
+
+def init_bn(c: int, dtype: torch.dtype = torch.float32) -> Params:
+    return {
+        "scale": torch.ones(c, dtype=dtype),
+        "bias": torch.zeros(c, dtype=dtype),
+        "mean": torch.zeros(c, dtype=dtype),
+        "var": torch.ones(c, dtype=dtype),
+    }
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -53,8 +68,76 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> tor
     return F.conv2d(x, p["w"].to(x.dtype), b, stride=stride, padding=padding)
 
 
+def _bn_affine(p: Params, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frozen statistics as one fp32 multiply-add: (scale, bias)."""
+    inv = torch.rsqrt(p["var"].float() + eps)
+    scale = p["scale"].float() * inv
+    return scale, p["bias"].float() - p["mean"].float() * scale
+
+
+def batch_norm_inference(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Frozen-statistics BatchNorm over the last axis; the affine is formed
+    in fp32 and applied in x's dtype."""
+    scale, bias = _bn_affine(p, eps)
+    return x * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def batch_norm_train(
+    p: Params, x: torch.Tensor, momentum: float = 0.01, eps: float = 1e-5
+) -> Tuple[torch.Tensor, Params]:
+    """Batch-statistics BatchNorm over all axes but the last: ``(y,
+    new_stats)``. The statistics and the normalisation run in fp32 whatever
+    x's dtype, y comes back in x's dtype. ``momentum`` is the weight of the
+    new statistic (torch's BatchNorm1d convention) and the running variance
+    takes the unbiased n / (n - 1) variance. Nothing is written: the caller
+    commits ``new_stats``."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, correction=0)
+    inv = torch.rsqrt(var + eps)
+    y = ((xf - mean) * inv * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    n = float(math.prod(x.shape[a] for a in axes))
+    unbiased = var * (n / max(n - 1.0, 1.0))
+    new_stats = {
+        "scale": p["scale"],
+        "bias": p["bias"],
+        "mean": (1 - momentum) * p["mean"] + momentum * mean,
+        "var": (1 - momentum) * p["var"] + momentum * unbiased,
+    }
+    return y, new_stats
+
+
+def conv_bn(conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5) -> torch.Tensor:
+    """``batch_norm_inference(bn, conv2d(conv, x))`` on NCHW for a conv
+    without bias (the ResNet and Inception trunks), with the
+    frozen BatchNorm folded into the convolution: weights scaled per output
+    channel in fp32, then cast to x's dtype in x's memory format, and the
+    BatchNorm's shift as the bias. One cuDNN call instead of a convolution
+    and two passes over its output; the same function up to rounding."""
+    scale, bias = _bn_affine(bn, eps)
+    w = (conv["w"].float() * scale[:, None, None, None]).to(x.dtype)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        w = w.contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, w, bias.to(x.dtype), stride=stride, padding=padding)
+
+
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
     return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool(
+    x: torch.Tensor, window: int, stride: int, padding: int = 0, count_include_pad: bool = True
+) -> torch.Tensor:
+    """NCHW average pool. ``count_include_pad`` (the default, torchvision
+    Inception-v3's branch pool) divides by window² everywhere, else by the
+    cells inside the image."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> [N, C], the mean over the spatial axes."""
+    return x.mean(dim=(2, 3))
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,9 @@ import torch
 
 from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.models.show_attend_tell import ShowAttendTell
+from show_and_tell_tpu_torch.models.show_tell import ShowTell
 
-MODELS = {"show_attend_tell": ShowAttendTell}
-NOT_PORTED = {"show_tell"}
+MODELS = {"show_tell": ShowTell, "show_attend_tell": ShowAttendTell}
 
 
 def build_model(
@@ -19,10 +19,6 @@ def build_model(
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ):
-    if cfg.model in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported to PyTorch yet; see ROADMAP.md"
-        )
     try:
         cls = MODELS[cfg.model]
     except KeyError:

@@ -46,10 +46,8 @@ Params = Dict
 _DENSE = ("init_h", "init_c", "c2o", "h2o", "classifier")
 
 
-def _pdict(tree: Dict[str, torch.Tensor], trainable: bool = True) -> nn.ParameterDict:
-    return nn.ParameterDict(
-        {k: nn.Parameter(v, requires_grad=trainable) for k, v in tree.items()}
-    )
+def _pdict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
 
 
 class ShowAttendTell(nn.Module):
@@ -59,6 +57,9 @@ class ShowAttendTell(nn.Module):
     convs do not. ``dropout_rate`` applies to the head's input during
     training when a generator is given (the captioning model this system
     reproduces declares a dropout it never applies, hence the default 0)."""
+
+    encoder_name = "vgg16"
+    batch_stats = None  # no BatchNorm (Show-and-Tell's are its buffers)
 
     def __init__(
         self,
@@ -97,8 +98,7 @@ class ShowAttendTell(nn.Module):
         self.c2o = _pdict(uniform_dense(D, E, g))
         self.h2o = _pdict(uniform_dense(H, E, g))
         self.classifier = _pdict(uniform_dense(E, V, g))
-        convs = encoders.init_vgg16(g)["convs"]
-        self.encoder = nn.ModuleDict({"convs": nn.ModuleList(_pdict(c, False) for c in convs)})
+        self.encoder = encoders.frozen_module(encoders.init_vgg16(g))
 
     def trainable_tree(self) -> Params:
         t = {k: dict(getattr(self, k).items()) for k in ("att", "lstm", *_DENSE)}
@@ -106,7 +106,7 @@ class ShowAttendTell(nn.Module):
         return t
 
     def frozen_tree(self) -> Params:
-        return {"convs": [dict(c.items()) for c in self.encoder["convs"]]}
+        return encoders.module_tree(self.encoder)
 
     # --- encoder ----------------------------------------------------------
 

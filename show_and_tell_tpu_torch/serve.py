@@ -8,8 +8,8 @@
 
 Requests are cut into chunks of the bucket sizes, and a short last chunk is
 padded to its bucket by repeating its last image, so every batch has one of
-a few shapes. Center crop, normalisation, the VGG16 trunk and the decode all
-run on the device. Every entry point holds one re-entrant lock, so threads
+a few shapes. Center crop, normalisation, the trunk and the decode all run
+on the device. Every entry point holds one re-entrant lock, so threads
 may share a Captioner. The ``DynamicBatcher`` coalesces single-image
 requests from many threads into bucketed batches on one worker thread.
 """
@@ -89,15 +89,16 @@ class Captioner:
         """A Captioner over trained weights:
 
         - the model starts from the ``"init"`` stream of ``KeyChain(seed)``;
-        - ``cfg.encoder_weights``, a torchvision VGG16 state dict, sets the
-          frozen trunk;
+        - ``cfg.encoder_weights``, a torchvision state dict of the model's
+          trunk, sets the frozen trunk;
         - ``cfg.torch_checkpoint``, a reference-format ``model-best.pth``,
-          sets the decoder (and the trunk, if it holds one) and takes the
-          place of ``expr_dir``;
+          sets the decoder (and the trunk, if it holds one; and for
+          Show-and-Tell the BatchNorm's statistics, if it holds the
+          encoder's keys) and takes the place of ``expr_dir``;
         - else ``expr_dir``'s ``model-best.pt``, or the JAX package's
-          ``model-best.msgpack``, sets the trainable params; a directory
-          with neither raises ``FileNotFoundError``; None serves the random
-          decoder.
+          ``model-best.msgpack``, sets the trainable params and the batch
+          statistics; a directory with neither raises
+          ``FileNotFoundError``; None serves the random decoder.
 
         Checkpoints hold no trunk, so a decoder over a random trunk is
         warned about."""
@@ -132,8 +133,10 @@ class Captioner:
                 )
             trainable = ckpt.trainable_state_dict(model)
             trunk = {n for n, _ in model.named_parameters() if n.startswith("encoder.")}
-            assert set(model.state_dict()) - set(trainable) == trunk, "a checkpoint holds all but the trunk"
-            if ckpt.load_best_params(expr_dir, trainable) is None:
+            buffers = {n for n, _ in model.named_buffers()}
+            assert set(model.state_dict()) - set(trainable) - buffers == trunk, \
+                "a checkpoint holds all but the trunk"
+            if ckpt.load_best_params(expr_dir, trainable, model.batch_stats) is None:
                 raise FileNotFoundError(
                     f"no model-best checkpoint found under {expr_dir!r}: train first, or pass "
                     "expr_dir=None for an untrained Captioner"
@@ -197,8 +200,9 @@ class Captioner:
         """Run one dummy batch per (bucket, mode), so that the first request
         pays no kernel build or cuDNN algorithm search. ``modes`` takes the
         decode modes ("beam", "greedy", "sample") and the interactive
-        surfaces "nbest" and "attention". Sampling on the dummies does not
-        move the streams' counter. Returns seconds spent."""
+        surfaces "nbest" and "attention"; a model without attention maps
+        skips "attention". Sampling on the dummies does not move the streams'
+        counter. Returns seconds spent."""
         t0 = time.perf_counter()
         buckets = sorted(set(buckets)) if buckets else list(self.bucket_sizes)
         with self._lock:
@@ -206,6 +210,8 @@ class Captioner:
             count_before = self._sample_count
             try:
                 for mode in modes:
+                    if mode == "attention" and not hasattr(self.model, "greedy_with_attention"):
+                        continue
                     for b in buckets:
                         if mode == "nbest":
                             self.caption_nbest(dummy[:b])

@@ -18,9 +18,16 @@ that ticks only on steps that applied an update.
 
 Parameters are the model's own and are updated in place, as are the
 optimizer's moments; the step returns the same ``TrainState`` object. The
-frozen VGG16 trunk and the train transform run outside autograd. Reading
+frozen trunk and the train transform run outside autograd. Reading
 whether the gradient norm is finite costs one host synchronisation per
 step.
+
+Show-and-Tell's BatchNorm runs in train mode: ``forward`` computes the new
+running statistics without writing them, and ``apply`` copies them into
+``TrainState.batch_stats`` (the model's buffers) under the same rule as the
+parameters, so a step skipped as non-finite leaves them as they were. They
+move on every micro-step under gradient accumulation, as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ class TrainState:
     step: int = 0
     # average of the params (cfg.ema_decay > 0), else None
     ema_params: Optional[Tensors] = None
+    # Show-and-Tell's BatchNorm running {mean, var} (the model's buffers),
+    # else None; the EMA does not cover them
+    batch_stats: Optional[Tensors] = None
 
 
 def _zeros_like(tree: Tensors) -> Tensors:
@@ -55,15 +65,17 @@ def _zeros_like(tree: Tensors) -> Tensors:
 
 def make_train_state(cfg: Config, model) -> TrainState:
     """A fresh state over the model's trainable parameters: Adam's count and
-    zero moments, the accumulation state when ``grad_accum_steps`` > 1, and a
-    copy of the params as the EMA when ``ema_decay`` > 0."""
+    zero moments, the accumulation state when ``grad_accum_steps`` > 1, a
+    copy of the params as the EMA when ``ema_decay`` > 0, and the model's
+    batch statistics when it has them."""
     params = trainable_state_dict(model)
     with torch.no_grad():
         opt_state: Dict[str, Any] = {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
         if cfg.grad_accum_steps > 1:
             opt_state.update(mini_step=0, acc_grads=_zeros_like(params))
         ema = {k: v.detach().clone() for k, v in params.items()} if cfg.ema_decay > 0 else None
-    return TrainState(params=params, opt_state=opt_state, step=0, ema_params=ema)
+    return TrainState(params=params, opt_state=opt_state, step=0, ema_params=ema,
+                      batch_stats=model.batch_stats)
 
 
 def _adam_update(cfg: Config, opt_state: Dict[str, Any], params: Tensors, grads: Tensors, lr: float):
@@ -88,8 +100,9 @@ class TrainStep:
     metrics)``.
 
     ``batch`` holds ``captions`` [B, T] and ``lengths`` [B] (int), and either
-    ``features`` [B, L, 512] or ``images`` [B, H, W, 3] (uint8 images get the
-    random crop, flip and normalisation). ``generator`` (on the model's
+    ``features`` (the trunk's output: [B, L, 512] for Show-Attend-Tell,
+    [B, 2048] for Show-and-Tell) or ``images`` [B, H, W, 3] (uint8 images get
+    the random crop, flip and normalisation). ``generator`` (on the model's
     device) drives the crop, the flips, scheduled sampling and dropout; the
     step owns one seeded from ``cfg.random_seed`` for calls without it.
     ``ss_prob`` is read only when ``cfg.scheduled_sampling_start`` >= 0;
@@ -107,6 +120,8 @@ class TrainStep:
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.random_seed)
+        # the running statistics of the last forward, which apply commits
+        self.new_stats: Optional[Tensors] = None
 
     def features(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
         if "features" in batch:
@@ -121,15 +136,20 @@ class TrainStep:
         self, features: torch.Tensor, batch: Dict[str, torch.Tensor],
         ss_prob: Union[float, torch.Tensor] = 0.0, generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, token count), the loss still on the autograd graph."""
+        """(loss, token count), the loss still on the autograd graph. For
+        Show-and-Tell it also keeps the BatchNorm's new running statistics
+        in ``self.new_stats`` for ``apply``."""
         captions = batch["captions"].to(self.device)
         lengths = batch["lengths"].to(self.device)
         if self.cfg.scheduled_sampling_start < 0:
             ss_prob = 0.0
+        generator = generator or self.generator
         with torch.enable_grad():
-            logits, mask, _ = self.model.decode_train(
-                features, captions, lengths, generator or self.generator, ss_prob
-            )
+            if hasattr(self.model, "encode"):  # Show-and-Tell: projection + BatchNorm
+                feat_embed, self.new_stats = self.model.encode(features, train=True)
+                logits, mask = self.model.decode_train(feat_embed, captions, lengths, generator, ss_prob)
+            else:
+                logits, mask, _ = self.model.decode_train(features, captions, lengths, generator, ss_prob)
             return masked_cross_entropy(logits, captions[:, 1:], mask)
 
     def backward(self, state: TrainState, loss: torch.Tensor) -> Tensors:
@@ -140,13 +160,18 @@ class TrainStep:
 
     @torch.no_grad()
     def apply(self, state: TrainState, grads: Tensors, lr: float) -> Tuple[TrainState, torch.Tensor]:
-        """The update for one step's gradients. Returns (state, grad_norm)."""
+        """The update for one step's gradients, and the running statistics
+        of the forward before it. Returns (state, grad_norm)."""
         cfg = self.cfg
         grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
         finite = bool(torch.isfinite(grad_norm))
         opt = state.opt_state
+        new_stats, self.new_stats = self.new_stats, None
         applied = True
         if finite or not cfg.skip_nonfinite:
+            if new_stats is not None:
+                for name, v in state.batch_stats.items():
+                    v.copy_(new_stats[name])
             k = cfg.grad_accum_steps
             if k > 1:
                 n = opt["mini_step"]
@@ -186,8 +211,9 @@ def make_train_step(model, cfg: Config) -> TrainStep:
 
 def make_eval_loss_step(model, cfg: Config):
     """``step(batch) -> (loss, token count)``: the teacher-forced loss with
-    the training mask (t < len - 1), no dropout; uint8 images get the centre
-    crop and normalisation."""
+    the training mask (t < len - 1), no dropout, Show-and-Tell's BatchNorm
+    on its running statistics; uint8 images get the centre crop and
+    normalisation."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -201,7 +227,11 @@ def make_eval_loss_step(model, cfg: Config):
             if images.dtype == torch.uint8:
                 images = eval_transform(images, cfg.crop_size)
             features = model.backbone_features(images)
-        logits, mask, _ = model.decode_train(features, captions, lengths)
+        if hasattr(model, "encode"):  # Show-and-Tell
+            feat_embed, _ = model.encode(features, train=False)
+            logits, mask = model.decode_train(feat_embed, captions, lengths)
+        else:
+            logits, mask, _ = model.decode_train(features, captions, lengths)
         return masked_cross_entropy(logits, captions[:, 1:], mask)
 
     return step

@@ -17,8 +17,9 @@ Against the JAX trainer:
 - one device: ``multihost``, ``num_devices`` > 1 and ``model_parallel`` > 1
   raise (ROADMAP.md A9), and so does ``quantize_backbone`` (A8);
   ``use_pallas`` is ignored (the wrappers pick the kernels by device);
-- the model arrives built, its weights in its own ``Parameter``s, which the
-  step updates in place; the trainer loads ``encoder_weights``,
+- the model arrives built, its weights in its own ``Parameter``s (and
+  Show-and-Tell's BatchNorm statistics in its buffers), which the step
+  updates in place; the trainer loads ``encoder_weights``,
   ``load_pretrained`` + ``load_model_path`` and ``torch_checkpoint`` into
   them, and a resume copies ``state-last.pt`` into the same tensors;
 - step ``it`` of epoch ``e`` draws its crops, flips, scheduled sampling and
@@ -90,7 +91,9 @@ class Trainer:
             log.info("loaded %s weights from %s", cfg.encoder, cfg.encoder_weights)
         # pretrained-weight start (config.py:33-36 surface)
         if cfg.load_pretrained and cfg.load_model_path:
-            if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model)) is not None:
+            if ckpt.load_best_params(
+                cfg.load_model_path, ckpt.trainable_state_dict(model), model.batch_stats
+            ) is not None:
                 log.info("loaded pretrained params from %s", cfg.load_model_path)
         if cfg.torch_checkpoint:
             # fine-tune from a reference-trained model-best.pth
@@ -114,7 +117,9 @@ class Trainer:
     def eval_params(self) -> Dict[str, torch.Tensor]:
         """The weights evaluation and best-checkpointing use: the EMA average
         when ``cfg.ema_decay > 0`` (the averaged model is the one a user
-        deploys), else the live params."""
+        deploys), else the live params. Show-and-Tell's BatchNorm statistics
+        are always the running ones, the model's buffers, which the EMA does
+        not cover."""
         if self.state.ema_params is not None:
             return self.state.ema_params
         return self.state.params
@@ -163,7 +168,7 @@ class Trainer:
         # the copies land in the model's own Parameters and the state's
         # tensors, so self.state stays bound to the model
         if ckpt.load_train_state(cfg.start_from, self.state) is None:
-            if ckpt.load_best_params(cfg.start_from, self.state.params) is not None:
+            if ckpt.load_best_params(cfg.start_from, self.state.params, self.state.batch_stats) is not None:
                 if self.state.ema_params is not None:
                     ckpt.copy_into(self.state.ema_params, self.state.params, "ema_params")
         log.info("resuming from %s", cfg.start_from)
@@ -377,6 +382,6 @@ class Trainer:
             epoch, it, total_iteration, best_val_score, val_result_history, loss_history, lr_history, infos,
         )
         if best_flag:
-            ckpt.save_best(cfg.expr_dir, self.eval_params(), None, infos)
+            ckpt.save_best(cfg.expr_dir, self.eval_params(), self.state.batch_stats, infos)
             log.info("model saved to %s (score %.4f)", cfg.expr_dir, current_score or 0)
         return best_val_score

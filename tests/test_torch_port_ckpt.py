@@ -141,8 +141,15 @@ def test_from_checkpoint_refusals_and_warnings(tmp_path, caplog):
     assert "without encoder_weights" in caplog.text
     with pytest.raises(NotImplementedError, match="A8"):
         Captioner.from_checkpoint(Config(**SMALL, quantize_backbone=True), None, vocab, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        load_torch_encoder("resnet152", str(tmp_path / "x.pth"))
+    # ResNet-152: a torchvision file reads as the JAX
+    # package reads it
+    from show_and_tell_tpu_torch.models.encoders import init_encoder, to_torch_resnet152
+
+    torch.save(to_torch_resnet152(init_encoder("resnet152", torch.Generator().manual_seed(0))),
+               tmp_path / "r.pth")
+    got = torch_import.encoder_state_dict(load_torch_encoder("resnet152", str(tmp_path / "r.pth")))
+    want = from_jax_params({}, jload_encoder("resnet152", str(tmp_path / "r.pth")))
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_from_checkpoint_without_a_directory_is_the_seeded_init():
@@ -239,7 +246,8 @@ def test_chunked_checkpoint_reads_bit_for_bit(tmp_path, monkeypatch):
     monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
     trainable, _ = _weights()
     jckpt.save_best(str(tmp_path), trainable, None, {})
-    got = load_jax_best(str(tmp_path / "model-best.msgpack"))
+    got, stats = load_jax_best(str(tmp_path / "model-best.msgpack"))
+    assert stats is None
     want = from_jax_trainable(trainable)
     assert set(got) == set(want)
     for k in want:
@@ -426,8 +434,17 @@ def test_reference_checkpoint_import_matches_the_weights(reference_pth, tmp_path
     got = cap.model.state_dict()
     assert torch.equal(got["lstm.w"], want["lstm.w"]) and not torch.equal(got["encoder.convs.0.w"],
                                                                            want["encoder.convs.0.w"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_import.load_reference_checkpoint(path, "show_tell")
+    # a Show-and-Tell file reads as the JAX importer reads it
+    from show_and_tell_tpu.ckpt import torch_import as jimport
+    import test_torch_port_show_tell as tst
+
+    _, st_trainable, _, st_stats = tst.jax_weights(tst.SMALL)
+    st_path = str(tmp_path / "show_tell.pth")
+    jexport.save_state_dict(jexport.export_show_tell(st_trainable, st_stats), st_path)
+    jt, jstats, _ = jimport.load_reference_checkpoint(st_path, "show_tell")
+    t, stats, st_trunk = torch_import.load_reference_checkpoint(st_path, "show_tell")
+    assert st_trunk is None and all(torch.equal(t[k], v) for k, v in from_jax_trainable(jt).items())
+    assert all(np.array_equal(stats[k].numpy(), np.asarray(jstats[k])) for k in ("mean", "var"))
 
 
 @pytest.mark.parametrize("with_trunk", [True, False], ids=["full", "decoder"])
@@ -448,8 +465,14 @@ def test_export_matches_jax_key_for_key(tmp_path, with_trunk):
     torch_export.export_checkpoint(Config(**SMALL), sd, path)
     loaded = torch.load(path, weights_only=True)
     assert all(np.array_equal(loaded[k].numpy(), want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_export.export_checkpoint(Config(**SMALL, model="show_tell"), sd, path)
+    # Show-and-Tell: the file the JAX one-call export writes
+    import test_torch_port_show_tell as tst
+
+    _, st_trainable, _, st_stats, st_cfg, st_model = tst._pair()
+    jexport.export_checkpoint(JConfig(**tst.SMALL), st_trainable, path, batch_stats=st_stats)
+    torch_export.export_checkpoint(st_cfg, st_model.state_dict(), str(tmp_path / "st.pth"))
+    want, got = (torch.load(p, weights_only=True) for p in (path, str(tmp_path / "st.pth")))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_best_checkpoint_file_layout(tmp_path):

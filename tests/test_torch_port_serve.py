@@ -82,9 +82,21 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         Captioner(cfg, tm, None, tvocab.Vocabulary.from_words(WORDS))
 
 
-def test_show_tell_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**SMALL, model="show_tell"), 50, device="cpu")
+def test_show_tell_builds_as_the_jax_model():
+    """``build_model`` gives Show-and-Tell: ResNet-152
+    for the default encoder as in JAX, and its trainable names are the JAX
+    tree's paths (the parity tests are in test_torch_port_show_tell.py)."""
+    from show_and_tell_tpu_torch.ckpt import trainable_state_dict
+    from show_and_tell_tpu_torch.ckpt.convert import from_jax_trainable
+
+    m = build_model(Config(**SMALL, model="show_tell"), 50, device="cpu")
+    jm = jbuild(JConfig(**SMALL, model="show_tell"), 50)
+    trainable, _ = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), trainable)
+    want = from_jax_trainable(zeros)
+    got = trainable_state_dict(m)
+    assert type(m).__name__ == "ShowTell" and m.encoder_name == jm.encoder_name == "resnet152"
+    assert set(got) == set(want) and all(got[k].shape == want[k].shape for k in want)
 
 
 def test_config_matches_jax_config():

@@ -11,7 +11,9 @@ the n-best scores and attention maps of the Captioner, the sampler's
 distance from its filtered softmax, a JAX train state resumed in the
 port, and the trainer's losses and final params against the JAX trainer's
 from one checkpoint, and the HTTP server's n-best scores and attention
-sheets and the export CLI's ``.pth`` against the JAX package's. Not a test module: it reports the numbers that the tests only bound.
+sheets and the export CLI's ``.pth`` against the JAX package's, and
+Show-and-Tell's BatchNorm layers, trunks, logits and train steps. Not a test
+module: it reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
 ``ckpt.convert.from_jax_params``, which the training tests use to compare
@@ -324,6 +326,60 @@ def front_door():
             float((got[k] - want[k]).abs().max()) for k in want))
 
 
+def show_tell():
+    """Show-and-Tell: the BatchNorm layers, both trunks, the
+    decoder's logits (and with the JAX cell in Pallas interpret mode) and
+    three train steps."""
+    import test_torch_port_encoders as te
+    import test_torch_port_show_tell as ts
+    from show_and_tell_tpu.models import encoders as jenc
+    from show_and_tell_tpu.models import layers as jlayers
+    from show_and_tell_tpu_torch.models import encoders as tenc
+    from show_and_tell_tpu_torch.models import layers as tlayers
+
+    rng = np.random.default_rng(1)
+    p = te._bn_params(rng, 16)
+    x = rng.normal(1, 3, (32, 16)).astype(np.float32)
+    jy, jnew = jlayers.batch_norm_train(te._j(p), jnp.asarray(x))
+    ty, tnew = tlayers.batch_norm_train(te._t(p), torch.from_numpy(x))
+    row("batch_norm_train fp32 [32, 16]", y=_d(jy, ty), mean=_d(jnew["mean"], tnew["mean"]),
+        var=_d(jnew["var"], tnew["var"]))
+    row("batch_norm_inference fp32", y=_d(jlayers.batch_norm_inference(te._j(p), jnp.asarray(x)),
+                                           tlayers.batch_norm_inference(te._t(p), torch.from_numpy(x))))
+    for name, size in te.SIZES.items():
+        jtree = te.jax_trunk(name, te.fake_torchvision(name))
+        img = np.random.default_rng(4).random((1, size, size, 3)).astype(np.float32)
+        want = np.asarray(jenc.ENCODERS[name][1](jtree, jnp.asarray(img)))
+        got = tenc.encoder_apply(name)(te.port_model_trunk(name, jtree), torch.from_numpy(img))
+        row(f"{name} features at {size} px, B=1, fp32 (/ max|f|)", rel=_d(want, got) / np.abs(want).max())
+    for layers in (1, 2):
+        jm, trainable, _, stats, cfg, m = ts._pair(num_layers=layers)
+        jb, tb = ts._batch(seed=2)
+        jfe, _ = jm.encode(trainable, stats, jb["features"], train=False)
+        want, _ = jm.decode_train(trainable, jfe, jb["captions"], jb["lengths"])
+        with torch.no_grad():
+            got, _ = m.decode_train(m.encode(tb["features"], train=False)[0], tb["captions"], tb["lengths"])
+        row(f"show_tell decode_train logits, {layers} layer(s), fp32", logits=_d(want, got))
+    jm, trainable, _, stats, cfg, m = ts._pair(hidden_size=128, num_layers=2)
+    jb, tb = ts._batch(seed=3)
+    jlstm.set_pallas_enabled(True, interpret=True)
+    try:
+        jfe, _ = jm.encode(trainable, stats, jb["features"], train=False)
+        want, _ = jm.decode_train(trainable, jfe, jb["captions"], jb["lengths"])
+    finally:
+        jlstm.set_pallas_enabled(None)
+    with torch.no_grad():
+        got, _ = m.decode_train(m.encode(tb["features"], train=False)[0], tb["captions"], tb["lengths"])
+    row("show_tell logits, H=128, JAX cell in Pallas interpret", logits=_d(want, got))
+    jstate, state, metrics, _ = ts.train_both(num_layers=2)
+    want = {k: np.asarray(v) for k, v in ts.from_jax_trainable(jstate.params).items()}
+    row("show_tell 3 train steps (2 layers): loss rel, params, stats",
+        loss=max(abs(float(t["loss"]) / float(j["loss"]) - 1) for j, t in metrics),
+        params=max(_d(w, state.params[k].detach()) for k, w in want.items() if k != "proj.b"),
+        proj_b=_d(want["proj.b"], state.params["proj.b"].detach()),
+        stats=max(_d(jstate.batch_stats[k], state.batch_stats[k]) for k in ("mean", "var")))
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -335,6 +391,7 @@ def main():
     serving()
     trainer()
     front_door()
+    show_tell()
 
 
 if __name__ == "__main__":
