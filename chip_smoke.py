@@ -178,9 +178,27 @@ Phases, each printing its own lines:
    configuration (Inception-v3 at crop 299, two layers) at batch 64 of
    342-px images: beam and greedy, the logits against the CPU, one train
    step.
+13. the int8 trunk (``Config.quantize_backbone``: per-channel int8 weights,
+   calibrated activation scales, an NHWC im2col over ``torch._int_mm``) on
+   the card: ``torch._int_mm``'s limits; Show-Attend-Tell on VGG16 with
+   phase 9's trained decoder over its 256 held-out scenes (the calibration's
+   seconds on 32 training scenes, int8 beam-3 and greedy img/s beside bf16's,
+   ``bench.py``'s quality gate re-stated here: int8 / bf16 exact-caption rate
+   >= 0.90 and CIDEr >= 0.95 in both modes, else it raises; the int8 trunk's
+   device time beside its bound, the int8 operations its GEMMs do at 1,979
+   TOPS, and the bf16 trunk; peak memory; a traced trunk; the feature cosine
+   against the fp32 trunk), ``warmup()`` without calibration images leaving
+   the trunk float, a second ``Captioner`` on ``quantized_backbone_path``
+   loading the same scales; Show-and-Tell on ResNet-152 over phase 5's
+   images (img/s, captions equal to bf16's, the trunk beside its bound and
+   phase 12's bf16 trunk, the cosine); the scaled Inception-v3 (299 px, two
+   layers, batch 64); ``cli.evaluate`` and ``cli.main`` (a ``Trainer`` that
+   calibrates on its first batch and takes phase 10's five steps, losses
+   finite) with ``--quantize_backbone`` on phase 10's corpus.
 Phases 8-11 count their launches in their own lines and the ``--out``
-file's; the kernels line counts phases 4-6 as before, and phase 12's
-launches of the cell on its main path.
+file's; the kernels line counts phases 4-6 as before, phase 12's launches
+of the cell on its main path, and phase 13's launches of the cell and the
+attentions on the int8 runs.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1668,7 +1686,8 @@ def _coco_eval(predictions, ann_file, python: bool):
 
 def phase_eval(cfg):
     """The port's eval driver over the JAX benchmark's scenes, before and
-    after 200 training steps of the decoder. Returns the figures."""
+    after 200 training steps of the decoder. Returns the figures, and the
+    trained decoder with its scenes and references (for phase 13)."""
     from show_and_tell_tpu_torch.data.transforms import eval_transform
     from show_and_tell_tpu_torch.decode.dispatch import decode_ids
     from show_and_tell_tpu_torch.evalsuite import driver
@@ -1874,7 +1893,10 @@ def phase_eval(cfg):
     out["fp32_greedy_differ"] = len(differ)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 9: {out['seconds']:.1f} s")
-    return out
+    # the trained decoder and its scenes, which phase 13 serves on the int8 trunk
+    decoder = {"cfg": cfg, "vocab": vocab, "state": {k: v.detach().clone() for k, v in m32.state_dict().items()},
+               "train_images": train_images, "eval_images": eval_images, "refs": refs}
+    return out, decoder
 
 
 # --- phase 10: the training CLI on the card ---------------------------------
@@ -3101,6 +3123,320 @@ def phase_show_tell(tmp, images):
     return out
 
 
+# --- phase 13: the int8 trunk on the card ----------------------------------------
+
+# bench.py's int8 quality gate (bench.py:139-183), int8 / bf16 on the same
+# held-out scenes and the same trained decoder: a miss raises
+INT8_EXACT_MIN_RATIO, INT8_CIDER_MIN_RATIO = 0.90, 0.95
+INT8_CALIB = 32  # calibration images, as the Captioner takes them
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations per second
+INT8_TRUNK_ITERS = 5  # timed trunk calls (device time, median)
+
+
+@contextlib.contextmanager
+def _recording_gemms(shapes):
+    """Record (M, K, N) of each int8 GEMM of the int8 trunk."""
+    from show_and_tell_tpu_torch.models import quantize
+
+    int_mm = quantize._int_mm
+
+    def recorded(a, b):
+        shapes.append((a.shape[0], a.shape[1], b.shape[1]))
+        return int_mm(a, b)
+
+    quantize._int_mm = recorded
+    try:
+        yield
+    finally:
+        quantize._int_mm = int_mm
+
+
+def _int8_trunk(model, x, label, bf16_ms=None):
+    """The int8 trunk on ``x``: device ms (CUDA events, median of
+    INT8_TRUNK_ITERS, L2 flushed) beside its bound, the int8 operations that
+    this call's GEMMs do at the dense int8 rate, the peak memory of one call,
+    and a traced call's busy share and largest kernels. Returns the
+    figures."""
+    shapes = []
+    with torch.inference_mode():
+        with _recording_gemms(shapes):
+            feats = model.backbone_features(x)
+        torch.cuda.synchronize()
+        assert feats.dtype == torch.float32 and torch.isfinite(feats).all(), f"{label}: int8 features"
+        ops = sum(2 * m * k * n for m, k, n in shapes)
+        ms = time_cold(lambda: model.backbone_features(x), iters=INT8_TRUNK_ITERS, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        model.backbone_features(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bound = ops / PEAK_INT8_OPS * 1e3
+        beside = f", the bf16 trunk {bf16_ms:.2f} ms (int8 / bf16 {ms / bf16_ms:.3f})" if bf16_ms else ""
+        print(f"  {label} int8 trunk (batch {x.shape[0]}, {len(shapes)} int8 GEMMs, "
+              f"{sum(m <= 16 for m, _, _ in shapes)} padded): {ms:.2f} ms device time against its bound "
+              f"{bound:.2f} ms ({ops / 1e12:.2f} T int8 operations at {PEAK_INT8_OPS / 1e12:.0f} TOPS, "
+              f"{bound / ms:.1%}){beside}; peak memory {peak:.2f} GB")
+        profile_window(lambda: model.backbone_features(x), f"{label} int8 trunk")
+    return {"ms": ms, "bound_ms": bound, "int8_tops": ops / 1e12, "gemms": len(shapes), "peak_gb": peak,
+            "bf16_ms": bf16_ms}
+
+
+def _cider(captions, refs):
+    from show_and_tell_tpu_torch.metrics.cider import Cider
+
+    score, _ = Cider().compute_score({i: r for i, r in enumerate(refs)}, {i: [c] for i, c in enumerate(captions)})
+    return float(score)
+
+
+def _cosines(model, x):
+    """(int8, bf16) trunk features' mean cosine against the fp32 trunk's."""
+    from show_and_tell_tpu_torch.models import encoders, quantize
+
+    with torch.inference_mode():
+        frozen = model.frozen_tree()
+        f32 = encoders.encoder_apply(model.encoder_name)(frozen, x.float()).float().cpu().numpy()
+        bf16 = encoders.encoder_apply(model.encoder_name)(frozen, x.bfloat16()).float().cpu().numpy()
+        int8 = quantize.backbone_features_q(model.quantized, x).cpu().numpy()
+    return quantize._cosine(f32, int8), quantize._cosine(f32, bf16)
+
+
+def phase_int8(tmp, smi, decoder, trained, images, st_trunk_ms, bf16_eval_cider):
+    """The int8 trunk (``Config.quantize_backbone``) through the port's entry
+    points at full width: Show-Attend-Tell on VGG16 over phase 9's trained
+    decoder and held-out scenes (calibration seconds, img/s beside bf16, the
+    trunk beside its bound and the bf16 trunk, the cosine against fp32, the
+    quality gate), Show-and-Tell on ResNet-152 over phase 5's images, the
+    scaled Inception-v3, then ``warmup`` without calibration images, a second
+    ``Captioner`` on the saved calibration, ``cli.evaluate`` (its CIDEr
+    beside phase 10's bf16 one, ``bf16_eval_cider``) and a ``Trainer`` with
+    ``quantize_backbone``. Returns the figures and, under ``launches``, the
+    kernels' launches of the int8 runs."""
+    from show_and_tell_tpu_torch.cli import evaluate as cli_evaluate
+    from show_and_tell_tpu_torch.cli import main as cli_main
+    from show_and_tell_tpu_torch.config import Config, parse_config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.models import quantize
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    t_phase = time.perf_counter()
+    rows = ("lstm_cell", "additive_attention", "attention_beam")
+    launches = {k: 0 for k in rows}
+    out = {"card": smi}
+
+    def count(fn):
+        """Run ``fn`` on the int8 path; its kernels' launches join the phase's."""
+        before = {k: cuda_lib.LAUNCHES[k] for k in rows}
+        result = fn()
+        torch.cuda.synchronize()
+        for k in rows:
+            launches[k] += cuda_lib.LAUNCHES[k] - before[k]
+        return result
+
+    def calibrate(cap, calib):
+        """Seconds of the Captioner's calibration on ``calib`` (its warmup
+        with calibration images and no decode)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count(lambda: cap.warmup(modes=(), calib_images=calib))
+        secs = time.perf_counter() - t0
+        assert quantize.is_quantized(cap.model.quantized), "the Captioner did not calibrate"
+        return secs
+
+    def serve(cap, imgs, label):
+        """img/s of beam and greedy (median of REPS after a warm call) and
+        the captions by mode; the int8 runs' launches are counted."""
+        caps, img_s = {}, {}
+        for mode in ("beam", "greedy"):
+            dt, secs, got, per_call, designs = _timed_calls(lambda: cap.caption_images(imgs, mode=mode), rows)
+            img_s[mode] = imgs.shape[0] / dt
+            caps[mode] = got
+            if cap.cfg.quantize_backbone:
+                for k in rows:
+                    launches[k] += int(per_call[k] * REPS)
+                assert per_call["lstm_cell"] > 0, f"{label} {mode}: no cell launch"
+            print(f"  {label} {mode:6s}: {imgs.shape[0]} images in {dt * 1e3:.2f} ms (median of {REPS}: "
+                  f"{', '.join(f'{x * 1e3:.2f}' for x in secs)}) = {img_s[mode]:.1f} img/s; launches per batch "
+                  f"{ {k: v for k, v in per_call.items() if v} }")
+        return caps, img_s
+
+    # 1. Show-Attend-Tell on VGG16: phase 9's trained decoder, its held-out scenes
+    cfg, vocab = decoder["cfg"], decoder["vocab"]
+    V, refs, scenes = len(vocab), decoder["refs"], decoder["eval_images"]
+    N = scenes.shape[0]
+
+    def sat_model():
+        m = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        m.load_state_dict(decoder["state"])
+        return m
+
+    path = os.path.join(tmp, "vgg16.int8.pt")
+    cfg8 = cfg.replace(quantize_backbone=True, quantized_backbone_path=path)
+    print(f"== 13. the int8 trunk (quantize_backbone: per-channel int8 weights, calibrated activation scales, "
+          f"im2col + torch._int_mm, fp32 epilogue): {cfg.model} {cfg.encoder} crop {cfg.crop_size} {cfg.dtype} "
+          f"decoder, phase 9's trained weights and {N} held-out scenes  [{smi}]")
+    # torch._int_mm's limits on this card, which the int8 conv keeps within:
+    # more than 16 rows, K and N multiples of 8, the weight column-major
+    a = torch.randint(-127, 128, (17, 64), dtype=torch.int8, device="cuda", generator=_gen(SEED))
+    b = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device="cuda", generator=_gen(SEED + 1))
+
+    def col(t):
+        return t.t().contiguous().t()
+
+    limits = {}
+    for label, (aa, bb) in {"M=17 K=64 N=64, B column-major": (a, col(b)), "M=17, B row-major": (a, b),
+                            "M=16": (a[:16], col(b)), "K=60": (a[:, :60], col(b[:60])),
+                            "N=60": (a, col(b[:, :60]))}.items():
+        try:
+            got = torch._int_mm(aa, bb).cpu()
+            limits[label] = "exact" if torch.equal(got, aa.cpu().int() @ bb.cpu().int()) else "WRONG"
+        except RuntimeError as e:
+            limits[label] = "raises (" + str(e).splitlines()[0][:90] + ")"
+    print("  torch._int_mm on this card: " + "; ".join(f"{k}: {v}" for k, v in limits.items()))
+    assert limits["M=17 K=64 N=64, B column-major"] == "exact" and "raises" in limits["M=16"]
+    out["int_mm_limits"] = limits
+
+    cap16 = Captioner(cfg, sat_model(), None, vocab, device="cuda")
+    cap8 = Captioner(cfg8, sat_model(), None, vocab, device="cuda")
+    calib_s = calibrate(cap8, decoder["train_images"][:INT8_CALIB])
+    print(f"  calibration on {INT8_CALIB} training scenes (Captioner.warmup(calib_images=...): an fp32 replay of "
+          f"the trunk and the weights' quantization): {calib_s:.2f} s; saved to quantized_backbone_path "
+          f"({os.path.getsize(path) / 1e6:.1f} MB)")
+    caps16, img16 = serve(cap16, scenes, "bf16")
+    caps8, img8 = serve(cap8, scenes, "int8")
+    gate = {}
+    for mode in ("beam", "greedy"):
+        exact = {k: sum(c in refs[i] for i, c in enumerate(caps[mode])) / N for k, caps in (("bf16", caps16),
+                                                                                              ("int8", caps8))}
+        cider = {"bf16": _cider(caps16[mode], refs), "int8": _cider(caps8[mode], refs)}
+        ratios = {"exact": exact["int8"] / exact["bf16"] if exact["bf16"] else 1.0,
+                  "cider": cider["int8"] / cider["bf16"] if cider["bf16"] else 1.0}
+        same = sum(a == b for a, b in zip(caps8[mode], caps16[mode]))
+        gate[mode] = {"exact": exact, "cider": cider, "ratios": ratios, "same_captions": same}
+        print(f"  {mode:6s} quality: exact-caption rate bf16 {exact['bf16']:.4f}, int8 {exact['int8']:.4f} "
+              f"(ratio {ratios['exact']:.4f}, min {INT8_EXACT_MIN_RATIO}); CIDEr bf16 {cider['bf16']:.4f}, int8 "
+              f"{cider['int8']:.4f} (ratio {ratios['cider']:.4f}, min {INT8_CIDER_MIN_RATIO}); {same} of {N} "
+              f"captions identical; int8 / bf16 img/s {img8[mode] / img16[mode]:.3f}")
+    # bench.py gates beam search, the serving default; greedy is held to the same bound
+    for mode, g in gate.items():
+        if g["ratios"]["exact"] < INT8_EXACT_MIN_RATIO or g["ratios"]["cider"] < INT8_CIDER_MIN_RATIO:
+            raise AssertionError(f"int8 quality gate failed ({mode}): {g}")
+    x = eval_transform(torch.from_numpy(scenes).cuda(), cfg.crop_size)
+    with torch.inference_mode():
+        bf16_ms = time_cold(lambda: cap16.model.backbone_features(x), iters=INT8_TRUNK_ITERS, warmup=1)
+    trunk = _int8_trunk(cap8.model, x, "VGG16", bf16_ms)
+    cos, cos16 = _cosines(cap8.model, x)
+    print(f"  VGG16 feature cosine against the fp32 trunk on the {N} held-out scenes: int8 {cos:.5f}, bf16 "
+          f"{cos16:.5f}")
+    assert cos > 0.97, cos
+    out["sat_vgg16"] = {"calib_s": calib_s, "img_s": {"bf16": img16, "int8": img8}, "gate": gate, "trunk": trunk,
+                        "cosine": cos, "cosine_bf16": cos16}
+
+    # 4a. warmup without calibration images leaves the trunk float; a second
+    # Captioner on the saved calibration loads the same scales
+    capw = Captioner(cfg.replace(quantize_backbone=True), sat_model(), None, vocab, device="cuda", bucket_sizes=(8,))
+    capw.warmup(modes=("greedy",))
+    assert capw.model.quantized is None, "warmup calibrated on its dummies"
+    capb = Captioner(cfg8, sat_model(), None, vocab, device="cuda", bucket_sizes=(8,))
+    count(lambda: capb.warmup(modes=("greedy",)))
+    same_sx = all(torch.equal(a["sx"], b["sx"]) for a, b in zip(capb.model.quantized["qconvs"],
+                                                                cap8.model.quantized["qconvs"]))
+    print(f"  warmup() without calib_images: trunk left float (quantized is None: {capw.model.quantized is None}); "
+          f"a second Captioner on quantized_backbone_path: the same {len(capb.model.quantized['qconvs'])} sx "
+          f"{same_sx}")
+    assert same_sx
+    del cap16, cap8, capw, capb, x
+    torch.cuda.empty_cache()
+
+    # 2. Show-and-Tell on ResNet-152 (phase 12's configuration and seed) over phase 5's images
+    cfg_st = Config(model="show_tell", dtype="bfloat16")
+    st_vocab = Vocabulary.from_words(f"w{i}" for i in range(10000 - 4))
+
+    def st_model(c):
+        return build_model(c, 10000, device="cuda", generator=torch.Generator().manual_seed(SEED))
+
+    st16 = Captioner(cfg_st, st_model(cfg_st), None, st_vocab, device="cuda")
+    st8 = Captioner(cfg_st.replace(quantize_backbone=True), st_model(cfg_st), None, st_vocab, device="cuda")
+    st_calib = calibrate(st8, images[:INT8_CALIB])
+    print(f"  ResNet-152 ({cfg_st.model}, {cfg_st.num_layers} layer, {cfg_st.dtype}): calibration on "
+          f"{INT8_CALIB} of phase 5's images {st_calib:.2f} s")
+    st_caps16 = {mode: st16.caption_images(images, mode=mode) for mode in ("beam", "greedy")}
+    st_caps8, st_img8 = serve(st8, images, "ResNet-152 int8")
+    same = {mode: sum(a == b for a, b in zip(st_caps8[mode], st_caps16[mode])) for mode in st_caps8}
+    print(f"  ResNet-152 int8 captions identical to bf16's: {same} of {images.shape[0]} (random weights)")
+    xs = eval_transform(torch.from_numpy(images).cuda(), cfg_st.crop_size)
+    st_trunk = _int8_trunk(st8.model, xs, "ResNet-152", st_trunk_ms)
+    st_cos, st_cos16 = _cosines(st8.model, xs[INT8_CALIB:])
+    print(f"  ResNet-152 feature cosine against the fp32 trunk on the {images.shape[0] - INT8_CALIB} images held "
+          f"out from calibration: int8 {st_cos:.5f}, bf16 {st_cos16:.5f}")
+    assert st_cos > 0.95, st_cos
+    out["st_resnet152"] = {"calib_s": st_calib, "img_s": st_img8, "same_as_bf16": same, "trunk": st_trunk,
+                           "cosine": st_cos, "cosine_bf16": st_cos16}
+    del st16, st8, xs
+    torch.cuda.empty_cache()
+
+    # 3. the scaled configuration: Inception-v3 at 299 px, two layers, batch 64
+    cfg_s = Config(model="show_tell", encoder="inception_v3", crop_size=299, num_layers=2, dtype="bfloat16",
+                   quantize_backbone=True)
+    px = np.random.default_rng(SEED + 14).integers(0, 256, (ST_SCALED_BATCH, ST_SCALED_PX, ST_SCALED_PX, 3),
+                                                  dtype=np.uint8)
+    sc8 = Captioner(cfg_s, build_model(cfg_s, 10000, device="cuda", generator=torch.Generator().manual_seed(SEED + 1)),
+                    None, st_vocab, device="cuda", bucket_sizes=(ST_SCALED_BATCH,))
+    sc_calib = calibrate(sc8, px[:INT8_CALIB])
+    _, sc_img8 = serve(sc8, px, "Inception-v3 int8")
+    xi = eval_transform(torch.from_numpy(px).cuda(), cfg_s.crop_size)
+    quantized, sc8.model.quantized = sc8.model.quantized, None
+    with torch.inference_mode():
+        sc_bf16_ms = time_cold(lambda: sc8.model.backbone_features(xi), iters=INT8_TRUNK_ITERS, warmup=1)
+    sc8.model.quantized = quantized
+    sc_trunk = _int8_trunk(sc8.model, xi, "Inception-v3", sc_bf16_ms)
+    sc_cos, sc_cos16 = _cosines(sc8.model, xi[INT8_CALIB:])
+    print(f"  Inception-v3 (crop {cfg_s.crop_size}, {cfg_s.num_layers} layers, batch {ST_SCALED_BATCH}): calibration "
+          f"{sc_calib:.2f} s; feature cosine against the fp32 trunk on {ST_SCALED_BATCH - INT8_CALIB} held-out "
+          f"images: int8 {sc_cos:.5f}, bf16 {sc_cos16:.5f}")
+    assert sc_cos > 0.95, sc_cos
+    out["scaled_inception_v3"] = {"calib_s": sc_calib, "img_s": sc_img8, "trunk": sc_trunk, "cosine": sc_cos,
+                                  "cosine_bf16": sc_cos16}
+    del sc8, xi
+    torch.cuda.empty_cache()
+
+    # 4b. cli.evaluate and a Trainer (cli.main) with quantize_backbone, on phase 10's corpus
+    flags = trained["flags"] + ["--quantize_backbone", "true"]
+    before = quantize.GEMMS["int_mm"]
+    t0 = time.perf_counter()
+    loss, preds, stats = count(lambda: cli_evaluate.main(flags + ["--load_model_path", trained["expr_dir"],
+                                                                  "--beam_size", "1"]))
+    secs = time.perf_counter() - t0
+    gemms = quantize.GEMMS["int_mm"] - before
+    print(f"  cli.evaluate --quantize_backbone (greedy, phase 10's best checkpoint): val loss {loss:.4f}, CIDEr "
+          f"{stats['CIDEr']:.4f} (phase 10's bf16 {bf16_eval_cider:.4f}: ratio {stats['CIDEr'] / bf16_eval_cider:.4f}, "
+          f"printed, not gated), {len(preds)} images in {secs:.2f} s, {gemms} int8 GEMMs")
+    assert np.isfinite(loss) and gemms > 0
+    steps = []
+    cfg_t = parse_config(flags + ["--max_epochs", "1", "--save_checkpoint_every", "1000", "--language_eval", "0",
+                                  "--expr_dir", os.path.join(tmp, "int8_exp")])
+    before = quantize.GEMMS["int_mm"]
+    t0 = time.perf_counter()
+    with _recording_steps(steps):
+        trainer = count(lambda: cli_main.main(cfg_t))
+    secs = time.perf_counter() - t0
+    losses = [float(st["loss"]) for st in steps]
+    gemms = quantize.GEMMS["int_mm"] - before
+    print(f"  cli.main --quantize_backbone: the Trainer calibrated on its first batch "
+          f"({quantize._quantized_kind(trainer.model.quantized)}) and took {len(steps)} steps at batch "
+          f"{cfg_t.batch_size} in {secs:.2f} s, {gemms} int8 GEMMs; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    assert quantize.is_quantized(trainer.model.quantized) and steps and all(np.isfinite(losses))
+    assert gemms >= 11 * len(steps), gemms
+    out["cli"] = {"evaluate": {"val_loss": loss, "lang_stats": stats, "bf16_cider": bf16_eval_cider},
+                  "train_losses": losses}
+    del trainer
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 13 launches {launches}; phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 class _LogLines(logging.Handler):
     """Collects the trainer's step lines as (epoch, step, loss, img/s,
     ms/step)."""
@@ -3139,7 +3475,7 @@ def main() -> int:
     serving = phase_serving_rest(model, cfg, images, captions, train_state, train_cfg)
     del model, train_state
     # phase 9's launches stay in its own lines and in the --out file's "eval"
-    evaluation = phase_eval(cfg)
+    evaluation, decoder = phase_eval(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         # phase 10's likewise, under "train_cli"
         train_cli, trained = phase_train_cli(smi, training["img_s"], tmp)
@@ -3147,7 +3483,12 @@ def main() -> int:
         http = phase_http(smi, trained, tmp, serve_img_s)
         # phase 12's cell launches join the kernels line; its figures go under "show_tell"
         show_tell = phase_show_tell(tmp, images)
+        # phase 13's launches join the kernels line; its figures go under "int8"
+        int8 = phase_int8(tmp, smi, decoder, trained, images, show_tell["trunk_ms"],
+                          train_cli["evaluate"]["beam1"]["lang_stats"]["CIDEr"])
     launches["lstm_cell"] += show_tell["launches"]
+    for k, n in int8["launches"].items():
+        launches[k] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -3158,7 +3499,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
-                       "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell,
+                       "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell, "int8": int8,
                        "show_tell_cell": st_cell_rows}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -93,3 +93,25 @@ def from_jax_params(
         sd["bn.mean"] = _t(batch_stats["mean"])
         sd["bn.var"] = _t(batch_stats["var"])
     return sd
+
+
+def from_jax_quantized(tree: Any) -> Params:
+    """The JAX package's calibrated int8 trunk (``models/quantize.py``: numpy
+    or JAX arrays, or the tensors of a msgpack file, with lists as maps
+    keyed "0", "1", ...) -> the port's tree: the same keys and dtypes; the
+    float convs' HWIO weights as [cout, cin, kh, kw]; each int8 ``wq``
+    keeping its HWIO shape, laid out so that its [kh*kw*cin, cout] reshape
+    is column-major, the layout the port's int8 GEMM reads."""
+    from show_and_tell_tpu_torch.models.quantize import gemm_layout
+
+    tree = _lists(tree)
+    if isinstance(tree, dict):
+        return {k: from_jax_quantized(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax_quantized(v) for v in tree]
+    t = tree.detach().clone() if torch.is_tensor(tree) else torch.from_numpy(np.array(tree, order="C"))
+    if t.dim() == 4 and t.dtype == torch.int8:
+        t = gemm_layout(t)
+    elif t.dim() == 4:
+        t = t.permute(3, 2, 0, 1).contiguous()
+    return t

@@ -11,7 +11,9 @@ as the JAX package's CLI. The model starts from the ``"init"`` stream of
 ``KeyChain(cfg.random_seed)``; ``--encoder_weights`` sets the frozen trunk,
 which checkpoints do not hold; ``--load_model_path`` (the port's
 ``model-best.pt`` or the JAX package's ``model-best.msgpack``) or
-``--torch_checkpoint`` (a reference-format ``.pth``) the decoder. It runs on
+``--torch_checkpoint`` (a reference-format ``.pth``) the decoder. With
+``--quantize_backbone`` the trunk runs in int8, calibrated on the first val
+batch (or read from ``--quantized_backbone_path``). It runs on
 the GPU, and raises without one; ``main(argv, device="cpu")`` runs on the
 CPU.
 """
@@ -30,6 +32,7 @@ from show_and_tell_tpu_torch.config import parse_config
 from show_and_tell_tpu_torch.data.dataset import CocoCaptionDataset
 from show_and_tell_tpu_torch.data.pipeline import make_loader
 from show_and_tell_tpu_torch.evalsuite.driver import evaluation
+from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.models.registry import build_model
 from show_and_tell_tpu_torch.utils.device import resolve_device
 from show_and_tell_tpu_torch.utils.logging import setup_logging
@@ -41,8 +44,6 @@ log = logging.getLogger(__name__)
 
 def main(argv=None, device: Union[str, torch.device] = "cuda"):
     cfg = parse_config(argv if argv is not None else sys.argv[1:])
-    if cfg.quantize_backbone:
-        raise NotImplementedError("quantize_backbone: the int8 trunk is not ported to PyTorch yet; see ROADMAP.md A8")
     device = resolve_device(device)
     setup_logging("eval_log.txt")
     vocab = Vocabulary.load(cfg.vocab_path)
@@ -81,6 +82,13 @@ def main(argv=None, device: Union[str, torch.device] = "cuda"):
             )
         if ckpt.load_best_params(cfg.load_model_path, ckpt.trainable_state_dict(model), model.batch_stats) is None:
             raise SystemExit(f"no checkpoint found in {cfg.load_model_path}")
+
+    if quantize.needs_calibration(model, cfg) and not cfg.features_path:
+        # the int8 trunk, calibrated on the first val batch's images
+        first = next(iter(loader))
+        if "images" in first:
+            quantize.calibrate_model(model, cfg, torch.as_tensor(first["images"][:32]).to(device))
+            log.info("backbone quantized to int8 (calibrated on %d images)", min(32, len(first["images"])))
 
     mode = "beam" if cfg.beam_size > 1 else "greedy"
     val_loss, preds, stats = evaluation(model, cfg, loader, vocab, mode=mode, ann_file=cfg.ann_file)

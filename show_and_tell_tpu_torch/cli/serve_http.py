@@ -37,8 +37,10 @@ device="cpu")`` and ``main(argv, device="cpu")`` run on the CPU.
 from __future__ import annotations
 
 import base64
+import glob
 import json
 import logging
+import os
 import socket
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 from typing import Optional, Union
@@ -253,6 +255,24 @@ class CaptionHandler(BaseHTTPRequestHandler):
         self._send(200, {"captions": captions, "mode": mode, "errors": [i for i, good in enumerate(ok) if not good]})
 
 
+def _calibration_images(directory: str) -> np.ndarray:
+    """Up to 32 images of ``directory`` in name order, files that do not
+    decode skipped (so that side files do not crowd images out)."""
+    from show_and_tell_tpu_torch.data.pipeline import _load_image_checked
+
+    paths = sorted(p for p in glob.glob(os.path.join(directory, "*")) if os.path.isfile(p))
+    ok = []
+    for p in paths:
+        im, good = _load_image_checked(p)
+        if good:
+            ok.append(im)
+        if len(ok) == 32:
+            break
+    if not ok:
+        raise SystemExit(f"--warmup_calib_dir {directory}: no decodable images found")
+    return np.stack(ok)
+
+
 def make_server(
     cfg: Config,
     vocab: Vocabulary,
@@ -275,17 +295,17 @@ def make_server(
     that no request pays a kernel build or a cuDNN algorithm search. With
     ``dynamic_batch`` the server is threaded and carries its
     ``DynamicBatcher`` as ``server.batcher``, which ``server_close`` closes.
+    With ``cfg.quantize_backbone`` the warmup calibrates the int8 trunk on
+    the first 32 decodable images of ``warmup_calib_dir`` (the zero dummies
+    never calibrate it).
     """
-    if warmup_calib_dir:
-        raise NotImplementedError(
-            "warmup_calib_dir calibrates the int8 trunk, which is not ported to PyTorch yet; see ROADMAP.md A8"
-        )
     cap = captioner or Captioner.from_checkpoint(cfg, cfg.load_model_path, vocab, device=device)
     default_mode = "greedy" if cfg.beam_size <= 1 else "beam"
     if warmup:
+        calib = _calibration_images(warmup_calib_dir) if warmup_calib_dir else None
         modes = [default_mode] + [s for s in (warmup_surfaces or "").split(",") if s]
         log.info("warming serving programs (modes=%s)...", modes)
-        log.info("warmup done in %.1f s", cap.warmup(modes=modes))
+        log.info("warmup done in %.1f s", cap.warmup(modes=modes, calib_images=calib))
     batcher = (
         DynamicBatcher(cap, max_batch=batch_max_size, max_delay_ms=batch_max_delay_ms, max_queue=batch_max_queue)
         if dynamic_batch
@@ -336,7 +356,8 @@ def main(argv=None, device: Union[str, torch.device] = "cuda"):
                     help="run every bucket once before accepting traffic, so that no request pays the "
                          "kernel build or the cuDNN algorithm search")
     ap.add_argument("--warmup_calib_dir", default=None,
-                    help="images for the int8 trunk's calibration (quantize_backbone; not ported yet)")
+                    help="a directory of real images for the int8 trunk's calibration during --warmup "
+                         "(quantize_backbone; without it the calibration waits for the first real batch)")
     ap.add_argument("--warmup_surfaces", default=None,
                     help="more surfaces for --warmup, comma-separated from {nbest,attention,greedy,beam,sample}; "
                          "otherwise the first ?nbest=1 or ?attention=1 request warms them while holding the "

@@ -13,9 +13,9 @@ Trees and names are the JAX package's (``models/encoders.py``); conv
 weights are [out, in, kh, kw]. The convolutions run NCHW through cuDNN; the
 input arrives NHWC, so its NCHW view is channels-last in memory, and the
 ResNet and Inception convolutions take their frozen BatchNorm folded in
-(``layers.conv_bn``). Each trunk has one wiring definition. The JAX
-package's Inception takes a ``basic=`` hook for its int8 trunk; that hook
-comes with the int8 trunk (ROADMAP.md A8).
+(``layers.conv_bn``). Each trunk has one wiring definition; Inception's
+takes a ``basic=`` hook, how each BasicConv2d node is applied, which the
+int8 trunk's calibration replay and forward (``models/quantize.py``) fill.
 
 ``frozen_module`` holds a trunk's tree in a module as frozen parameters and
 ``module_tree`` gives the tree back, so a trunk's state-dict names are its
@@ -326,79 +326,81 @@ def _basic(p: Params, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     return torch.relu_(conv_bn(p["conv"], p["bn"], x, stride, padding, eps=1e-3))
 
 
-def _branch_pool(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return _basic(p["branch_pool"], avg_pool(x, 3, 1, 1))
+def _branch_pool(p: Params, x: torch.Tensor, basic=_basic) -> torch.Tensor:
+    return basic(p["branch_pool"], avg_pool(x, 3, 1, 1))
 
 
-def _inc_a(p, x):
-    b1 = _basic(p["branch1x1"], x)
-    b5 = _basic(p["branch5x5_2"], _basic(p["branch5x5_1"], x), padding=2)
-    b3 = _basic(p["branch3x3dbl_1"], x)
-    b3 = _basic(p["branch3x3dbl_2"], b3, padding=1)
-    b3 = _basic(p["branch3x3dbl_3"], b3, padding=1)
-    return torch.cat([b1, b5, b3, _branch_pool(p, x)], dim=1)
+def _inc_a(p, x, basic=_basic):
+    b1 = basic(p["branch1x1"], x)
+    b5 = basic(p["branch5x5_2"], basic(p["branch5x5_1"], x), padding=2)
+    b3 = basic(p["branch3x3dbl_1"], x)
+    b3 = basic(p["branch3x3dbl_2"], b3, padding=1)
+    b3 = basic(p["branch3x3dbl_3"], b3, padding=1)
+    return torch.cat([b1, b5, b3, _branch_pool(p, x, basic)], dim=1)
 
 
-def _inc_b(p, x):
-    b3 = _basic(p["branch3x3"], x, stride=2)
-    bd = _basic(p["branch3x3dbl_1"], x)
-    bd = _basic(p["branch3x3dbl_2"], bd, padding=1)
-    bd = _basic(p["branch3x3dbl_3"], bd, stride=2)
+def _inc_b(p, x, basic=_basic):
+    b3 = basic(p["branch3x3"], x, stride=2)
+    bd = basic(p["branch3x3dbl_1"], x)
+    bd = basic(p["branch3x3dbl_2"], bd, padding=1)
+    bd = basic(p["branch3x3dbl_3"], bd, stride=2)
     return torch.cat([b3, bd, max_pool(x, 3, 2)], dim=1)
 
 
-def _inc_c(p, x):
-    b1 = _basic(p["branch1x1"], x)
-    b7 = _basic(p["branch7x7_1"], x)
-    b7 = _basic(p["branch7x7_2"], b7, padding=(0, 3))
-    b7 = _basic(p["branch7x7_3"], b7, padding=(3, 0))
-    bd = _basic(p["branch7x7dbl_1"], x)
-    bd = _basic(p["branch7x7dbl_2"], bd, padding=(3, 0))
-    bd = _basic(p["branch7x7dbl_3"], bd, padding=(0, 3))
-    bd = _basic(p["branch7x7dbl_4"], bd, padding=(3, 0))
-    bd = _basic(p["branch7x7dbl_5"], bd, padding=(0, 3))
-    return torch.cat([b1, b7, bd, _branch_pool(p, x)], dim=1)
+def _inc_c(p, x, basic=_basic):
+    b1 = basic(p["branch1x1"], x)
+    b7 = basic(p["branch7x7_1"], x)
+    b7 = basic(p["branch7x7_2"], b7, padding=(0, 3))
+    b7 = basic(p["branch7x7_3"], b7, padding=(3, 0))
+    bd = basic(p["branch7x7dbl_1"], x)
+    bd = basic(p["branch7x7dbl_2"], bd, padding=(3, 0))
+    bd = basic(p["branch7x7dbl_3"], bd, padding=(0, 3))
+    bd = basic(p["branch7x7dbl_4"], bd, padding=(3, 0))
+    bd = basic(p["branch7x7dbl_5"], bd, padding=(0, 3))
+    return torch.cat([b1, b7, bd, _branch_pool(p, x, basic)], dim=1)
 
 
-def _inc_d(p, x):
-    b3 = _basic(p["branch3x3_2"], _basic(p["branch3x3_1"], x), stride=2)
-    b7 = _basic(p["branch7x7x3_1"], x)
-    b7 = _basic(p["branch7x7x3_2"], b7, padding=(0, 3))
-    b7 = _basic(p["branch7x7x3_3"], b7, padding=(3, 0))
-    b7 = _basic(p["branch7x7x3_4"], b7, stride=2)
+def _inc_d(p, x, basic=_basic):
+    b3 = basic(p["branch3x3_2"], basic(p["branch3x3_1"], x), stride=2)
+    b7 = basic(p["branch7x7x3_1"], x)
+    b7 = basic(p["branch7x7x3_2"], b7, padding=(0, 3))
+    b7 = basic(p["branch7x7x3_3"], b7, padding=(3, 0))
+    b7 = basic(p["branch7x7x3_4"], b7, stride=2)
     return torch.cat([b3, b7, max_pool(x, 3, 2)], dim=1)
 
 
-def _inc_e(p, x):
-    b1 = _basic(p["branch1x1"], x)
-    b3 = _basic(p["branch3x3_1"], x)
-    b3 = torch.cat([_basic(p["branch3x3_2a"], b3, padding=(0, 1)),
-                    _basic(p["branch3x3_2b"], b3, padding=(1, 0))], dim=1)
-    bd = _basic(p["branch3x3dbl_1"], x)
-    bd = _basic(p["branch3x3dbl_2"], bd, padding=1)
-    bd = torch.cat([_basic(p["branch3x3dbl_3a"], bd, padding=(0, 1)),
-                    _basic(p["branch3x3dbl_3b"], bd, padding=(1, 0))], dim=1)
-    return torch.cat([b1, b3, bd, _branch_pool(p, x)], dim=1)
+def _inc_e(p, x, basic=_basic):
+    b1 = basic(p["branch1x1"], x)
+    b3 = basic(p["branch3x3_1"], x)
+    b3 = torch.cat([basic(p["branch3x3_2a"], b3, padding=(0, 1)),
+                    basic(p["branch3x3_2b"], b3, padding=(1, 0))], dim=1)
+    bd = basic(p["branch3x3dbl_1"], x)
+    bd = basic(p["branch3x3dbl_2"], bd, padding=1)
+    bd = torch.cat([basic(p["branch3x3dbl_3a"], bd, padding=(0, 1)),
+                    basic(p["branch3x3dbl_3b"], bd, padding=(1, 0))], dim=1)
+    return torch.cat([b1, b3, bd, _branch_pool(p, x, basic)], dim=1)
 
 
-def inception_v3_features(params: Params, images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] (NHWC, 299 px) -> pooled [B, 2048]."""
+def inception_v3_features(params: Params, images: torch.Tensor, basic=_basic) -> torch.Tensor:
+    """images [B, H, W, 3] (NHWC, 299 px) -> pooled [B, 2048]. ``basic(node,
+    x, stride, padding)`` applies each BasicConv2d node (``padding`` an int or
+    (ph, pw)); the int8 trunk passes its own."""
     x = images.permute(0, 3, 1, 2)
-    x = _basic(params["Conv2d_1a_3x3"], x, stride=2)
-    x = _basic(params["Conv2d_2a_3x3"], x)
-    x = _basic(params["Conv2d_2b_3x3"], x, padding=1)
+    x = basic(params["Conv2d_1a_3x3"], x, stride=2)
+    x = basic(params["Conv2d_2a_3x3"], x)
+    x = basic(params["Conv2d_2b_3x3"], x, padding=1)
     x = max_pool(x, 3, 2)
-    x = _basic(params["Conv2d_3b_1x1"], x)
-    x = _basic(params["Conv2d_4a_3x3"], x)
+    x = basic(params["Conv2d_3b_1x1"], x)
+    x = basic(params["Conv2d_4a_3x3"], x)
     x = max_pool(x, 3, 2)
     for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d"):
-        x = _inc_a(params[name], x)
-    x = _inc_b(params["Mixed_6a"], x)
+        x = _inc_a(params[name], x, basic)
+    x = _inc_b(params["Mixed_6a"], x, basic)
     for name in ("Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"):
-        x = _inc_c(params[name], x)
-    x = _inc_d(params["Mixed_7a"], x)
+        x = _inc_c(params[name], x, basic)
+    x = _inc_d(params["Mixed_7a"], x, basic)
     for name in ("Mixed_7b", "Mixed_7c"):
-        x = _inc_e(params[name], x)
+        x = _inc_e(params[name], x, basic)
     return global_avg_pool(x)
 
 

@@ -35,6 +35,7 @@ from show_and_tell_tpu_torch.models.layers import (
     embedding_lookup,
     uniform_dense,
 )
+from show_and_tell_tpu_torch.models.quantize import backbone_features_q
 from show_and_tell_tpu_torch.ops.attention import encode_features, init_attention_params
 from show_and_tell_tpu_torch.ops.fused_attention import fused_additive_attention
 from show_and_tell_tpu_torch.ops.fused_decode_attention import attention_beam
@@ -76,6 +77,10 @@ class ShowAttendTell(nn.Module):
         self.dropout_rate = dropout_rate
         self.feature_dim = 512  # VGG conv5 channels
         self.cdtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        #: the calibrated int8 trunk (``models/quantize.py``) once the
+        #: Captioner, the Trainer or ``cli.evaluate`` has made it; it is held
+        #: outside the state dict, so checkpoints do not carry it
+        self.quantized: Optional[Params] = None
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.random_seed)
         self.init(generator)
@@ -112,7 +117,10 @@ class ShowAttendTell(nn.Module):
 
     @torch.no_grad()
     def backbone_features(self, images: torch.Tensor) -> torch.Tensor:
-        """Normalised [B, 224, 224, 3] -> [B, 196, 512] in the compute dtype."""
+        """Normalised [B, 224, 224, 3] -> [B, 196, 512] in the compute dtype,
+        or in fp32 through the int8 trunk once ``quantized`` is set."""
+        if self.quantized is not None:
+            return backbone_features_q(self.quantized, images)
         return encoders.vgg16_features(self.frozen_tree(), images.to(self.cdtype))
 
     def init_lstm_state(self, trainable: Params, features: torch.Tensor):

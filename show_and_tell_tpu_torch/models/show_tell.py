@@ -39,6 +39,7 @@ from show_and_tell_tpu_torch.models.layers import (
     dense,
     embedding_lookup,
 )
+from show_and_tell_tpu_torch.models.quantize import backbone_features_q
 from show_and_tell_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
 from show_and_tell_tpu_torch.utils.device import resolve_device
 
@@ -84,6 +85,9 @@ class ShowTell(nn.Module):
         self.encoder_name = cfg.encoder if cfg.encoder != "vgg16" else "resnet152"
         self.feature_dim = encoders.encoder_feature_dim(self.encoder_name)
         self.cdtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        #: the calibrated int8 trunk, held outside the state dict (as in
+        #: ``ShowAttendTell``)
+        self.quantized: Optional[Params] = None
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.random_seed)
         self.init(generator)
@@ -127,7 +131,10 @@ class ShowTell(nn.Module):
 
     @torch.no_grad()
     def backbone_features(self, images: torch.Tensor) -> torch.Tensor:
-        """Normalised [B, crop, crop, 3] -> [B, 2048] in the compute dtype."""
+        """Normalised [B, crop, crop, 3] -> [B, 2048] in the compute dtype,
+        or in fp32 through the int8 trunk once ``quantized`` is set."""
+        if self.quantized is not None:
+            return backbone_features_q(self.quantized, images)
         apply = encoders.encoder_apply(self.encoder_name)
         return apply(self.frozen_tree(), images.to(self.cdtype))
 

@@ -17,6 +17,7 @@ requests from many threads into bucketed batches on one worker thread.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -30,6 +31,7 @@ from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.data.transforms import eval_transform
 from show_and_tell_tpu_torch.decode.beam import beam_search
 from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.models.registry import build_model
 from show_and_tell_tpu_torch.utils.device import resolve_device
 from show_and_tell_tpu_torch.utils.rng import KeyChain
@@ -73,6 +75,9 @@ class Captioner:
         self._sample_count = 0  # images sampled so far: the streams' counter
         # caption_paths calls caption_images under the same lock
         self._lock = threading.RLock()
+        # set while warmup's dummies run, so that they never calibrate the
+        # int8 trunk
+        self._quant_deferred = False
         #: (index, path) of the images that the last caption_paths call could
         #: not decode (their captions are ERROR_CAPTION)
         self.last_errors: List[Tuple[int, str]] = []
@@ -102,10 +107,6 @@ class Captioner:
 
         Checkpoints hold no trunk, so a decoder over a random trunk is
         warned about."""
-        if cfg.quantize_backbone:
-            raise NotImplementedError(
-                "quantize_backbone: the int8 trunk is not ported to PyTorch yet; see ROADMAP.md A8"
-            )
         model = build_model(cfg, len(vocab), device=device, generator=KeyChain(cfg.random_seed).generator("init"))
         if cfg.encoder_weights:
             from show_and_tell_tpu_torch.ckpt.torch_import import load_encoder_weights
@@ -196,16 +197,39 @@ class Captioner:
 
     # ------------------------------------------------------------------
 
-    def warmup(self, modes: Sequence[str] = ("beam",), buckets: Optional[Sequence[int]] = None) -> float:
+    def warmup(
+        self,
+        modes: Sequence[str] = ("beam",),
+        buckets: Optional[Sequence[int]] = None,
+        calib_images: Optional[np.ndarray] = None,
+    ) -> float:
         """Run one dummy batch per (bucket, mode), so that the first request
         pays no kernel build or cuDNN algorithm search. ``modes`` takes the
         decode modes ("beam", "greedy", "sample") and the interactive
         surfaces "nbest" and "attention"; a model without attention maps
         skips "attention". Sampling on the dummies does not move the streams'
-        counter. Returns seconds spent."""
+        counter. Returns seconds spent.
+
+        With ``cfg.quantize_backbone`` the int8 trunk is calibrated on real
+        images only, never on the zero dummies: on ``calib_images``
+        ([N, H, W, 3] uint8, a sample of the traffic), or loaded from
+        ``cfg.quantized_backbone_path`` when that file exists. Without either,
+        warmup warns, warms the float trunk, and leaves the calibration to
+        the first real batch."""
         t0 = time.perf_counter()
         buckets = sorted(set(buckets)) if buckets else list(self.bucket_sizes)
         with self._lock:
+            if quantize.needs_calibration(self.model, self.cfg):
+                path = self.cfg.quantized_backbone_path
+                if calib_images is not None:
+                    self._ensure_quantized(calib_images)
+                elif not (path and os.path.exists(path)):
+                    log.warning(
+                        "warmup without calib_images and no calibration at quantized_backbone_path: the "
+                        "int8 calibration waits for the first real batch; pass calib_images (a sample of "
+                        "real traffic) to do it here. Warming the float trunk only."
+                    )
+                    self._quant_deferred = True
             dummy = np.zeros((buckets[-1], 256, 256, 3), np.uint8)
             count_before = self._sample_count
             try:
@@ -220,8 +244,20 @@ class Captioner:
                         else:
                             self.caption_images(dummy[:b], mode=mode)
             finally:
+                self._quant_deferred = False
                 self._sample_count = count_before
         return time.perf_counter() - t0
+
+    def _ensure_quantized(self, images_u8: np.ndarray) -> None:
+        """Calibrate the int8 trunk on the first ``min(32, N)`` of these
+        images through the eval transform (or load the tree at
+        ``cfg.quantized_backbone_path``), once; from then on the model's
+        ``backbone_features`` runs it. Every serving surface calls this
+        first; during warmup's dummies it does nothing."""
+        if self._quant_deferred or not quantize.needs_calibration(self.model, self.cfg) or images_u8.shape[0] == 0:
+            return
+        x = torch.from_numpy(np.ascontiguousarray(images_u8[:32])).to(self.device)
+        quantize.calibrate_model(self.model, self.cfg, x)
 
     def caption_images(self, images_u8: np.ndarray, mode: str = "beam", rng_offset: int = 0) -> List[str]:
         """images_u8 [N, H, W, 3] uint8 -> N captions; ``mode`` is "beam"
@@ -240,6 +276,7 @@ class Captioner:
         Chunk i is dispatched before chunk i-1's ids are read back and turned
         into strings, so that the host's work overlaps the device's."""
         with self._lock:
+            self._ensure_quantized(images_u8)
             n = images_u8.shape[0]
             base = self._sample_count
             if mode == "sample":
@@ -263,6 +300,7 @@ class Captioner:
         best first; the score is the length-normalised log-probability that
         ranks the beams."""
         with self._lock:
+            self._ensure_quantized(images_u8)
             model, cfg = self.model, self.cfg
             out: List[List[Tuple[str, float]]] = []
             for _, chunk, live in self._chunks(images_u8):
@@ -293,6 +331,7 @@ class Captioner:
             if images_u8.shape[0] == 0:
                 grid = (cfg.crop_size // 16) ** 2  # VGG conv5's stride-16 grid
                 return [], np.zeros((0, cfg.max_decode_len, grid), np.float32)
+            self._ensure_quantized(images_u8)
             caps: List[str] = []
             alphas: List[np.ndarray] = []
             for _, chunk, live in self._chunks(images_u8):

@@ -15,8 +15,8 @@ Epoch and iteration semantics are the JAX package's:
 
 Against the JAX trainer:
 - one device: ``multihost``, ``num_devices`` > 1 and ``model_parallel`` > 1
-  raise (ROADMAP.md A9), and so does ``quantize_backbone`` (A8);
-  ``use_pallas`` is ignored (the wrappers pick the kernels by device);
+  raise (ROADMAP.md A9); ``use_pallas`` is ignored (the wrappers pick the
+  kernels by device);
 - the model arrives built, its weights in its own ``Parameter``s (and
   Show-and-Tell's BatchNorm statistics in its buffers), which the step
   updates in place; the trainer loads ``encoder_weights``,
@@ -44,6 +44,7 @@ import torch
 
 from show_and_tell_tpu_torch import ckpt
 from show_and_tell_tpu_torch.config import Config
+from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.obs.meters import StepTimer, ThroughputMeter
 from show_and_tell_tpu_torch.obs.profiler import profile_trace
 from show_and_tell_tpu_torch.train.preempt import PreemptionGuard, RssWatchdog
@@ -71,10 +72,6 @@ class Trainer:
             raise NotImplementedError(
                 "multihost, num_devices > 1 and model_parallel > 1: the port trains on one device; "
                 "multi-device is not ported yet, see ROADMAP.md A9"
-            )
-        if cfg.quantize_backbone:
-            raise NotImplementedError(
-                "quantize_backbone: the int8 trunk is not ported to PyTorch yet; see ROADMAP.md A8"
             )
         self.cfg = cfg
         self.model = model
@@ -123,6 +120,18 @@ class Trainer:
         if self.state.ema_params is not None:
             return self.state.ema_params
         return self.state.params
+
+    def _maybe_quantize_backbone(self, dev_batch: Dict[str, torch.Tensor]) -> None:
+        """With ``cfg.quantize_backbone``, calibrate the frozen trunk's int8
+        copy on the first batch of images (its first 32, through the eval
+        transform; or load ``cfg.quantized_backbone_path``): every later
+        training step, evaluation and served caption then runs the int8
+        features. Nothing for a batch of features or a trunk without a
+        recipe."""
+        if "images" not in dev_batch or not quantize.needs_calibration(self.model, self.cfg):
+            return
+        quantize.calibrate_model(self.model, self.cfg, dev_batch["images"])
+        log.info("frozen backbone quantized to int8 (calibrated on %d images)", min(32, len(dev_batch["images"])))
 
     _DEVICE_KEYS = ("captions", "lengths", "features", "images")
 
@@ -247,6 +256,7 @@ class Trainer:
                 it = off + 1 + skip_n
                 total_iteration += 1
                 unpersisted = (epoch, it, total_iteration)
+                self._maybe_quantize_backbone(dev_batch)
                 generator = self.keys.generator("train", epoch, it, device=self.device)
                 with profile_trace(
                     cfg.profile_dir, enabled=cfg.profile_dir is not None and cfg.profile_step == total_iteration

@@ -139,8 +139,16 @@ def test_from_checkpoint_refusals_and_warnings(tmp_path, caplog):
     with pytest.raises(FileNotFoundError, match="no model-best checkpoint"):
         Captioner.from_checkpoint(Config(**SMALL), str(tmp_path), vocab, device="cpu")
     assert "without encoder_weights" in caplog.text
-    with pytest.raises(NotImplementedError, match="A8"):
-        Captioner.from_checkpoint(Config(**SMALL, quantize_backbone=True), None, vocab, device="cpu")
+    # quantize_backbone: the int8 trunk, calibrated on the first real batch
+    # and read again from quantized_backbone_path
+    qcfg = Config(**SMALL, quantize_backbone=True, quantized_backbone_path=str(tmp_path / "int8.pt"))
+    cap = Captioner.from_checkpoint(qcfg, None, vocab, device="cpu", bucket_sizes=(2,))
+    assert cap.model.quantized is None
+    images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    assert len(cap.caption_images(images, mode="greedy")) == 2 and "qconvs" in cap.model.quantized
+    again = Captioner.from_checkpoint(qcfg, None, vocab, device="cpu", bucket_sizes=(2,))
+    again.caption_images(images[:1], mode="greedy")
+    assert torch.equal(again.model.quantized["qconvs"][-1]["sx"], cap.model.quantized["qconvs"][-1]["sx"])
     # ResNet-152: a torchvision file reads as the JAX
     # package reads it
     from show_and_tell_tpu_torch.models.encoders import init_encoder, to_torch_resnet152

@@ -292,15 +292,39 @@ def test_decode_image_equals_jax():
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     """make_server and main default to the GPU and never fall back; main
-    passes its flags and device through; int8 calibration is not ported."""
+    passes its flags and device through; with quantize_backbone the warmup
+    calibrates the int8 trunk on ``--warmup_calib_dir``'s images (side files
+    skipped), and a directory without a decodable image stops it."""
     cfg, vocab = Config(**TINY), Vocabulary.from_words(WORDS)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_http.make_server(cfg, vocab, port=0)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(SystemExit, match="no decodable images"):
         serve_http.make_server(cfg, vocab, port=0, device="cpu", warmup=True, warmup_calib_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve_http.make_server(Config(**TINY, quantize_backbone=True), vocab, port=0, device="cpu")
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    (calib / "0_labels.json").write_text("{}")
+    for i, im in enumerate(scenes(3, seed=11)):
+        Image.fromarray(im).save(calib / f"img{i}.png")
+    qcfg = Config(**TINY, quantize_backbone=True)
+    srv = serve_http.make_server(qcfg, vocab, port=0, device="cpu", warmup=True, warmup_calib_dir=str(calib))
+    try:
+        cap = srv.RequestHandlerClass.captioner
+        assert "qconvs" in cap.model.quantized
+        want = cap.model.quantized["qconvs"][0]["sx"]
+    finally:
+        srv.server_close()
+    srv = serve_http.make_server(qcfg, vocab, port=0, device="cpu", warmup=True)
+    try:
+        assert srv.RequestHandlerClass.captioner.model.quantized is None  # the dummies never calibrate
+    finally:
+        srv.server_close()
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.models import quantize
+
+    frozen = cap.model.frozen_tree()
+    q = quantize.quantize_vgg16(frozen, eval_transform(torch.from_numpy(scenes(3, seed=11)), TINY["crop_size"]))
+    assert torch.equal(q["qconvs"][0]["sx"], want)
     vocab_path = str(tmp_path / "vocab.json")
     vocab.save(vocab_path)
     calls = []

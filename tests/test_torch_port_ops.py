@@ -402,6 +402,7 @@ def test_port_imports_nothing_of_jax():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, fn) for fn in files if fn.endswith(".py")]
+    assert os.path.join(PORT, "models", "quantize.py") in paths  # the int8 trunk
     bad = []
     for path in paths:
         with open(path) as fh:

@@ -9,6 +9,7 @@ images run the full-depth ResNet-152 on 32 px crops. Tolerances are stated
 beside each test; ``tests/torch_port_parity.py`` prints the figures.
 """
 
+import contextlib
 import functools
 import io
 import json
@@ -64,19 +65,30 @@ NBEST_ATOL = 1e-5
 LR = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The file's small trunks and steps on one thread: under a parallel
+    test run, more only spin."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _reset_pallas():
     yield
     jlstm.set_pallas_enabled(None)
 
 
-def jax_weights(cfg_kw, seed=0):
+def jax_weights(cfg_kw, seed=0, trunk=True):
     """The JAX model and its (trainable, frozen, batch_stats) filled from a
     numpy seed: every trainable leaf uniform in +-2 / sqrt(its first
     dimension) but the head's weight, in +-6 / sqrt(H) (captions that vary
     with the image), the BatchNorm scale in [0.5, 1.5], the ``<end>``
     logit's bias lowered by 3 (captions of a few words), running statistics
-    around 0 and 1, and the trunk from ``tpe.fake_torchvision``."""
+    around 0 and 1, and the trunk from ``tpe.fake_torchvision`` (None
+    without ``trunk``: building one takes seconds)."""
     jm = jbuild(JConfig(**cfg_kw), V)
     rng = np.random.default_rng(seed)
     shapes = _shapes(tuple(sorted(cfg_kw.items())))
@@ -91,7 +103,7 @@ def jax_weights(cfg_kw, seed=0):
     trainable["out"]["b"][Vocabulary.from_words(WORDS)("<end>")] -= 3.0
     stats = {"mean": rng.normal(0, 0.1, cfg_kw["embed_size"]).astype(np.float32),
              "var": rng.uniform(0.5, 2.0, cfg_kw["embed_size"]).astype(np.float32)}
-    return jm, trainable, _jax_trunk(jm.encoder_name, seed), stats
+    return jm, trainable, _jax_trunk(jm.encoder_name, seed) if trunk else None, stats
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,10 +116,17 @@ def _jax_trunk(name, seed):
     return tpe.jax_trunk(name, tpe.fake_torchvision(name, seed))
 
 
-def port_model(cfg, trainable, stats, frozen=None):
-    """A port model holding the JAX trees; the trunk stays the port's own
-    init unless ``frozen`` is given."""
-    m = build_model(cfg, V, device="cpu", generator=torch.Generator().manual_seed(0))
+def port_model(cfg, trainable, stats, frozen=None, trunk=True):
+    """A port model holding the JAX trees; the trunk is ``frozen`` when it is
+    given, else the port's own init, or none at all without ``trunk`` (for
+    the tests that feed features: the trunk's random init of 60M weights
+    would only cost time)."""
+    if frozen is None and not trunk:
+        with _no_trunk():
+            m = build_model(cfg, V, device="cpu", generator=torch.Generator().manual_seed(0))
+        assert not any(n.startswith("encoder.") for n in m.state_dict())
+    else:
+        m = build_model(cfg, V, device="cpu", generator=torch.Generator().manual_seed(0))
     if frozen is not None:
         m.load_state_dict(from_jax_params(trainable, frozen, stats))
     else:
@@ -116,11 +135,27 @@ def port_model(cfg, trainable, stats, frozen=None):
     return m
 
 
-def _pair(seed=0, frozen=False, **kw):
+@contextlib.contextmanager
+def _no_trunk():
+    """The port's ``init_encoder`` gives an empty trunk (the decoder's
+    weights are drawn before the trunk's, so they stay as they are)."""
+    real = encoders.init_encoder
+    encoders.init_encoder = lambda name, generator=None, dtype=torch.float32: {}
+    try:
+        yield
+    finally:
+        encoders.init_encoder = real
+
+
+def _pair(seed=0, trunk=False, **kw):
+    """The JAX model, its trees and the port model over them. With
+    ``trunk`` both hold a trunk (the JAX one from ``tpe.fake_torchvision``,
+    the port's its own init); without, neither does: the tests that feed
+    [B, 2048] features do not run one."""
     kw = dict(SMALL, **kw)
-    jm, trainable, jfrozen, stats = jax_weights(kw, seed)
+    jm, trainable, jfrozen, stats = jax_weights(kw, seed, trunk=trunk)
     cfg = Config(**kw)
-    return jm, trainable, jfrozen, stats, cfg, port_model(cfg, trainable, stats, jfrozen if frozen else None)
+    return jm, trainable, jfrozen, stats, cfg, port_model(cfg, trainable, stats, trunk=trunk)
 
 
 def _batch(seed=0, nan=False):
@@ -168,7 +203,7 @@ def test_model_layout_matches_jax(encoder, name):
     """The trunk by ``cfg.encoder`` (vgg16 maps to ResNet-152), the
     trainable names those of the JAX tree, the BatchNorm's statistics as
     buffers, and a frozen trunk."""
-    jm, trainable, frozen, stats, cfg, m = _pair(encoder=encoder, num_layers=2)
+    jm, trainable, frozen, stats, cfg, m = _pair(encoder=encoder, num_layers=2, trunk=True)
     assert m.encoder_name == jm.encoder_name == name and m.feature_dim == jm.feature_dim == F
     assert set(ckpt.trainable_state_dict(m)) == set(from_jax_trainable(trainable))
     assert {n for n, _ in m.named_buffers()} == {"bn.mean", "bn.var"}
@@ -255,13 +290,21 @@ def test_nbest_scores_match_jax():
 # --- training ---------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_train_step(cfg_items):
+    """The JAX step of a configuration, compiled once per module: every test
+    of that configuration reuses it."""
+    jcfg = JConfig(**dict(cfg_items))
+    return jstep.make_train_step(jbuild(jcfg, V), jcfg, donate=False)
+
+
 def train_both(steps=3, nan_at=None, **kw):
     """The JAX step and the port's from the same weights over the same
     batches. Returns (JAX state, port state, [(JAX metrics, port metrics)])."""
     jm, trainable, _, stats, cfg, m = _pair(**kw)
     jcfg = JConfig(**dict(SMALL, **kw))
     jstate = jstep.make_train_state(jcfg, jax.tree.map(jnp.asarray, trainable), jax.tree.map(jnp.asarray, stats))
-    jtrain = jstep.make_train_step(jm, jcfg, donate=False)
+    jtrain = _jax_train_step(tuple(sorted(dict(SMALL, **kw).items())))
     state, train = make_train_state(cfg, m), make_train_step(m, cfg)
     metrics = []
     for i in range(steps):
@@ -285,7 +328,8 @@ def test_train_steps_match_jax(kw):
     for k in ("mean", "var"):
         _close(jstate.batch_stats[k], state.batch_stats[k], STEP_ATOL)
         assert state.batch_stats[k] is m.batch_stats[k]
-    assert not torch.equal(state.batch_stats["var"], torch.from_numpy(np.asarray(jax_weights(SMALL)[3]["var"])))
+    start = jax_weights(SMALL, trunk=False)[3]["var"]
+    assert not torch.equal(state.batch_stats["var"], torch.from_numpy(np.asarray(start)))
 
 
 @pytest.mark.parametrize("skip", [True, False], ids=["skip", "apply"])
@@ -297,7 +341,7 @@ def test_nonfinite_step_and_batch_stats_match_jax(skip):
     jm, trainable, _, stats, cfg, m = _pair(skip_nonfinite=skip)
     jcfg = JConfig(**dict(SMALL, skip_nonfinite=skip))
     jstate = jstep.make_train_state(jcfg, jax.tree.map(jnp.asarray, trainable), jax.tree.map(jnp.asarray, stats))
-    jtrain = jstep.make_train_step(jm, jcfg, donate=False)
+    jtrain = _jax_train_step(tuple(sorted(dict(SMALL, skip_nonfinite=skip).items())))
     state, train = make_train_state(cfg, m), make_train_step(m, cfg)
     for i in range(2):
         jb, tb = _batch(seed=20 + i, nan=(i == 1))
@@ -364,7 +408,8 @@ def served(tmp_path_factory):
     running statistics are those of the projected features of the test
     images, so that the BatchNorm's output and the captions vary."""
     d = tmp_path_factory.mktemp("show_tell")
-    jm, trainable, frozen, _, cfg, _ = _pair(dtype="float32")
+    jm, trainable, frozen, _ = jax_weights(dict(SMALL, dtype="float32"))
+    cfg = Config(**SMALL, dtype="float32")
     images = np.random.default_rng(8).integers(0, 256, (5, 256, 256, 3), dtype=np.uint8)
     m = port_model(cfg, trainable, {"mean": np.zeros(16, np.float32), "var": np.ones(16, np.float32)}, frozen)
     from show_and_tell_tpu_torch.data.transforms import eval_transform
@@ -506,12 +551,13 @@ def test_caption_with_attention_raises_as_jax_and_warmup_skips_it(served):
 
 
 def test_cli_export_torch_matches_jax_cli(served, tmp_path, monkeypatch):
-    """Both export CLIs over the JAX experiment: the same ``.pth``. (The
-    JAX CLI's random trunk, which a Show-and-Tell export leaves out, is not
-    built: running the JAX init of a ResNet-152 takes ~9 s here.)"""
+    """Both export CLIs over the JAX experiment: the same ``.pth``. (Neither
+    CLI's random trunk, which a Show-and-Tell export leaves out, is built:
+    running the JAX init of a ResNet-152 takes ~9 s here.)"""
     from show_and_tell_tpu.models import encoders as jenc
 
     monkeypatch.setattr(jenc, "init_encoder", lambda name, key, dtype=None: {})
+    monkeypatch.setattr(encoders, "init_encoder", lambda name, generator=None, dtype=torch.float32: {})
     vocab = str(tmp_path / "vocab.json")
     Vocabulary.from_words(WORDS).save(vocab)
     argv = ["--model", "show_tell", "--embed_size", "16", "--hidden_size", "24", "--vocab_path", vocab,

@@ -285,11 +285,54 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tiny):
 
 
 @pytest.mark.parametrize("kw,what", [(dict(num_devices=2), "A9"), (dict(model_parallel=2), "A9"),
-                                     (dict(multihost=True), "A9"), (dict(quantize_backbone=True), "A8")])
+                                     (dict(multihost=True), "A9")])
 def test_trainer_refuses_what_is_not_ported(tiny, kw, what):
     model = build_model(Config(**SMALL), tiny["V"], device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         Trainer(Config(**SMALL).replace(**kw), model, [])
+
+
+def test_trainer_quantizes_on_first_batch(tiny, image_loader, tmp_path):
+    """quantize_backbone: the Trainer calibrates the int8 trunk on its first
+    batch of images and trains through it (finite losses, every step on
+    int8 GEMMs); its checkpoints hold the keys of a float run's."""
+    from show_and_tell_tpu_torch.models import quantize
+
+    cfg = _cfgs(quantize_backbone=True, max_epochs=1, save_checkpoint_every=2, language_eval=0,
+                expr_dir=str(tmp_path / "q"))[1]
+    model = build_model(cfg, tiny["V"], device="cpu")
+    before = quantize.GEMMS["int_mm"]
+    t = Trainer(cfg, model, image_loader(), eval_fn=lambda params: (1.0, [], {}))
+    t.train(preempt.PreemptionGuard())
+    assert "qconvs" in model.quantized and t.state.step == 4
+    assert quantize.GEMMS["int_mm"] - before == 4 * 11  # 11 int8 convs per step
+    infos = ckpt.load_infos(cfg.expr_dir)
+    assert infos["loss_history"] and all(np.isfinite(v) for v in infos["loss_history"].values())
+    blob = torch.load(os.path.join(cfg.expr_dir, "model-best.pt"), weights_only=True)
+    assert set(blob["params"]) == set(ckpt.trainable_state_dict(build_model(cfg, tiny["V"], device="cpu")))
+
+
+def test_cli_evaluate_quantizes_on_the_first_val_batch(tiny, tmp_path):
+    """``cli.evaluate --quantize_backbone`` on images: the trunk calibrated
+    on the first val batch and saved to ``--quantized_backbone_path``, the
+    evaluation run on int8 GEMMs; with ``--features_path`` nothing
+    quantizes."""
+    from show_and_tell_tpu_torch.models import quantize
+
+    path = str(tmp_path / "int8.pt")
+    _, data_json = run_preprocess("torch", str(tmp_path / "pre"), tiny["caption_json"], tiny["images_root"],
+                                  resize=True)
+    argv = ["--data_json", data_json, "--vocab_path", tiny["vocab"], "--ann_file", tiny["ann"],
+            "--quantize_backbone", "true",
+            "--quantized_backbone_path", path, "--language_eval", "0"]
+    argv += [f"--{k}={v}" for k, v in SMALL.items()]
+    before = quantize.GEMMS["int_mm"]
+    loss, preds, _ = evaluate.main(argv, device="cpu")
+    assert np.isfinite(loss) and len(preds) == 4
+    assert quantize.GEMMS["int_mm"] > before and quantize.is_quantized(quantize.load_quantized(path))
+    before = quantize.GEMMS["int_mm"]
+    evaluate.main(argv + ["--features_path", tiny["npz"]], device="cpu")
+    assert quantize.GEMMS["int_mm"] == before
 
 
 # --- preempt and resume, port against port ----------------------------------------

@@ -12,8 +12,11 @@ distance from its filtered softmax, a JAX train state resumed in the
 port, and the trainer's losses and final params against the JAX trainer's
 from one checkpoint, and the HTTP server's n-best scores and attention
 sheets and the export CLI's ``.pth`` against the JAX package's, and
-Show-and-Tell's BatchNorm layers, trunks, logits and train steps. Not a test
-module: it reports the numbers that the tests only bound.
+Show-and-Tell's BatchNorm layers, trunks, logits and train steps, and the
+int8 trunk: one int8 conv per geometry, the quantized weights and scales,
+each trunk's features over the JAX package's calibrated tree, and the
+cosine of each calibration against its fp32 trunk. Not a test module: it
+reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
 ``ckpt.convert.from_jax_params``, which the training tests use to compare
@@ -380,6 +383,42 @@ def show_tell():
         stats=max(_d(jstate.batch_stats[k], state.batch_stats[k]) for k in ("mean", "var")))
 
 
+def int8():
+    """The int8 trunk: one conv per geometry (fp32 outputs in ulps), the
+    int8 weights (any leaf that differs) and the activation scales (the
+    largest relative difference), the features of the port's trunk over the
+    JAX package's tree, and one minus each calibration's cosine against its
+    fp32 trunk."""
+    import test_torch_port_quantize as tq_test
+    from show_and_tell_tpu.models import quantize as jq
+    from show_and_tell_tpu_torch.ckpt.convert import from_jax_quantized
+    from show_and_tell_tpu_torch.models import quantize as tq
+
+    worst = 0
+    for kh, kw, stride, pad in tq_test.GEOMETRIES:
+        jtree, x = tq_test._conv_case(kh, kw, seed=kh * 10 + kw + stride)
+        want = np.asarray(jq._qconv_s(jtree, jnp.asarray(x), stride=stride,
+                                      padding=[(pad[0], pad[0]), (pad[1], pad[1])]))
+        got = tq_test._port_conv(from_jax_quantized(jtree), x, stride, pad)
+        worst = max(worst, int(np.abs(want.view(np.int32).astype(np.int64) - got.view(np.int32)).max()))
+    row(f"int8 conv, {len(tq_test.GEOMETRIES)} geometries: fp32 output, ulps", ulps=worst)
+    for name in ("vgg16", "resnet152", "inception_v3"):
+        t = tq_test._trunk(name)
+        want = from_jax_quantized(t["jq"])
+        sx = differ = 0
+        for path, w, g in tq_test.leaves(want, t["tq"]):
+            if path.endswith(".sx"):
+                sx = max(sx, abs(float(g) - float(w)) / float(w))
+            else:
+                differ += not torch.equal(g, w)
+        feats = tq.backbone_features_q(want, torch.from_numpy(t["x"]))
+        x = torch.from_numpy(t["x"])
+        row(f"int8 {name} at {tq_test.SIZES[name]} px, B=2: weights, sx, features",
+            wq_sw_b_differ=differ, sx_rel=sx, feat_rel=tq_test.rel(t["jfeat"], feats.numpy()),
+            one_minus_cos_port=1 - tq.feature_agreement(t["ttree"], t["tq"], x),
+            one_minus_cos_jax=1 - jq.feature_agreement(t["jtree"], t["jq"], jnp.asarray(t["x"])))
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -392,6 +431,7 @@ def main():
     trainer()
     front_door()
     show_tell()
+    int8()
 
 
 if __name__ == "__main__":
