@@ -195,10 +195,30 @@ Phases, each printing its own lines:
    layers, batch 64); ``cli.evaluate`` and ``cli.main`` (a ``Trainer`` that
    calibrates on its first batch and takes phase 10's five steps, losses
    finite) with ``--quantize_backbone`` on phase 10's corpus.
+14. multi-device (``parallel/``: one process per device over
+   ``torch.distributed``) at phase 5's width, V=10,000, global batch 256: the
+   host has one card and NCCL refuses two ranks on one card, so NCCL runs at
+   world size 1 (three ``Trainer`` steps, their params bit for bit those of
+   the run without a group) and the 2-rank maths runs as two processes
+   sharing cuda:0 over gloo, spawned and killed past a deadline: one line of
+   the collectives the port uses, run on CUDA tensors; Show-Attend-Tell in
+   fp32 at DP=2 (128 rows per rank) and at TP=2 (the embedding and head split
+   over the vocabulary): three steps' losses within 2e-4 relative and params
+   within 1e-4 of scale of one process, TP=2's first logits within 1e-4 of
+   scale of the unsharded ones; the ``Captioner`` over the 2-rank mesh in
+   fp32, beam-3 and greedy, captions equal to one device's but at ties;
+   Show-and-Tell (ResNet-152 features of the 256 images) at DP=2 in fp32: the
+   BatchNorm's running statistics after a step within 1e-5 of scale of one
+   process; bf16 steps per second and img/s of one process, DP=2 and TP=2 on
+   the one card (two processes on one card, gloo through host memory: not a
+   scaling figure); each rank's launches of rows 1-3 in its mesh runs, held
+   > 0. Phase 12 also holds its fp32 gradients, through the kernels and
+   through the plain path, against the same step in float64.
 Phases 8-11 count their launches in their own lines and the ``--out``
 file's; the kernels line counts phases 4-6 as before, phase 12's launches
-of the cell on its main path, and phase 13's launches of the cell and the
-attentions on the int8 runs.
+of the cell on its main path, phase 13's launches of the cell and the
+attentions on the int8 runs, and phase 14's of rows 1-3 in the NCCL
+``Trainer`` steps and both ranks' mesh runs.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -2948,6 +2968,69 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
     return out, state
 
 
+def _st_loss_fp64(p, layers, features, captions, lengths):
+    """Show-and-Tell's training loss written out in float64 with plain ops
+    (the projection, the train-mode BatchNorm, ``layers`` LSTM cells, the
+    head, the masked cross entropy), as ``ShowTell.encode`` and
+    ``decode_train`` compute it: step 0 consumes the image embedding, step
+    t >= 1 ``captions[:, t]``, scored against ``captions[:, t + 1]`` under
+    t < len - 1."""
+    f = features.double() @ p["proj.w"] + p["proj.b"]
+    y = (f - f.mean(0)) / torch.sqrt(f.var(0, unbiased=False) + 1e-5) * p["bn.scale"] + p["bn.bias"]
+    B, T = captions.shape
+    H = p["lstm.0.b"].numel() // 4
+    state = [(y.new_zeros(B, H), y.new_zeros(B, H)) for _ in range(layers)]
+    outs = []
+    for s in range(T - 1):
+        x = y if s == 0 else p["embed"][captions[:, s]]
+        for layer in range(layers):
+            h, c = state[layer]
+            zi, zf, zg, zo = (torch.cat([x, h], 1) @ p[f"lstm.{layer}.w"] + p[f"lstm.{layer}.b"]).chunk(4, 1)
+            c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
+            h = torch.sigmoid(zo) * torch.tanh(c)
+            state[layer] = (h, c)
+            x = h
+        outs.append(x)
+    logp = torch.log_softmax(torch.stack(outs, 1) @ p["out.w"] + p["out.b"], dim=-1)
+    ll = torch.gather(logp, -1, captions[:, 1:, None]).squeeze(-1)
+    mask = (torch.arange(T - 1, device=captions.device)[None] < (lengths[:, None] - 1)).double()
+    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _st_grads_vs_fp64(m32, cfg32, f32, b32, grads):
+    """Phase 12's fp32 gradients, through the kernels and through the plain
+    path, each against the same step's gradients in float64 (plain ops, the
+    same weights and features): if the plain fp32 path sits as far from
+    float64 as the kernel path does, the kernels-vs-plain figure is the
+    conditioning of fp32 arithmetic, not the kernel's rounding. Returns
+    {path: {param: max|diff| / max|grad64|}} (proj.b against proj.w's
+    gradient scale, as phase 12 holds it)."""
+    from show_and_tell_tpu_torch import ckpt
+
+    p64 = {k: v.detach().double().requires_grad_(True) for k, v in ckpt.trainable_state_dict(m32).items()}
+    loss = _st_loss_fp64(p64, cfg32.num_layers, f32, b32["captions"], b32["lengths"])
+    g64 = dict(zip(p64, torch.autograd.grad(loss, list(p64.values()))))
+    out = {}
+    for path in ("kernels", "plain"):
+        rel = {k: float((grads[path][k].double() - g64[k]).abs().max() / g64[k].abs().max()) for k in g64}
+        rel["proj.b"] = float((grads[path]["proj.b"].double() - g64["proj.b"]).abs().max()
+                              / g64["proj.w"].abs().max())
+        out[path] = rel
+        print(f"  fp32 {path} gradients vs float64 (plain ops, same weights and features), max|diff|/max|grad64|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    k = "proj.w"
+    ratio = out["kernels"][k] / max(out["plain"][k], 1e-30)
+    verdict = ("the conditioning of fp32 (the plain fp32 path is as far from float64)" if ratio <= 3.0
+               else "the kernel's rounding (the kernel path alone is far from float64)")
+    g = g64[k]
+    print(f"  {k}: kernels {out['kernels'][k]:.2e} and plain {out['plain'][k]:.2e} of float64 (ratio {ratio:.2f}): "
+          f"the kernels-vs-plain figure is {verdict}; float64 loss {float(loss.detach()):.6f}, max|grad64| {float(g.abs().max()):.3e}, "
+          f"rms {float(g.pow(2).mean().sqrt()):.3e}; the batch's feature spread: per-channel std / |mean| "
+          f"median {float((f32.double().std(0) / f32.double().mean(0).abs().clamp(min=1e-30)).median()):.3e}")
+    out["verdict"] = verdict
+    return out
+
+
 def phase_show_tell(tmp, images):
     """Show-and-Tell at full width (ResNet-152, one layer) served, trained and
     checkpointed on the card, then the scaled configuration (Inception-v3 at
@@ -3071,6 +3154,8 @@ def phase_show_tell(tmp, images):
     worst = max(rel, key=rel.get)
     print(f"  fp32 gradients, kernels vs plain, max|diff|/max|grad| (proj.b: / max|grad proj.w|): worst {worst} "
           f"{rel[worst]:.3e} (limit {GRAD_RTOL:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    out["fp32_grad_rel"] = rel
+    out["fp64_grad_rel"] = _st_grads_vs_fp64(m32, cfg32, f32, b32, grads)
     assert rel[worst] <= GRAD_RTOL, "kernel-path gradients disagree with the plain path"
     del m32, st32, s32, grads, f32
 
@@ -3437,6 +3522,360 @@ def phase_int8(tmp, smi, decoder, trained, images, st_trunk_ms, bf16_eval_cider)
     return out
 
 
+# --- phase 14: multi-device (data and vocabulary tensor parallel) -------------------
+
+P14_STEPS = 3  # train steps held against one process
+P14_TIMED = 8  # bf16 steps timed per layout, after 2 warm ones
+P14_DEADLINE_S = 600  # the parent kills the ranks past this
+P14_LR = 1e-4  # Adam moves a parameter whose gradient is near its rounding by up to lr a step
+P14_LOSS_RTOL, P14_PARAM_REL, P14_STATS_REL = 2e-4, 1e-4, 1e-5
+P14_LOGITS_REL = 1e-4
+
+
+def _p14_fresh(model, init):
+    """The model back at ``init`` (full shapes, off any mesh)."""
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            t.data = init[name].clone()
+    model.mesh = None
+
+
+def _p14_steps(model, cfg, batch, mesh, steps=P14_STEPS, timed=0):
+    """``steps`` TrainStep steps of ``model`` (placed on ``mesh`` when one is
+    given, its rows of ``batch``), then ``timed`` more timed ones. Returns
+    (losses, full params, batch statistics after the first step, ms per
+    timed step)."""
+    from show_and_tell_tpu_torch import ckpt
+    from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+
+    if mesh is not None:
+        mesh_lib.replicate(mesh, {**ckpt.trainable_state_dict(model), **(model.batch_stats or {})})
+        mesh_lib.place_params(mesh, model)
+        batch = mesh_lib.shard_batch(mesh, batch)
+    state, step = make_train_state(cfg, model), make_train_step(model, cfg)
+    losses, stats = [], None
+    for i in range(steps + timed):
+        if i == steps:
+            torch.cuda.synchronize()
+            if mesh is not None:
+                torch.distributed.barrier()
+            t0 = time.perf_counter()
+        state, m = step(state, batch, P14_LR, generator=torch.Generator(device="cuda").manual_seed(SEED + i))
+        losses.append(float(m["loss"]))
+        if i == 0 and state.batch_stats is not None:
+            stats = {k: v.clone() for k, v in state.batch_stats.items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed if timed else None
+    params = state.params if mesh is None else mesh_lib.gather_params(mesh, state.params,
+                                                                       mesh_lib.model_shardings(model))
+    return losses[:steps], {k: v.detach().clone() for k, v in params.items()}, stats, ms
+
+
+def _p14_rel(got, want, skip=()):
+    keys = [k for k in want if k not in skip]
+    return float(max((got[k] - want[k]).abs().max() for k in keys) / max(want[k].abs().max() for k in keys))
+
+
+def _p14_rank(rank, world, store, tmp):
+    """One of the two ranks that share cuda:0 over gloo."""
+    from show_and_tell_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize(f"file://{store}", num_processes=world, process_id=rank, backend="gloo")
+    try:
+        out = _p14_work(rank)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"p14.{rank}.pt"))
+
+
+def _p14_work(rank):
+    """Rank 0 runs each one-process reference while rank 1 waits at the next
+    collective; the mesh runs are every rank's. Holds every check itself
+    (a failure raises, and the parent kills the other rank)."""
+    import torch.distributed as dist
+
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.parallel import collectives
+    from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.utils.vocab import START_ID, Vocabulary
+
+    def say(msg):
+        if rank == 0:
+            print(f"  {msg}", flush=True)
+
+    dev = torch.device("cuda", 0)
+    V, N, T = 10000, 256, 20
+    out = {"launches": {k: 0 for k in REPLACES}}
+
+    def counted(fn):
+        """``fn()`` with the kernel counts set to 0 before and added up after."""
+        cuda_lib.LAUNCHES.clear()
+        result = fn()
+        torch.cuda.synchronize()
+        for k in out["launches"]:
+            out["launches"][k] += cuda_lib.LAUNCHES[k]
+        return result
+
+    dp = mesh_lib.make_mesh(2, 1, device=dev)
+    tp = mesh_lib.make_mesh(2, 2, device=dev)
+    # the collectives, on CUDA tensors
+    x = torch.arange(6.0, device=dev) + 10 * rank
+    checks = {
+        "all_reduce sum (data group)": torch.equal(collectives.all_reduce(x, dp.data_group),
+                                                   2 * torch.arange(6.0, device=dev) + 10),
+        "all_reduce max (the preemption flag, world)": mesh_lib.any_rank(dp, rank == 1),
+        "broadcast from rank 0 (replicate)": torch.equal(collectives.broadcast_(x.clone(), 0),
+                                                         torch.arange(6.0, device=dev)),
+        "all-gather as all_reduce of a zero-padded buffer (model group)": torch.equal(
+            collectives.all_gather(x, tp.model_group, tp.model_index, 2),
+            torch.cat([torch.arange(6.0, device=dev), torch.arange(6.0, device=dev) + 10])),
+        "broadcast_object_list (the gate's result)": mesh_lib.broadcast_object(dp, {"rank": rank}) == {"rank": 0},
+        "bf16 all_reduce (as fp32)": torch.equal(
+            collectives.all_reduce(torch.ones(3, device=dev, dtype=torch.bfloat16), dp.data_group),
+            torch.full((3,), 2.0, device=dev, dtype=torch.bfloat16)),
+    }
+    say(f"collectives on cuda:0 tensors over gloo, 2 ranks: " + "; ".join(f"{k} {v}" for k, v in checks.items()))
+    assert all(checks.values()), f"rank {rank}: collectives {checks}"
+
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (N, 256, 256, 3), dtype=np.uint8)  # phase 5's
+    caps = np.concatenate([np.full((N, 1), START_ID), np.random.default_rng(SEED + 14).integers(4, V, (N, T - 1))], 1)
+    lengths = np.random.default_rng(SEED + 15).integers(3, T + 1, N)  # unequal tokens per rank
+    batch = {"images": torch.from_numpy(images).to(dev), "captions": torch.from_numpy(caps).to(dev),
+             "lengths": torch.from_numpy(lengths).to(dev)}
+
+    # Show-Attend-Tell in fp32: DP=2 and TP=2 against one process
+    cfg32 = Config(dtype="float32")
+    model = build_model(cfg32, V, device=dev, generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    say(f"Show-Attend-Tell trainable parameters: {n_params / 1e6:.2f} M = {4 * n_params / 1e6:.1f} MB of fp32 "
+        f"gradients summed over the data group per step (one flat all_reduce)")
+    out["grad_mb"] = 4 * n_params / 1e6
+    ref = None
+    if rank == 0:
+        with torch.no_grad():
+            feats = model.backbone_features(eval_transform(batch["images"], cfg32.crop_size))
+            ref_logits = model.decode_train(feats, batch["captions"], batch["lengths"])[0]
+        ref = _p14_steps(model, cfg32, batch, None)
+        _p14_fresh(model, init)
+    dist.barrier()
+    figures = {}
+    for name, mesh in (("DP=2", dp), ("TP=2", tp)):
+        if name == "TP=2":
+            mesh_lib.replicate(mesh, {k: v for k, v in model.named_parameters() if v.requires_grad})
+            mesh_lib.place_params(mesh, model)
+            with torch.no_grad():
+                rows = mesh_lib.shard_batch(mesh, batch)
+                feats = model.backbone_features(eval_transform(rows["images"], cfg32.crop_size))
+                logits = counted(lambda: model.decode_train(feats, rows["captions"], rows["lengths"])[0])
+            if rank == 0:
+                figures["TP=2 logits"] = float((logits - ref_logits).abs().max() / ref_logits.abs().max())
+            _p14_fresh(model, init)
+        losses, params, _, _ = counted(lambda: _p14_steps(model, cfg32, batch, mesh))
+        _p14_fresh(model, init)
+        if rank == 0:
+            lrel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+            figures[name] = (lrel, _p14_rel(params, ref[1]))
+            say(f"Show-Attend-Tell fp32 {name} ({mesh.data} x {mesh.model}; {N // mesh.data} rows per rank): losses "
+                f"{', '.join(f'{v:.6f}' for v in losses)} vs one process {', '.join(f'{v:.6f}' for v in ref[0])}: "
+                f"{lrel:.2e} relative (limit {P14_LOSS_RTOL:g}); params {figures[name][1]:.2e} of scale "
+                f"(limit {P14_PARAM_REL:g})")
+    if rank == 0:
+        say(f"TP=2 first-forward logits (the head's vocabulary slices gathered) vs unsharded: "
+            f"{figures['TP=2 logits']:.2e} of scale (limit {P14_LOGITS_REL:g})")
+        assert figures["TP=2 logits"] <= P14_LOGITS_REL
+        assert all(l <= P14_LOSS_RTOL and p <= P14_PARAM_REL for l, p in (figures["DP=2"], figures["TP=2"])), figures
+    out["sat"] = figures
+
+    # the Captioner over the DP mesh, fp32, beam-3 and greedy: ids as one device's but at ties
+    vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
+    want = {}
+    if rank == 0:
+        one = Captioner(cfg32, model, None, vocab, device=dev, bucket_sizes=(N,))
+        want = {"beam": one.caption_images(images, mode="beam"), "greedy": one.caption_images(images, mode="greedy"),
+                "nbest": one.caption_nbest(images)}
+    dist.barrier()
+    cap = Captioner(cfg32, model, None, vocab, device=dev, bucket_sizes=(N,), mesh=dp)
+    got = counted(lambda: {"beam": cap.caption_images(images, mode="beam"),
+                           "greedy": cap.caption_images(images, mode="greedy"), "nbest": cap.caption_nbest(images)})
+    if rank == 0:
+        with torch.no_grad():
+            f32 = model.backbone_features(eval_transform(batch["images"], cfg32.crop_size))
+            ids1 = decode_ids(model, cfg32, f32, "greedy")
+        gaps, score_gaps = [], []
+        for r in (i for i in range(N) if got["greedy"][i] != want["greedy"][i]):
+            t = _first_difference(got["greedy"][r].split() + ["<end>"], want["greedy"][r].split() + ["<end>"])
+            with torch.no_grad():
+                step_fn, carry, _, _ = model.decode_state(f32[r:r + 1], beam_size=1)
+                prev = torch.full((1,), START_ID, dtype=torch.long, device=dev)
+                for s in range(t + 1):
+                    carry, logits = step_fn(carry, prev)
+                    prev = ids1[r:r + 1, s]
+            top2 = logits[0].topk(2).values
+            gaps.append(float(top2[0] - top2[1]))
+        for r in (i for i in range(N) if got["beam"][i] != want["beam"][i]):
+            score_gaps.append(abs(got["nbest"][r][0][1] - want["nbest"][r][0][1]))
+        same = {m: sum(a == b for a, b in zip(got[m], want[m])) for m in ("beam", "greedy")}
+        say(f"Captioner over the 2-rank mesh (fp32, {N // 2} rows per rank, ids gathered) vs one device: beam "
+            f"{same['beam']}/{N} and greedy {same['greedy']}/{N} identical; greedy differences at top-two logit gaps "
+            f"{gaps} (tie under {TIE_GAP:g}), beam differences at best-score gaps {score_gaps}")
+        assert all(g < TIE_GAP for g in gaps + score_gaps), "the 2-rank Captioner differs away from a tie"
+        assert [a[0][0] for a in got["nbest"]] == got["beam"]
+        out["serving"] = {"same": same, "greedy_gaps": gaps, "beam_score_gaps": score_gaps}
+    del cap
+    dist.barrier()
+
+    # Show-and-Tell (ResNet-152) in fp32 at DP=2: the BatchNorm's statistics of the global batch. Every rank
+    # runs the trunk over all 256 images (the centre crop), so that both sides train on the same features: the
+    # random trunk's features vary little across images, and the train-mode BatchNorm would magnify the
+    # rounding of a trunk run at another batch size (phase 12's fp32 gradient figure)
+    cfg_st = Config(model="show_tell", dtype="float32")
+    st = build_model(cfg_st, V, device=dev, generator=torch.Generator().manual_seed(SEED + 1))
+    st_init = {k: v.detach().clone() for k, v in st.state_dict().items()}
+    with torch.no_grad():
+        st_batch = dict(batch, features=st.backbone_features(eval_transform(batch["images"], cfg_st.crop_size)))
+    del st_batch["images"]
+    st_ref = None
+    if rank == 0:
+        st_ref = _p14_steps(st, cfg_st, st_batch, None)
+        _p14_fresh(st, st_init)
+    dist.barrier()
+    losses, params, stats, _ = counted(lambda: _p14_steps(st, cfg_st, st_batch, dp))
+    if rank == 0:
+        srel = {k: float((stats[k] - st_ref[2][k]).abs().max() / st_ref[2][k].abs().max()) for k in stats}
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(losses, st_ref[0]))
+        prel = _p14_rel(params, st_ref[1], skip=("proj.b",))
+        say(f"Show-and-Tell (ResNet-152 features of the 256 images) fp32 DP=2: BatchNorm running mean "
+            f"{srel['mean']:.2e}, var {srel['var']:.2e} of scale after the first step vs one process (limit "
+            f"{P14_STATS_REL:g}; later steps add Adam's moves of proj.b, whose gradient is zero but for rounding, to "
+            f"the mean); losses {lrel:.2e} relative (limit {P14_LOSS_RTOL:g}); params but proj.b {prel:.2e} of "
+            f"scale, printed, not held: the random trunk's features vary little across images, so proj.w's "
+            f"gradient is a difference of near-equal terms, and Adam turns its rounding into moves of up to lr")
+        assert max(srel.values()) <= P14_STATS_REL and lrel <= P14_LOSS_RTOL
+        out["show_tell"] = {"stats_rel": srel, "loss_rel": lrel, "param_rel": prel}
+    del st, st_init, st_ref
+    dist.barrier()
+
+    # timing, bf16: one process, then DP=2 and TP=2 on the one card
+    cfg = Config(dtype="bfloat16")
+    del model, init
+    model = build_model(cfg, V, device=dev, generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    timing = {}
+    if rank == 0:
+        timing["one process"] = _p14_steps(model, cfg, batch, None, steps=2, timed=P14_TIMED)[3]
+        _p14_fresh(model, init)
+    dist.barrier()
+    for name, mesh in (("DP=2", dp), ("TP=2", tp)):
+        ms = counted(lambda: _p14_steps(model, cfg, batch, mesh, steps=2, timed=P14_TIMED)[3])
+        _p14_fresh(model, init)
+        timing[name] = max(collectives.all_gather(torch.tensor([ms], device=dev), dp.data_group, dp.data_index,
+                                                  2).tolist())
+    out["timing_ms"] = timing
+    say(f"bf16 training at batch {N} (global), ms per step of the slowest rank and img/s: " + "; ".join(
+        f"{k} {v:.1f} ms, {1e3 / v:.2f} steps/s, {N * 1e3 / v:.1f} img/s" for k, v in timing.items())
+        + ". Two processes share one card and gloo stages the gradients through host memory: not a scaling figure")
+    return out
+
+
+P14_ROWS = ("lstm_cell", "additive_attention", "attention_beam")
+
+
+def phase_multi_device(tmp, images):
+    """Phase 14. Returns the figures and, under ``launches``, the kernels'
+    launches of the phase's mesh runs (the NCCL Trainer steps and both
+    ranks')."""
+    import torch.distributed as dist
+
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.parallel import distributed
+    from show_and_tell_tpu_torch.train.trainer import Trainer
+    from show_and_tell_tpu_torch.utils.vocab import START_ID
+
+    print("== 14. multi-device: data parallel and vocabulary tensor parallel over torch.distributed")
+    t_phase = time.perf_counter()
+    out = {"launches": {k: 0 for k in REPLACES}}
+    print(f"  this host has {torch.cuda.device_count()} card(s); NCCL refuses two ranks on one card, so NCCL runs "
+          f"at world size 1 here, and the 2-rank maths runs as two processes sharing cuda:0 over gloo")
+
+    # NCCL at world size 1: three Trainer steps, bit for bit those without a group
+    V, N, T = 10000, 256, 20
+    cfg = Config(dtype="bfloat16", max_epochs=1, save_checkpoint_every=10 ** 6, log_step=10 ** 6)
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    caps = np.concatenate([np.full((N, 1), START_ID), np.random.default_rng(SEED + 16).integers(4, V, (N, T - 1))], 1)
+    batches = [{"images": images, "captions": caps, "lengths": np.full((N,), T)}] * P14_STEPS
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def trainer_run(tag):
+        _p14_fresh(model, init)
+        cuda_lib.LAUNCHES.clear()
+        tr = Trainer(cfg.replace(expr_dir=os.path.join(tmp, f"p14_{tag}")), model, batches)
+        tr.train()
+        torch.cuda.synchronize()
+        counts = {k: cuda_lib.LAUNCHES[k] for k in REPLACES}
+        return tr, {k: v.detach().clone() for k, v in tr.state.params.items()}, counts
+
+    _, alone, _ = trainer_run("alone")
+    distributed.initialize(f"file://{os.path.join(tmp, 'p14_nccl.store')}", num_processes=1, process_id=0, backend="nccl")
+    try:
+        tr, grouped, counts = trainer_run("nccl")
+        assert tr.mesh.distributed and dist.get_backend() == "nccl", "the Trainer did not run on the NCCL group"
+    finally:
+        dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(alone[k], grouped[k]) for k in alone)
+    for k, n in counts.items():
+        out["launches"][k] += n
+    print(f"  NCCL at world size 1 (init_process_group('nccl'), the Trainer's mesh over it: the gradient, count, "
+          f"loss and preemption all_reduces run): {P14_STEPS} Trainer steps at batch {N}, bf16, params bit for bit "
+          f"those without a group: {same}; launches {counts['lstm_cell']} cell, {counts['additive_attention']} "
+          f"per-row attention")
+    assert same, "NCCL world-1 Trainer params differ from the run without a group"
+    assert counts["lstm_cell"] > 0 and counts["additive_attention"] > 0
+    del model, init, tr, alone, grouped
+    torch.cuda.empty_cache()
+
+    # two ranks sharing cuda:0 over gloo
+    store = os.path.join(tmp, "p14_gloo.store")
+    ctx = torch.multiprocessing.start_processes(_p14_rank, args=(2, store, tmp), nprocs=2, join=False,
+                                                daemon=True, start_method="spawn")
+    deadline = time.perf_counter() + P14_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"phase 14's ranks did not finish in {P14_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(tmp, f"p14.{r}.pt"), weights_only=False) for r in range(2)]
+    for r, res in enumerate(ranks):
+        print(f"  rank {r} kernel launches in its mesh runs: " + ", ".join(
+            f"{k} {v}" for k, v in res["launches"].items() if k in P14_ROWS))
+        assert all(res["launches"][k] > 0 for k in P14_ROWS), f"rank {r} launched {res['launches']}"
+        for k, n in res["launches"].items():
+            out["launches"][k] += n
+    out.update({k: v for k, v in ranks[0].items() if k != "launches"})
+    out["rank_launches"] = [res["launches"] for res in ranks]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 class _LogLines(logging.Handler):
     """Collects the trainer's step lines as (epoch, step, loss, img/s,
     ms/step)."""
@@ -3486,8 +3925,11 @@ def main() -> int:
         # phase 13's launches join the kernels line; its figures go under "int8"
         int8 = phase_int8(tmp, smi, decoder, trained, images, show_tell["trunk_ms"],
                           train_cli["evaluate"]["beam1"]["lang_stats"]["CIDEr"])
+        # phase 14's launches (the NCCL Trainer's and both ranks') join the kernels line; its figures go
+        # under "multi_device"
+        multi = phase_multi_device(tmp, images)
     launches["lstm_cell"] += show_tell["launches"]
-    for k, n in int8["launches"].items():
+    for k, n in list(int8["launches"].items()) + list(multi["launches"].items()):
         launches[k] += n
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -3500,6 +3942,7 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
                        "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell, "int8": int8,
+                       "multi_device": multi,
                        "show_tell_cell": st_cell_rows}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

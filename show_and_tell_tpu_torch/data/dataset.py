@@ -41,6 +41,7 @@ class CocoCaptionDataset:
         split: str = "train",
         max_caption_len: int = 57,
         num_buckets: int = 4,
+        host_shard=None,  # (data index, data axis size) for multi-host IO
     ):
         if isinstance(records, str):
             with open(records) as f:
@@ -50,6 +51,9 @@ class CocoCaptionDataset:
         self.max_caption_len = max_caption_len
         # split filter: data_loader.py:21
         self.data = [r for r in records if r["split"] == split]
+        if host_shard is not None and host_shard[1] > 1:
+            idx, n = host_shard
+            self.data = self.data[idx::n]  # disjoint record shards per data index
         self._build_buckets(num_buckets)
 
     def _build_buckets(self, num_buckets: int) -> None:

@@ -6,7 +6,8 @@ here runs batched on the device, with no Python loop over the images. Input
 is divided by 255, then normalised in fp32, then cast to the requested
 dtype. The random crop and flip draw from an explicit ``torch.Generator`` on
 the images' device; its numbers differ from the JAX package's keys, so the
-two are compared on properties, not values.
+two are compared on properties, not values. Over a mesh they are drawn for
+the global batch and each rank keeps its rows' (``parallel.mesh.rand_rows``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -43,14 +46,15 @@ def eval_transform(
     return normalize(center_crop(images_u8, crop), dtype)
 
 
-def random_crop_flip(generator: torch.Generator, images: torch.Tensor, crop: int) -> torch.Tensor:
+def random_crop_flip(generator: torch.Generator, images: torch.Tensor, crop: int, mesh=None) -> torch.Tensor:
     """Per-image random crop and horizontal flip, [B, H, W, C] ->
-    [B, crop, crop, C], as one gather."""
+    [B, crop, crop, C], as one gather. ``images`` are this rank's rows of
+    the global batch over ``mesh``."""
     B, H, W, _ = images.shape
     dev = images.device
-    tops = torch.randint(0, H - crop + 1, (B,), generator=generator, device=dev)
-    lefts = torch.randint(0, W - crop + 1, (B,), generator=generator, device=dev)
-    flips = torch.rand((B,), generator=generator, device=dev) < 0.5
+    tops = rand_rows(generator, (B,), dev, mesh, 0, H - crop + 1)
+    lefts = rand_rows(generator, (B,), dev, mesh, 0, W - crop + 1)
+    flips = rand_rows(generator, (B,), dev, mesh) < 0.5
     ar = torch.arange(crop, device=dev)
     rows = tops[:, None] + ar
     cols = lefts[:, None] + torch.where(flips[:, None], crop - 1 - ar, ar)
@@ -60,10 +64,10 @@ def random_crop_flip(generator: torch.Generator, images: torch.Tensor, crop: int
 
 def train_transform(
     generator: torch.Generator, images_u8: torch.Tensor, crop: int,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, mesh=None,
 ) -> torch.Tensor:
     """RandomCrop + HFlip + Normalize, [B, H, W, 3] uint8 -> [B, crop, crop, 3]."""
-    return normalize(random_crop_flip(generator, images_u8, crop), dtype)
+    return normalize(random_crop_flip(generator, images_u8, crop, mesh), dtype)
 
 
 def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:

@@ -22,10 +22,12 @@ def decode_ids(
     temperature: float = 1.0,
     top_k: int = 0,
     top_p: float = 1.0,
+    mesh=None,
 ) -> torch.Tensor:
     """features [B, ...] -> ids [B, max_decode_len] by beam, greedy or
     sample; "sample" draws from ``generator`` (on the features' device) with
-    the three knobs of ``decode.sample``."""
+    the three knobs of ``decode.sample``, for the global batch when the
+    features are this rank's rows over ``mesh``."""
     if mode not in ("beam", "greedy", "sample"):
         raise ValueError(f"unknown decode mode {mode!r}")
     if mode == "sample" and generator is None:
@@ -42,6 +44,6 @@ def decode_ids(
     if mode == "sample":
         return sample_decode(
             step_fn, carry, B, generator, cfg.max_decode_len,
-            temperature=temperature, top_k=top_k, top_p=top_p, first_logits=first,
+            temperature=temperature, top_k=top_k, top_p=top_p, first_logits=first, mesh=mesh,
         )
     return greedy_decode(step_fn, carry, B, cfg.max_decode_len, first_logits=first)

@@ -10,7 +10,8 @@ package's, to the letter:
 - a dropped logit becomes ``NEG_INF`` = -1e9, never -inf.
 
 The draw is a Gumbel-max over the filtered logits, with the noise drawn from
-the given ``torch.Generator`` on the logits' device. Like the JAX scan the
+the given ``torch.Generator`` on the logits' device; over a mesh it is drawn
+for all the rows of the global batch and each rank keeps its rows'. Like the JAX scan the
 loop runs a fixed ``max_len`` steps with no early exit, so it reads nothing
 back from the device per step; tokens after a row's ``<end>`` are cut by the
 host's string decode.
@@ -23,6 +24,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from show_and_tell_tpu_torch.decode.greedy import carry_device
+from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 from show_and_tell_tpu_torch.utils.vocab import START_ID
 
 NEG_INF = -1.0e9
@@ -48,11 +50,12 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int, top_p: f
 
 
 def _sample_from_logits(
-    generator: torch.Generator, logits: torch.Tensor, temperature: float, top_k: int, top_p: float = 1.0
+    generator: torch.Generator, logits: torch.Tensor, temperature: float, top_k: int, top_p: float = 1.0,
+    mesh=None,
 ) -> torch.Tensor:
     """One token per row (int64), drawn from the filtered softmax."""
     logits = filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = rand_rows(generator, logits.shape, logits.device, mesh)
     gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
     return (logits + gumbel).argmax(dim=-1)
 
@@ -67,19 +70,21 @@ def sample_decode(
     top_k: int = 0,
     top_p: float = 1.0,
     first_logits: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Returns sampled ids ``[batch, max_len]`` (int64). ``first_logits``
     given (Show-and-Tell): token 0 is drawn from it; None (Show-Attend-Tell):
-    decoding starts from ``<start>``."""
+    decoding starts from ``<start>``. With ``mesh`` the rows are this rank's
+    of the global batch."""
     toks = []
     if first_logits is not None:
-        prev = _sample_from_logits(generator, first_logits, temperature, top_k, top_p)
+        prev = _sample_from_logits(generator, first_logits, temperature, top_k, top_p, mesh)
         toks.append(prev)
     else:
         prev = torch.full((batch,), START_ID, dtype=torch.long, device=carry_device(carry))
     while len(toks) < max_len:
         carry, logits = step_fn(carry, prev)
-        prev = _sample_from_logits(generator, logits, temperature, top_k, top_p)
+        prev = _sample_from_logits(generator, logits, temperature, top_k, top_p, mesh)
         toks.append(prev)
     if not toks:
         return torch.zeros((batch, 0), dtype=torch.long, device=carry_device(carry))

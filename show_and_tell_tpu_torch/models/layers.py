@@ -7,6 +7,11 @@ trunk (``conv2d``, ``conv_bn``, the pools); ``ckpt/convert.py`` moves the
 JAX package's HWIO weights across. BatchNorm parameters are ``{scale, bias,
 mean, var}``; ``batch_norm_inference`` and ``batch_norm_train`` normalise
 the last axis, as the JAX package's do.
+
+Under a mesh (``parallel/mesh.py``) the embedding and the output head may
+hold this rank's slice of the vocabulary (``embedding_lookup``,
+``vocab_dense``), the train-mode BatchNorm takes the statistics of the
+global batch, and dropout draws its mask for the global batch.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from show_and_tell_tpu_torch.parallel import collectives
+from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 
 Params = Dict
 
@@ -83,21 +91,32 @@ def batch_norm_inference(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch
 
 
 def batch_norm_train(
-    p: Params, x: torch.Tensor, momentum: float = 0.01, eps: float = 1e-5
+    p: Params, x: torch.Tensor, momentum: float = 0.01, eps: float = 1e-5, mesh=None
 ) -> Tuple[torch.Tensor, Params]:
     """Batch-statistics BatchNorm over all axes but the last: ``(y,
     new_stats)``. The statistics and the normalisation run in fp32 whatever
     x's dtype, y comes back in x's dtype. ``momentum`` is the weight of the
     new statistic (torch's BatchNorm1d convention) and the running variance
     takes the unbiased n / (n - 1) variance. Nothing is written: the caller
-    commits ``new_stats``."""
+    commits ``new_stats``.
+
+    Over a mesh with a data axis > 1 the statistics are the global batch's,
+    as one device computes them: the sums and n are summed over the data
+    group (the sum, then the squared deviations from the global mean), and
+    their gradients flow back to every rank's rows."""
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = xf.var(dim=axes, correction=0)
+    n = float(math.prod(x.shape[a] for a in axes))
+    if mesh is not None and mesh.data > 1:
+        total = collectives.sum_over_data(torch.cat([xf.sum(dim=axes), xf.new_full((1,), n)]), mesh)
+        n = float(total[-1].detach())
+        mean = total[:-1] / n
+        var = collectives.sum_over_data(((xf - mean) ** 2).sum(dim=axes), mesh) / n
+    else:
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, correction=0)
     inv = torch.rsqrt(var + eps)
     y = ((xf - mean) * inv * p["scale"].float() + p["bias"].float()).to(x.dtype)
-    n = float(math.prod(x.shape[a] for a in axes))
     unbiased = var * (n / max(n - 1.0, 1.0))
     new_stats = {
         "scale": p["scale"],
@@ -140,8 +159,27 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, table)
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``table[ids]``. With ``mesh`` (a model axis > 1) ``table`` is this
+    rank's slice of the vocabulary's rows: ids outside it give zero rows, and
+    the sum over the model group is the full lookup."""
+    if mesh is None:
+        return F.embedding(ids, table)
+    n = table.shape[0]
+    local = ids - mesh.model_index * n
+    inside = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table) * inside[..., None].to(table.dtype)
+    return collectives.reduce_from_model(rows, mesh)
+
+
+def vocab_dense(p: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The output head ``dense(p, x)`` [..., V]. With ``mesh`` (a model axis
+    > 1) ``p`` holds this rank's columns of the vocabulary: the input's
+    gradient is summed over the model group, and the logits are gathered
+    whole."""
+    if mesh is None:
+        return dense(p, x)
+    return collectives.gather_from_model(dense(p, collectives.copy_to_model(x, mesh)), mesh)
 
 
 def cast_tree(tree, dtype: torch.dtype):
@@ -155,13 +193,14 @@ def cast_tree(tree, dtype: torch.dtype):
     return tree
 
 
-def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float) -> torch.Tensor:
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float, mesh=None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate`` and
     scaled by ``1 / (1 - rate)``; the identity at rate 0 or without a
     generator. The mask comes from ``generator``, which must be on x's
-    device."""
+    device; over a mesh it is drawn for the global batch (x's leading
+    dimension), this rank's rows kept."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(generator, x.shape, x.device, mesh) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

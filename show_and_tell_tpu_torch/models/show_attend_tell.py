@@ -17,6 +17,11 @@ cell. On CPU tensors the same calls run their plain PyTorch versions.
 Training (``decode_train``) runs the per-row attention and the cell
 through their autograd Functions: the kernels forward, a plain recompute
 backward, as the JAX package does. Decoding runs without autograd.
+
+On a mesh (``parallel.mesh.place_params`` sets ``mesh``) the embedding and
+the classifier may hold this rank's slice of the vocabulary; the lookups and
+the head then run vocabulary-parallel, and the random draws of training are
+made for the global batch.
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ from show_and_tell_tpu_torch.models.layers import (
     dropout,
     embedding_lookup,
     uniform_dense,
+    vocab_dense,
 )
 from show_and_tell_tpu_torch.models.quantize import backbone_features_q
 from show_and_tell_tpu_torch.ops.attention import encode_features, init_attention_params
 from show_and_tell_tpu_torch.ops.fused_attention import fused_additive_attention
 from show_and_tell_tpu_torch.ops.fused_decode_attention import attention_beam
 from show_and_tell_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
+from show_and_tell_tpu_torch.parallel.mesh import rand_rows, vocab_parallel
 from show_and_tell_tpu_torch.utils.device import resolve_device
 from show_and_tell_tpu_torch.utils.vocab import START_ID
 
@@ -61,6 +68,7 @@ class ShowAttendTell(nn.Module):
 
     encoder_name = "vgg16"
     batch_stats = None  # no BatchNorm (Show-and-Tell's are its buffers)
+    mesh = None  # the parallel.mesh.Mesh the model is placed on, if any
 
     def __init__(
         self,
@@ -104,6 +112,12 @@ class ShowAttendTell(nn.Module):
         self.h2o = _pdict(uniform_dense(H, E, g))
         self.classifier = _pdict(uniform_dense(E, V, g))
         self.encoder = encoders.frozen_module(encoders.init_vgg16(g))
+
+    @property
+    def vocab_mesh(self):
+        """The mesh when the vocabulary is split over its model axis, else
+        None."""
+        return self.mesh if vocab_parallel(self.mesh, self.vocab_size) else None
 
     def trainable_tree(self) -> Params:
         t = {k: dict(getattr(self, k).items()) for k in ("att", "lstm", *_DENSE)}
@@ -162,8 +176,8 @@ class ShowAttendTell(nn.Module):
 
     def _head(self, t, context, h, generator=None):
         out = dense(t["c2o"], context) + dense(t["h2o"], h)
-        out = dropout(generator, out, self.dropout_rate)
-        return dense(t["classifier"], out)
+        out = dropout(generator, out, self.dropout_rate, self.mesh)
+        return vocab_dense(t["classifier"], out, self.vocab_mesh)
 
     def _step(self, t, features, ctx_enc, h, c, emb, k: int = 1, generator=None):
         """One step for k rows per image. ``h`` is in the compute dtype,
@@ -211,7 +225,7 @@ class ShowAttendTell(nn.Module):
         tokens = captions[:, :-1]
         mask = torch.arange(T - 1, device=captions.device)[None, :] < (lengths[:, None] - 1)
         if isinstance(ss_prob, (int, float)) and float(ss_prob) == 0.0:
-            emb_all = embedding_lookup(t["embed"], tokens)  # [B, T-1, E]
+            emb_all = embedding_lookup(t["embed"], tokens, self.vocab_mesh)  # [B, T-1, E]
             hs, ctxs, alphas = [], [], []
             for s in range(T - 1):
                 h, c, context, alpha = self._recur(t, features, ctx_enc, h, c, emb_all[:, s])
@@ -226,9 +240,9 @@ class ShowAttendTell(nn.Module):
         for s in range(T - 1):
             tok = tokens[:, s]
             if s > 0:
-                u = torch.rand((B,), generator=generator, device=tok.device)
+                u = rand_rows(generator, (B,), tok.device, self.mesh)
                 tok = torch.where(u < ss_prob, prev, tok)
-            emb = embedding_lookup(t["embed"], tok)
+            emb = embedding_lookup(t["embed"], tok, self.vocab_mesh)
             h, c, lg, alpha = self._step(t, features, ctx_enc, h, c, emb, 1, generator)
             prev = lg.argmax(dim=-1)
             logits.append(lg)
@@ -247,7 +261,7 @@ class ShowAttendTell(nn.Module):
         tok = torch.full((B,), START_ID, dtype=torch.long, device=features.device)
         ids, alphas = [], []
         for _ in range(max_len):
-            emb = embedding_lookup(t["embed"], tok)
+            emb = embedding_lookup(t["embed"], tok, self.vocab_mesh)
             h, c, logits, alpha = self._step(t, features, ctx_enc, h, c, emb)
             tok = logits.argmax(dim=-1)
             ids.append(tok)
@@ -279,7 +293,7 @@ class ShowAttendTell(nn.Module):
 
         @torch.no_grad()
         def step_fn(carry, token_ids):
-            emb = embedding_lookup(t["embed"], token_ids)
+            emb = embedding_lookup(t["embed"], token_ids, self.vocab_mesh)
             h, c, logits, _ = self._step(t, features, ctx_enc, carry["h"], carry["c"], emb, k)
             return {"h": h, "c": c}, logits
 

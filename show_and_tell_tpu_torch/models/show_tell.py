@@ -21,6 +21,11 @@ its plain version for CPU tensors.
 the new running statistics without writing them: the training step commits
 them when it applies the update (``train/step.py``), so that a skipped
 non-finite step leaves them as they were.
+
+On a mesh (``parallel.mesh.place_params`` sets ``mesh``) the BatchNorm takes
+the global batch's statistics, the embedding and the head may hold this
+rank's slice of the vocabulary, and the random draws of training are made
+for the global batch.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ from show_and_tell_tpu_torch.models.layers import (
     cast_tree,
     dense,
     embedding_lookup,
+    vocab_dense,
 )
 from show_and_tell_tpu_torch.models.quantize import backbone_features_q
 from show_and_tell_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
+from show_and_tell_tpu_torch.parallel.mesh import rand_rows, vocab_parallel
 from show_and_tell_tpu_torch.utils.device import resolve_device
 
 Params = Dict
@@ -70,6 +77,8 @@ class ShowTell(nn.Module):
     """Parameters live in the module; ``trainable_tree()``, ``frozen_tree()``
     and ``batch_stats`` give them as the JAX package's ``(trainable,
     frozen)`` trees and its ``batch_stats``."""
+
+    mesh = None  # the parallel.mesh.Mesh the model is placed on, if any
 
     def __init__(
         self,
@@ -123,6 +132,12 @@ class ShowTell(nn.Module):
         return encoders.module_tree(self.encoder)
 
     @property
+    def vocab_mesh(self):
+        """The mesh when the vocabulary is split over its model axis, else
+        None."""
+        return self.mesh if vocab_parallel(self.mesh, self.vocab_size) else None
+
+    @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         """The BatchNorm's running statistics: the model's own buffers."""
         return {"mean": self.bn.mean, "var": self.bn.var}
@@ -147,7 +162,7 @@ class ShowTell(nn.Module):
         f = dense(self.proj, features)
         bn = {"scale": self.bn.scale, "bias": self.bn.bias, "mean": self.bn.mean, "var": self.bn.var}
         if train:
-            y, new = batch_norm_train(bn, f, momentum=BN_MOMENTUM)
+            y, new = batch_norm_train(bn, f, momentum=BN_MOMENTUM, mesh=self.mesh)
             return y, {"mean": new["mean"].detach(), "var": new["var"].detach()}
         return batch_norm_inference(bn, f), self.batch_stats
 
@@ -210,24 +225,24 @@ class ShowTell(nn.Module):
         state = self.zero_state(B, feat.device)
         if isinstance(ss_prob, (int, float)) and float(ss_prob) == 0.0:
             # time-major, so that each step's input rows are contiguous
-            emb = embedding_lookup(t["embed"], captions[:, 1:steps].t())  # [T-2, B, E]
+            emb = embedding_lookup(t["embed"], captions[:, 1:steps].t(), self.vocab_mesh)  # [T-2, B, E]
             xs = torch.cat([feat[None], emb], dim=0)
             outs = []
             for s in range(steps):
                 out, state = self._run_lstm_stack(t, xs[s], state)
                 outs.append(out)
-            return dense(t["out"], torch.stack(outs, 1)), mask
+            return vocab_dense(t["out"], torch.stack(outs, 1), self.vocab_mesh), mask
 
         logits = []
         x = feat
         for s in range(steps):
             if s > 0:
                 tok = captions[:, s]
-                u = torch.rand((B,), generator=generator, device=tok.device)
+                u = rand_rows(generator, (B,), tok.device, self.mesh)
                 tok = torch.where(u < ss_prob, logits[-1].argmax(dim=-1), tok)
-                x = embedding_lookup(t["embed"], tok)
+                x = embedding_lookup(t["embed"], tok, self.vocab_mesh)
             out, state = self._run_lstm_stack(t, x, state)
-            logits.append(dense(t["out"], out))
+            logits.append(vocab_dense(t["out"], out, self.vocab_mesh))
         return torch.stack(logits, 1), mask
 
     # --- decoding step interface -----------------------------------------
@@ -251,11 +266,11 @@ class ShowTell(nn.Module):
         t = self._cast_for_compute()
         f = f.to(self.cdtype)
         out, state = self._run_lstm_stack(t, f, self.zero_state(f.shape[0], f.device))
-        first_logits = dense(t["out"], out)
+        first_logits = vocab_dense(t["out"], out, self.vocab_mesh)
 
         @torch.no_grad()
         def step_fn(carry, token_ids):
-            out, carry = self._run_lstm_stack(t, embedding_lookup(t["embed"], token_ids), carry)
-            return carry, dense(t["out"], out)
+            out, carry = self._run_lstm_stack(t, embedding_lookup(t["embed"], token_ids, self.vocab_mesh), carry)
+            return carry, vocab_dense(t["out"], out, self.vocab_mesh)
 
         return step_fn, state, first_logits

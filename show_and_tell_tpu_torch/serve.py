@@ -12,6 +12,10 @@ a few shapes. Center crop, normalisation, the trunk and the decode all run
 on the device. Every entry point holds one re-entrant lock, so threads
 may share a Captioner. The ``DynamicBatcher`` coalesces single-image
 requests from many threads into bucketed batches on one worker thread.
+
+Over a mesh (``Captioner(..., mesh=make_mesh(...))``, one process per
+device) every rank is given the same images, decodes its data index's rows
+of each chunk, and returns the whole result, gathered over the data group.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from show_and_tell_tpu_torch.decode.beam import beam_search
 from show_and_tell_tpu_torch.decode.dispatch import decode_ids
 from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.models.registry import build_model
+from show_and_tell_tpu_torch.parallel import collectives
+from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
 from show_and_tell_tpu_torch.utils.device import resolve_device
 from show_and_tell_tpu_torch.utils.rng import KeyChain
 from show_and_tell_tpu_torch.utils.vocab import Vocabulary
@@ -56,10 +62,18 @@ class Captioner:
         vocab: Vocabulary,
         device: Union[str, torch.device] = "cuda",
         bucket_sizes: Optional[Sequence[int]] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         """``params``: a state dict for ``model`` (e.g. from
         ``ckpt.convert.from_jax_params``), or None to serve the model's own
-        weights. The model is moved to ``device``."""
+        weights. The model is moved to ``device``.
+
+        ``mesh``: serving over a mesh of processes (the JAX Captioner's
+        ``mesh``), each rank this device's: the trainable weights and
+        statistics become rank 0's, each request chunk is split over the
+        ``data`` axis, and every rank returns the whole result. Explicit
+        ``bucket_sizes`` must be divisible by the data axis; the default
+        buckets are rounded up to multiples of it."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)
@@ -67,6 +81,13 @@ class Captioner:
             self.model.load_state_dict(params)
         self.vocab = vocab
         self.bucket_sizes = sorted(bucket_sizes or DEFAULT_BUCKETS)
+        self.mesh = mesh
+        if mesh is not None:
+            bad = [b for b in self.bucket_sizes if b % mesh.data]
+            if bad and bucket_sizes is not None:
+                raise ValueError(f"bucket sizes {bad} not divisible by the mesh data axis ({mesh.data})")
+            self.bucket_sizes = sorted({-(-b // mesh.data) * mesh.data for b in self.bucket_sizes})
+            mesh_lib.replicate(mesh, {**ckpt.trainable_state_dict(self.model), **(self.model.batch_stats or {})})
         # sampling knobs (mode="sample")
         self.temperature = 1.0
         self.top_k = 0
@@ -166,15 +187,25 @@ class Captioner:
             i += b
 
     def _features(self, chunk: np.ndarray) -> torch.Tensor:
+        """The trunk's features of this rank's rows of a bucket chunk (all of
+        them without a mesh)."""
+        chunk = chunk[mesh_lib.batch_rows(self.mesh, chunk.shape[0])]
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         return self.model.backbone_features(eval_transform(x, self.cfg.crop_size))
 
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """A chunk's result from this rank's rows: every rank's, in order."""
+        if self.mesh is None or not self.mesh.distributed:
+            return t
+        return collectives.all_gather(t, self.mesh.data_group, self.mesh.data_index, self.mesh.data)
+
     @torch.inference_mode()
     def _ids(self, images_u8: np.ndarray, mode: str, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return decode_ids(
+        """The ids of a whole bucket chunk."""
+        return self._gathered(decode_ids(
             self.model, self.cfg, self._features(images_u8), mode, generator=generator,
-            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
-        )
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p, mesh=self.mesh,
+        ))
 
     @staticmethod
     def _to_host(ids: torch.Tensor):
@@ -312,6 +343,7 @@ class Captioner:
                         max_len=cfg.max_decode_len, length_penalty=cfg.length_penalty,
                         first_logits=first, tile=tile, return_all=True,
                     )
+                    ids, scores = self._gathered(ids), self._gathered(scores)
                 ids = ids[:live].cpu().numpy()  # [live, k, T]
                 scores = scores[:live].float().cpu().numpy()  # [live, k]
                 for r in range(live):
@@ -337,6 +369,7 @@ class Captioner:
             for _, chunk, live in self._chunks(images_u8):
                 with torch.inference_mode():
                     ids, alpha = model.greedy_with_attention(self._features(chunk), max_len=cfg.max_decode_len)
+                    ids, alpha = self._gathered(ids), self._gathered(alpha)
                 caps.extend(self.vocab.decode_batch(ids[:live].cpu().numpy()))
                 alphas.append(alpha[:live].float().cpu().numpy())
             return caps, np.concatenate(alphas, axis=0)

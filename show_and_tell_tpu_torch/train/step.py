@@ -28,6 +28,16 @@ running statistics without writing them, and ``apply`` copies them into
 parameters, so a step skipped as non-finite leaves them as they were. They
 move on every micro-step under gradient accumulation, as the JAX package's
 do.
+
+On a mesh (the model placed by ``parallel.mesh.place_params``) the step is
+one device's step over the global batch, as the JAX package's one SPMD
+program is: each rank holds its rows, the loss is divided by the global
+token count, ``backward`` sums the gradients over the data group in one
+flat buffer before the clamp and Adam, the global norm sums the squares of
+the vocabulary slices over the model group, the random draws are made for
+the global batch, and Show-and-Tell's BatchNorm takes the global batch's
+statistics. ``gather_train_state`` and ``place_train_state`` carry a state
+of vocabulary slices to a file of full tensors and back.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ import torch
 from show_and_tell_tpu_torch.ckpt.checkpoint import trainable_state_dict
 from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.data.transforms import eval_transform, train_transform
+from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
+from show_and_tell_tpu_torch.parallel.collectives import all_reduce
 from show_and_tell_tpu_torch.train.losses import masked_cross_entropy
 
 Tensors = Dict[str, torch.Tensor]
@@ -78,6 +90,57 @@ def make_train_state(cfg: Config, model) -> TrainState:
                       batch_stats=model.batch_stats)
 
 
+def gather_train_state(mesh, state: TrainState, shardings) -> TrainState:
+    """The full train state of a state of vocabulary slices (every rank of
+    the mesh calls this): the params, Adam's moments, the accumulated
+    gradients and the EMA gathered over the model group. Replicated tensors
+    are the state's own, not copies."""
+
+    def full(tree):
+        return None if tree is None else mesh_lib.gather_params(mesh, tree, shardings)
+
+    opt = dict(state.opt_state)
+    for k in ("mu", "nu", "acc_grads"):
+        if k in opt:
+            opt[k] = full(opt[k])
+    return TrainState(params=full(state.params), opt_state=opt, step=state.step,
+                      ema_params=full(state.ema_params), batch_stats=state.batch_stats)
+
+
+@torch.no_grad()
+def place_train_state(mesh, full: TrainState, state: TrainState, shardings) -> TrainState:
+    """Copy this rank's slices of a full train state (one restored from a
+    file) into ``state``'s tensors, the model's parameters among them: the
+    counterpart of the JAX package's ``place_train_state``. Returns
+    ``state``."""
+
+    def put(dst, src):
+        for k, t in (dst or {}).items():
+            s = mesh_lib.local_slice(mesh, src[k], shardings.get(k))
+            if s.data_ptr() != t.data_ptr():
+                t.copy_(s)
+
+    opt, fopt = state.opt_state, full.opt_state
+    put(state.params, full.params)
+    for k in ("mu", "nu", "acc_grads"):
+        if k in opt:
+            put(opt[k], fopt[k])
+    put(state.ema_params, full.ema_params)
+    put(state.batch_stats, full.batch_stats)
+    opt["count"] = fopt["count"]
+    if "mini_step" in opt:
+        opt["mini_step"] = fopt["mini_step"]
+    state.step = full.step
+    return state
+
+
+def _sum_over_data(grads: Tensors, mesh) -> Tensors:
+    """The gradients summed over the data group, in one flat buffer."""
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]), mesh.data_group)
+    parts = torch.split(flat, [g.numel() for g in grads.values()])
+    return {k: p.view_as(g) for (k, g), p in zip(grads.items(), parts)}
+
+
 def _adam_update(cfg: Config, opt_state: Dict[str, Any], params: Tensors, grads: Tensors, lr: float):
     """Clamp, Adam, times -lr: updates params and opt_state in place."""
     count = opt_state["count"] + 1
@@ -113,11 +176,17 @@ class TrainStep:
 
     The phases are methods, so that a caller can time them apart:
     ``features`` (the trunk), ``forward``, ``backward`` and ``apply`` (the
-    optimizer)."""
+    optimizer).
+
+    On a mesh (``model.mesh``) the batch is this rank's rows of the global
+    batch and ``generator`` draws the global batch's numbers on every rank;
+    the metrics are the global batch's."""
 
     def __init__(self, model, cfg: Config):
         self.model = model
         self.cfg = cfg
+        self.mesh = getattr(model, "mesh", None)
+        self.shardings = mesh_lib.model_shardings(model)
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.random_seed)
         # the running statistics of the last forward, which apply commits
@@ -129,7 +198,7 @@ class TrainStep:
         images = batch["images"].to(self.device)
         with torch.no_grad():
             if images.dtype == torch.uint8:
-                images = train_transform(generator or self.generator, images, self.cfg.crop_size)
+                images = train_transform(generator or self.generator, images, self.cfg.crop_size, mesh=self.mesh)
             return self.model.backbone_features(images)
 
     def forward(
@@ -150,20 +219,33 @@ class TrainStep:
                 logits, mask = self.model.decode_train(feat_embed, captions, lengths, generator, ss_prob)
             else:
                 logits, mask, _ = self.model.decode_train(features, captions, lengths, generator, ss_prob)
-            return masked_cross_entropy(logits, captions[:, 1:], mask)
+            return masked_cross_entropy(logits, captions[:, 1:], mask, self.mesh)
 
     def backward(self, state: TrainState, loss: torch.Tensor) -> Tensors:
-        """The gradients of ``loss`` by parameter name."""
+        """The gradients of ``loss`` by parameter name, over a mesh summed
+        over the data group: the global batch's."""
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names], allow_unused=True)
-        return {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, grads)}
+        grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, grads)}
+        if self.mesh is not None and self.mesh.distributed:
+            grads = _sum_over_data(grads, self.mesh)
+        return grads
+
+    def _grad_norm(self, grads: Tensors) -> torch.Tensor:
+        """The global norm: the squares of the vocabulary slices summed over
+        the model group, the replicated gradients counted once."""
+        split = {k for k, ax in self.shardings.items() if ax is not None}
+        if not split:
+            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+        sq = {s: sum((g.float() ** 2).sum() for k, g in grads.items() if (k in split) == s) for s in (False, True)}
+        return torch.sqrt(sq[False] + all_reduce(sq[True], self.mesh.model_group))
 
     @torch.no_grad()
     def apply(self, state: TrainState, grads: Tensors, lr: float) -> Tuple[TrainState, torch.Tensor]:
         """The update for one step's gradients, and the running statistics
         of the forward before it. Returns (state, grad_norm)."""
         cfg = self.cfg
-        grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+        grad_norm = self._grad_norm(grads)
         finite = bool(torch.isfinite(grad_norm))
         opt = state.opt_state
         new_stats, self.new_stats = self.new_stats, None
@@ -201,6 +283,8 @@ class TrainStep:
         grads = self.backward(state, loss)
         state, grad_norm = self.apply(state, grads, lr)
         loss = loss.detach()
+        if self.mesh is not None and self.mesh.distributed:
+            loss = all_reduce(loss, self.mesh.data_group)
         metrics = {"loss": loss, "perplexity": torch.exp(loss), "tokens": count, "grad_norm": grad_norm}
         return state, metrics
 

@@ -1,5 +1,5 @@
 """Training runtime: the reference ``Trainer`` (train.py:20-197) over the
-port's ``TrainStep`` on one device.
+port's ``TrainStep``, on one device or on a mesh of processes.
 
 Epoch and iteration semantics are the JAX package's:
 - epochs run 1..max_epochs (train.py:97); resume skips completed epochs and
@@ -14,9 +14,15 @@ Epoch and iteration semantics are the JAX package's:
   and save the full train state for ``start_from``.
 
 Against the JAX trainer:
-- one device: ``multihost``, ``num_devices`` > 1 and ``model_parallel`` > 1
-  raise (ROADMAP.md A9); ``use_pallas`` is ignored (the wrappers pick the
-  kernels by device);
+- the mesh (``parallel/mesh.py``, from ``num_devices`` and
+  ``model_parallel``) is one process per device, every rank running this
+  loop in step: each keeps its rows of every batch (``multihost``: its own
+  loader's batch is its rows), the embedding and head hold its slice of the
+  vocabulary under ``model_parallel`` > 1, and rank 0 alone writes infos and
+  checkpoints, from gathered tensors in the one-device format; evaluation
+  runs on rank 0 over the full weights and a broadcast gives every rank its
+  result, and a preemption on any rank stops every rank after the same
+  step. ``use_pallas`` is ignored (the wrappers pick the kernels by device);
 - the model arrives built, its weights in its own ``Parameter``s (and
   Show-and-Tell's BatchNorm statistics in its buffers), which the step
   updates in place; the trainer loads ``encoder_weights``,
@@ -47,9 +53,16 @@ from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.obs.meters import StepTimer, ThroughputMeter
 from show_and_tell_tpu_torch.obs.profiler import profile_trace
+from show_and_tell_tpu_torch.parallel import distributed
+from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
 from show_and_tell_tpu_torch.train.preempt import PreemptionGuard, RssWatchdog
 from show_and_tell_tpu_torch.train.schedule import lr_for_epoch, ss_prob_for_epoch
-from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+from show_and_tell_tpu_torch.train.step import (
+    gather_train_state,
+    make_train_state,
+    make_train_step,
+    place_train_state,
+)
 from show_and_tell_tpu_torch.utils.rng import KeyChain
 
 log = logging.getLogger(__name__)
@@ -63,16 +76,14 @@ class Trainer:
         trainloader: Iterable,
         validloader: Optional[Iterable] = None,
         eval_fn: Optional[Callable] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         """``eval_fn(params) -> (val_loss, predictions, lang_stats)``, with
         ``params`` the trainable tensors by state-dict name
         (``evalsuite.driver.make_trainer_eval_fn``); ``lang_stats`` must
-        contain 'CIDEr' when cfg.language_eval == 1."""
-        if cfg.multihost or cfg.num_devices > 1 or cfg.model_parallel > 1:
-            raise NotImplementedError(
-                "multihost, num_devices > 1 and model_parallel > 1: the port trains on one device; "
-                "multi-device is not ported yet, see ROADMAP.md A9"
-            )
+        contain 'CIDEr' when cfg.language_eval == 1. ``mesh`` defaults to
+        ``make_mesh(cfg.num_devices, cfg.model_parallel)`` on the model's
+        device, which raises where the JAX one does."""
         self.cfg = cfg
         self.model = model
         self.trainloader = trainloader
@@ -104,6 +115,11 @@ class Trainer:
                 )
             log.info("initialized trainable params from reference checkpoint %s", cfg.torch_checkpoint)
 
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(
+            cfg.num_devices, cfg.model_parallel, device=self.device)
+        mesh_lib.replicate(self.mesh, {**ckpt.trainable_state_dict(model), **(model.batch_stats or {})})
+        mesh_lib.place_params(self.mesh, model)
+        self.shardings = mesh_lib.model_shardings(model)
         self.state = make_train_state(cfg, model)
         self.train_step = make_train_step(model, cfg)
         self.timer = StepTimer()
@@ -121,31 +137,38 @@ class Trainer:
             return self.state.ema_params
         return self.state.params
 
-    def _maybe_quantize_backbone(self, dev_batch: Dict[str, torch.Tensor]) -> None:
+    def _maybe_quantize_backbone(self, batch) -> None:
         """With ``cfg.quantize_backbone``, calibrate the frozen trunk's int8
-        copy on the first batch of images (its first 32, through the eval
-        transform; or load ``cfg.quantized_backbone_path``): every later
-        training step, evaluation and served caption then runs the int8
-        features. Nothing for a batch of features or a trunk without a
-        recipe."""
-        if "images" not in dev_batch or not quantize.needs_calibration(self.model, self.cfg):
+        copy on the first loader batch of images (its first 32, through the
+        eval transform, the same on every rank of one host; or load
+        ``cfg.quantized_backbone_path``): every later training step,
+        evaluation and served caption then runs the int8 features. Nothing
+        for a batch of features or a trunk without a recipe."""
+        if "images" not in batch or not quantize.needs_calibration(self.model, self.cfg):
             return
-        quantize.calibrate_model(self.model, self.cfg, dev_batch["images"])
-        log.info("frozen backbone quantized to int8 (calibrated on %d images)", min(32, len(dev_batch["images"])))
+        images = torch.as_tensor(batch["images"][:32]).to(self.device)
+        quantize.calibrate_model(self.model, self.cfg, images)
+        log.info("frozen backbone quantized to int8 (calibrated on %d images)", len(images))
 
     _DEVICE_KEYS = ("captions", "lengths", "features", "images")
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """The array fields of a loader batch as tensors on the model's
-        device; metadata (imgids, cocoids) stays on the host. To a card the
-        copy is queued from pinned memory and does not wait."""
+        """This rank's rows of the array fields of a loader batch as tensors
+        on the model's device (``shard_batch``; under ``multihost`` the
+        loader's batch is the rank's rows, ``globalize_batch``); metadata
+        (imgids, cocoids) stays on the host. To a card the copy is queued
+        from pinned memory and does not wait."""
+        fields = {k: batch[k] for k in self._DEVICE_KEYS if k in batch}
+        if self.cfg.multihost:
+            rows = distributed.globalize_batch(self.mesh, fields)
+        else:
+            rows = mesh_lib.shard_batch(self.mesh, fields)
         out = {}
-        for k in self._DEVICE_KEYS:
-            if k in batch:
-                t = torch.as_tensor(batch[k])
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
+        for k, v in rows.items():
+            t = torch.as_tensor(v)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
         return out
 
     def train(self, preempt_guard: Optional[PreemptionGuard] = None) -> dict:
@@ -170,16 +193,21 @@ class Trainer:
     def _resume(self, cfg: Config) -> Dict:
         """Restore ``cfg.start_from``: its infos, and the full train state,
         else the best params (the EMA re-seeded from them). Returns the
-        infos, or {} when the directory holds none."""
+        infos, or {} when the directory holds none. Every rank reads the
+        same files and keeps its slices."""
         infos = ckpt.load_infos(cfg.start_from)
         if not infos:
             return {}
         # the copies land in the model's own Parameters and the state's
-        # tensors, so self.state stays bound to the model
-        if ckpt.load_train_state(cfg.start_from, self.state) is None:
-            if ckpt.load_best_params(cfg.start_from, self.state.params, self.state.batch_stats) is not None:
-                if self.state.ema_params is not None:
-                    ckpt.copy_into(self.state.ema_params, self.state.params, "ema_params")
+        # tensors, so self.state stays bound to the model; a full-shape
+        # template takes the file where the state holds vocabulary slices
+        full = gather_train_state(self.mesh, self.state, self.shardings)
+        if ckpt.load_train_state(cfg.start_from, full) is not None:
+            place_train_state(self.mesh, full, self.state, self.shardings)
+        elif ckpt.load_best_params(cfg.start_from, full.params, self.state.batch_stats) is not None:
+            place_train_state(self.mesh, full, self.state, self.shardings)
+            if self.state.ema_params is not None:
+                ckpt.copy_into(self.state.ema_params, self.state.params, "ema_params")
         log.info("resuming from %s", cfg.start_from)
         return infos
 
@@ -256,7 +284,7 @@ class Trainer:
                 it = off + 1 + skip_n
                 total_iteration += 1
                 unpersisted = (epoch, it, total_iteration)
-                self._maybe_quantize_backbone(dev_batch)
+                self._maybe_quantize_backbone(batch)
                 generator = self.keys.generator("train", epoch, it, device=self.device)
                 with profile_trace(
                     cfg.profile_dir, enabled=cfg.profile_dir is not None and cfg.profile_step == total_iteration
@@ -288,7 +316,7 @@ class Trainer:
                     window_t0 = time.perf_counter()
                     window_items = window_steps = 0
 
-                if guard is not None and guard.triggered:
+                if mesh_lib.any_rank(self.mesh, guard is not None and guard.triggered):
                     if pending_log is not None:
                         self._log_step_line(*pending_log)
                     self._emergency_save(
@@ -356,17 +384,23 @@ class Trainer:
         )
         if preempted:
             infos["preempted"] = True
-        ckpt.save_infos(cfg.expr_dir, infos)
-        ckpt.save_train_state(cfg.expr_dir, self.state)
+        full = gather_train_state(self.mesh, self.state, self.shardings)
+        if self.mesh.rank == 0:  # one writer, in the one-device format
+            ckpt.save_infos(cfg.expr_dir, infos)
+            ckpt.save_train_state(cfg.expr_dir, full)
 
     def _checkpoint(
         self, epoch, it, total_iteration, train_loss, lr, best_val_score,
         val_result_history, loss_history, lr_history, infos,
     ):
         cfg = self.cfg
-        val_loss, predictions, lang_stats = None, [], {}
-        if self.eval_fn is not None:
-            val_loss, predictions, lang_stats = self.eval_fn(self.eval_params())
+        params = mesh_lib.gather_params(self.mesh, self.eval_params(), self.shardings)
+        evaluated = None, [], {}
+        with mesh_lib.full_weights(self.model):
+            if self.eval_fn is not None and self.mesh.rank == 0:
+                evaluated = self.eval_fn(params)
+        # rank 0's result on every rank, so that all take the gate's branch
+        val_loss, predictions, lang_stats = mesh_lib.broadcast_object(self.mesh, evaluated)
         val_result_history[str(total_iteration)] = {
             "loss": val_loss,
             "lang_stats": lang_stats,
@@ -391,7 +425,7 @@ class Trainer:
         self._persist_state(
             epoch, it, total_iteration, best_val_score, val_result_history, loss_history, lr_history, infos,
         )
-        if best_flag:
-            ckpt.save_best(cfg.expr_dir, self.eval_params(), self.state.batch_stats, infos)
+        if best_flag and self.mesh.rank == 0:
+            ckpt.save_best(cfg.expr_dir, params, self.state.batch_stats, infos)
             log.info("model saved to %s (score %.4f)", cfg.expr_dir, current_score or 0)
         return best_val_score

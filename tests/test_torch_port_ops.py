@@ -403,6 +403,7 @@ def test_port_imports_nothing_of_jax():
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, fn) for fn in files if fn.endswith(".py")]
     assert os.path.join(PORT, "models", "quantize.py") in paths  # the int8 trunk
+    assert os.path.join(PORT, "parallel", "distributed.py") in paths  # multi-device
     bad = []
     for path in paths:
         with open(path) as fh:
@@ -418,3 +419,52 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
     assert _FORBIDDEN.match("show_and_tell_tpu.ops")
     assert not _FORBIDDEN.match("show_and_tell_tpu_torch.ops")
+
+
+# What of the JAX package has no counterpart of the same name in the port,
+# and why (ROADMAP.md A10): a module by its path, a public function or class
+# by "path:name".
+NOT_PORTED = {
+    "utils/compile_cache.py": "JAX's persistent XLA compile cache: the port compiles no XLA, and its kernel and "
+                              "scorer builds are cached in show_and_tell_tpu_torch/_build/",
+    "ops/lstm.py:set_pallas_enabled": "the Pallas toggle (Config.use_pallas): the port's wrappers pick the kernel "
+                                      "by the tensor's device",
+    "ops/lstm.py:pallas_active": "the Pallas toggle's reader, as set_pallas_enabled",
+    "parallel/mesh.py:batch_sharding": "a NamedSharding: the port keeps each rank's rows (shard_batch)",
+    "parallel/mesh.py:replicated": "a NamedSharding: the port broadcasts from rank 0 (replicate)",
+    "train/step.py:make_optimizer": "the optax chain: the port writes the clamp and Adam out (_adam_update)",
+    "models/layers.py:kaiming_conv": "inside the port's init_conv",
+    "models/show_attend_tell.py:ShowAttendTellModel": "the port's nn.Module is ShowAttendTell",
+    "models/show_tell.py:ShowTellModel": "the port's nn.Module is ShowTell",
+}
+
+
+def _public_names(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def test_every_jax_module_and_public_name_has_a_port_counterpart():
+    """The closing inventory: every module of the JAX package has a module
+    of the same path in the port, and every public top-level function and
+    class of it one of the same name there, or it is in NOT_PORTED with
+    its reason; and NOT_PORTED names nothing that the port has since
+    gained."""
+    jax_pkg = os.path.join(REPO, "show_and_tell_tpu")
+    missing, stale = [], [k for k in NOT_PORTED]
+    for root, _, files in os.walk(jax_pkg):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, fn), jax_pkg).replace(os.sep, "/")
+            port = os.path.join(PORT, rel)
+            if not os.path.exists(port):
+                (stale.remove if rel in NOT_PORTED else missing.append)(rel)
+                continue
+            for name in sorted(_public_names(os.path.join(root, fn)) - _public_names(port)):
+                key = f"{rel}:{name}"
+                (stale.remove if key in NOT_PORTED else missing.append)(key)
+    assert not missing, f"no counterpart in the port and no reason in NOT_PORTED: {missing}"
+    assert not stale, f"NOT_PORTED entries that the port has, or that the JAX package no longer has: {stale}"

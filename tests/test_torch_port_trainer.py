@@ -280,15 +280,20 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tiny):
         extract_features.main(argv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main.main(Config(**SMALL))
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli_main.main(Config(multihost=True), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main.main(Config(**dict(SMALL, num_devices=2)))
 
 
-@pytest.mark.parametrize("kw,what", [(dict(num_devices=2), "A9"), (dict(model_parallel=2), "A9"),
-                                     (dict(multihost=True), "A9")])
+@pytest.mark.parametrize("kw,what", [(dict(num_devices=2), "requested 2 devices"),
+                                     (dict(num_devices=0, model_parallel=2), "not divisible by model_parallel=2"),
+                                     (dict(multihost=True, num_devices=2), "requested 2 devices")])
 def test_trainer_refuses_what_is_not_ported(tiny, kw, what):
+    """Multi-device is ported (``tests/test_torch_port_parallel.py``); the
+    Trainer refuses only what the JAX ``make_mesh`` refuses: more devices
+    than there are ranks (a process without a group drives one), and a
+    device count that ``model_parallel`` does not divide."""
     model = build_model(Config(**SMALL), tiny["V"], device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         Trainer(Config(**SMALL).replace(**kw), model, [])
 
 

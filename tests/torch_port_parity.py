@@ -15,7 +15,10 @@ sheets and the export CLI's ``.pth`` against the JAX package's, and
 Show-and-Tell's BatchNorm layers, trunks, logits and train steps, and the
 int8 trunk: one int8 conv per geometry, the quantized weights and scales,
 each trunk's features over the JAX package's calibrated tree, and the
-cosine of each calibration against its fp32 trunk. Not a test module: it
+cosine of each calibration against its fp32 trunk, and multi-device: the
+port's DP=2, TP=2 and DP=2 x TP=2 train steps (gloo ranks on the CPU)
+against the JAX meshes, 2 ranks against 1, Show-and-Tell's BatchNorm
+statistics at DP=2, and the Captioner over 2 ranks. Not a test module: it
 reports the numbers that the tests only bound.
 
 It also holds ``to_jax_params``, the inverse of the port's
@@ -27,6 +30,9 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
+# the JAX meshes of the multi-device figures take up to 4 of 8 virtual CPU devices, as the tests do
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
@@ -419,6 +425,41 @@ def int8():
             one_minus_cos_jax=1 - jq.feature_agreement(t["jtree"], t["jq"], jnp.asarray(t["x"])))
 
 
+def parallel():
+    """Multi-device: the train steps of each mesh against the JAX mesh's
+    (losses relative, params of scale), each 2-rank case against one
+    process, the BatchNorm statistics, and the Captioner's captions."""
+    import tempfile
+
+    import test_torch_port_parallel as tp
+    import torch_port_ranks as ranks
+
+    trainable, frozen, sat = tp._sat_weights()
+    _, st_trainable, st_stats, st = tp._st_weights()
+    cases = [tp._case(tp.SAT, tm.V, sat, tp._batch(tm.V)), tp._case(tp.SAT, tm.V, sat, tp._batch(tm.V), mp=2),
+             tp._case(tp.SAT, tm.V, sat, tp._batch(tm.V, images=True), trunk=True),
+             tp._case(tp.ST, tp.tst.V, st, tp._batch(tp.tst.V, features=(tp.tst.F,)))]
+    with tempfile.TemporaryDirectory() as tmp:
+        two = ranks.run("train", 2, os.path.join(tmp, "2"), {"cases": cases})[0]
+        four = ranks.run("train", 4, os.path.join(tmp, "4"), {"cases": cases[1:2]})[0]
+    for name, res in (("dp2", two[0]), ("tp2", two[1]), ("dp2xtp2", four[0])):
+        n, mp = tp.MESHES[name]
+        losses, params, _ = tp._jax_run(tp.SAT, tm.V, trainable, frozen, None, tp._batch(tm.V), n, mp)
+        row(f"parallel {name} vs the JAX mesh, 3 steps", loss_rel=float(
+            np.abs(np.array(res["losses"]) - losses).max() / np.abs(losses).max()), params=tp._rel(res["params"], params))
+    for i, label in enumerate(("dp2 features", "tp2 features", "dp2 images", "show_tell dp2")):
+        one = ranks.train_case(dict(cases[i], mp=1), 1)
+        row(f"parallel {label}: 2 ranks vs 1", loss_rel=float(
+            np.abs(np.array(two[i]["losses"]) - one["losses"]).max() / np.abs(one["losses"]).max()),
+            params=tp._rel(two[i]["params"], one["params"]),
+            proj_b=float(np.abs(two[i]["params"]["proj.b"] - one["params"]["proj.b"]).max()) if i == 3 else 0.0)
+    one = ranks.train_case(dict(cases[3], mp=1), 1)
+    _, _, jstats = tp._jax_run(tp.ST, tp.tst.V, st_trainable, None, st_stats, cases[3]["batch"], 2, 1)
+    row("parallel show_tell dp2 BatchNorm stats (of scale)", **{
+        f"{k}_vs_{w}": float(np.abs(two[3]["stats"][k] - ref[k]).max() / np.abs(ref[k]).max())
+        for k in ("mean", "var") for w, ref in (("one", one["stats"]), ("jax", jstats))})
+
+
 def main():
     print(f"jax {jax.__version__}, torch {torch.__version__}, CPU")
     cell()
@@ -432,6 +473,7 @@ def main():
     front_door()
     show_tell()
     int8()
+    parallel()
 
 
 if __name__ == "__main__":
