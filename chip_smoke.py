@@ -13,7 +13,10 @@ Phases, each printing its own lines:
    suite's C++ scorers (``csrc/*.cpp``, one ``g++`` each, into
    ``show_and_tell_tpu_torch/_build/native/``); a failed build fails the run;
    the data pipeline's C++ image decoder is built beside them, and whether
-   it built (it needs libjpeg and libpng) is printed, not held;
+   it built (it needs libjpeg and libpng) is printed, not held; the probe's
+   machine code: MUFU.TANH per pair of its bf16x2 kernel (2) and of each
+   split instance ((4 - P) / 4 of that), asserted, and the instructions per
+   element the bounds count (o, c), printed;
 3. each of the seven kernels against its plain PyTorch version on the card, at
    the serving shapes, at phase 9's (the cell at B=64 and 192, the
    attentions at B=64) and at unaligned and ragged ones (the cell: B=300,
@@ -25,7 +28,9 @@ Phases, each printing its own lines:
    (image, beam) grid's ``onepass<C>`` or ``direct``, the transposed form's
    ``cluster<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
    probe's tanh form; the forms of the probe that do not meet the tolerance
-   are printed, not held): every output
+   are printed, not held; the probe's split forms also at its edge shapes,
+   on an unaligned view and with a NaN and +-inf in ce, and their
+   compute-only loop): every output
    within an absolute tolerance and, relative to the output's own scale (max
    |diff| / max |plain|), within a relative one, so that small outputs such
    as the context (a mean over L) are held as tightly as large ones; every
@@ -46,10 +51,14 @@ Phases, each printing its own lines:
    first (``direct``) kernels of the per-row attention, the (image, beam)
    grid, the transposed form and the scores, and the cluster kernel at K=1,
    are timed beside the design the plan picks, each with its share of the
-   bound; the tanh probe is timed per tanh form, with its tanh per second
-   beside the special-function rate assumed in the bounds and a plain read
+   bound; the tanh probe is timed per tanh form at K=3 and K=8 (bf16x2 and
+   the default also in turns), with its tanh per second beside both floors
+   of the tanh (the special-function units alone, and both pipes with a
+   share on the polynomial), the sustained MUFU rate of the K=8 runs, the
+   split forms' compute-only loop at 4 and 2 blocks per SM and a plain read
    of the same ce, and then runs the JAX benchmark's probe loop (20 steps,
-   each feeding the next step's hp), its launches counted;
+   each feeding the next step's hp), its launches counted and all of them
+   by the default form;
 5. serving: ``Captioner`` at the model's full width (VGG16 at 224 px,
    E=512, H=1024, V=10000, random weights from a seed, bf16) captions 256
    uint8 images by beam-3 and by greedy decoding; the kernel launch counts
@@ -229,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import concurrent.futures
 import contextlib
 import http.client
@@ -256,9 +266,27 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 # special-function operations per tanh by the probe's form: tanh.approx.bf16x2
 # runs as two MUFU.TANH.BF16, one per half (phase 2 counts them in the
-# probe's machine code), so no form does better than one per tanh; the
+# probe's machine code), so no form does better than one per tanh on those
+# units; split<P> runs P of each vector's 4 pairs as a polynomial on the FMA
+# pipe and the rest as bf16x2 (phase 2 counts its MUFU.TANH too); the
 # precise tanhf is a sequence the compiler picks and is not counted
-SFU_PER_TANH = {"bf16x2": 1.0, "approx_f32": 1.0, "ex2_rcp": 2.0, "precise": None}
+SFU_PER_TANH = {"bf16x2": 1.0, "approx_f32": 1.0, "ex2_rcp": 2.0, "precise": None,
+                **{f"split{p}": (4 - p) / 4 for p in range(5)}}
+# An SM issues one warp instruction per clock on each of its 4 schedulers:
+# 128 lane-instructions per clock, 8 for each special-function operation.
+PEAK_ISSUE_PER_S = 128 * 132 * 1.98e9
+# Instructions per element of the probe, from its machine code (cuobjdump
+# -sass of csrc/tanh_probe.cu, nvcc of CUDA 12.8 on the H100); phase 2
+# counts them again and prints them beside these:
+# o: the bf16x2 kernel's inner loop (the loop over k, the 7 rows of a batch
+#    unrolled) but its MUFU.TANH: 8.41 instructions per pair, 2 of them MUFU
+#    (the bf16 add, the unpack to fp32, the fp32 accumulate, the hp load
+#    from shared memory, the row guards and the loop's own);
+TANH_OTHER_PER_ELEMENT = 3.2
+# c: what the polynomial issues per element in place of the MUFU (the
+#    clamp, the widening, x^2, six FMAs, x * P, the rounding to bf16 and its
+#    unpack): split4's instructions over split0's, per element, plus one.
+TANH_POLY_PER_ELEMENT = 11.6
 
 SEED = 0
 # kernel vs plain version: max |diff| per output, absolute ...
@@ -286,10 +314,11 @@ HEAD_START_CYCLES = 2_000_000
 # autograd through the plain path, max |diff| / max |plain grad|
 GRAD_RTOL = 1e-4
 STEPS = 20  # decode steps of the beam-route chain, and of the probe's loop
+RATE_ITERS = 2000  # steps of the split forms' compute-only loop (32 tanh per thread each)
 # the tanh forms of the probe held against the plain version; tanh.approx.f32
 # (~2^-11 relative error) is printed, and held only where bf16 rounds it away
 PROBE_HELD = {torch.float32: ("ex2_rcp", "precise"),
-              torch.bfloat16: ("bf16x2", "approx_f32", "ex2_rcp", "precise")}
+              torch.bfloat16: ("bf16x2", "approx_f32", "ex2_rcp", "precise", *(f"split{p}" for p in range(5)))}
 CHAIN_REPS = 10  # timed decodes per route of the beam-route chain
 WARM_STEPS, TIMED_STEPS = 2, 10  # training steps
 
@@ -389,11 +418,43 @@ def scores_bound(B, K, L, D, dtype):
     return _bound(ops, nbytes, torch.float32, 1.0 * B * K * L * D)
 
 
+def tanh_floor(n_tanh):
+    """(ms, f): the least time for ``n_tanh`` bf16 tanh when each may run
+    on the special-function units or as the polynomial on the FMA pipe, and
+    the share f on the polynomial that reaches it: the least over f of the
+    larger of the MUFU time, (1 - f) n at PEAK_SFU_PER_S, and the issue
+    time, n (o + (1 - f) + f c) at PEAK_ISSUE_PER_S (o and c above). The
+    MUFU time falls with f and the issue time rises, so the least is where
+    they meet."""
+    o, c = TANH_OTHER_PER_ELEMENT, TANH_POLY_PER_ELEMENT
+    r = PEAK_ISSUE_PER_S / PEAK_SFU_PER_S
+    f = min(max((r - 1 - o) / (r - 1 + c), 0.0), 1.0)
+    t_sfu = (1 - f) * n_tanh / PEAK_SFU_PER_S
+    t_issue = n_tanh * (o + (1 - f) + f * c) / PEAK_ISSUE_PER_S
+    return max(t_sfu, t_issue) * 1e3, f
+
+
 def probe_bound(B, K, L, D, dtype):
+    """The probe's bound: the bytes, the fp32 add and accumulate, and for
+    bf16 the tanh over both pipes (``tanh_floor``); fp32 runs every tanh on
+    the special-function units. The floor of the special-function units
+    alone, which the earlier tables used, is printed beside it."""
     es = torch.tensor([], dtype=dtype).element_size()
-    ops = 2.0 * B * K * L * D  # add, accumulate per (b, k, l, d), fp32
+    n = 1.0 * B * K * L * D
+    ops = 2.0 * n  # add, accumulate per (b, k, l, d), fp32
     nbytes = (B * L * D + B * K * D) * es + B * D * 4  # in: ce hp; out
-    return _bound(ops, nbytes, torch.float32, 1.0 * B * K * L * D)
+    if dtype != torch.bfloat16:
+        return _bound(ops, nbytes, torch.float32, n)
+    t_tanh, f = tanh_floor(n)
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    parts = (f"bytes {t_bytes:.4f}, operations {t_ops:.4f}, tanh over both pipes {t_tanh:.4f} "
+             f"(polynomial share {f:.3f}), special-function only {n / PEAK_SFU_PER_S * 1e3:.4f}")
+    if t_bytes >= max(t_ops, t_tanh):
+        return t_bytes, "bytes", None, parts
+    if t_tanh > t_ops:
+        return t_tanh, "operations", "tanh over both pipes", parts
+    return t_ops, "operations", "float32", parts
 
 
 def _bound(ops, nbytes, op_dtype, sfu=0.0):
@@ -519,34 +580,114 @@ def phase_build():
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"  {src}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"spill stores at most {max(spills)} bytes (ptxas -v)")
-    print(f"  {mufu_per_pair()}")
+    for line in probe_machine_code():
+        print(f"  {line}")
 
 
-def mufu_per_pair() -> str:
-    """How many special-function instructions ``tanh.approx.bf16x2`` became:
-    the MUFU.TANH in the machine code of the probe's bf16x2 kernel (16-byte
-    vectors) over the pairs of elements its source forms a tanh of (two
-    batches of U rows of 4 pairs, the loop over k not unrolled). The bounds
-    count one operation per tanh (SFU_PER_TANH), two per pair: where the
-    toolkit has ``cuobjdump``, any other count raises."""
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRANCH = re.compile(r"^BRA\s+0x([0-9a-f]+)$")
+
+
+def _sass_kernels(tool, path):
+    """{kernel's mangled name: [(address, opcode, branch target or None)]}
+    of a library's machine code, predicates dropped."""
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120).stdout
+    kernels = {}
+    for fn in text.split("Function : ")[1:]:
+        name, body = fn.split("\n", 1)
+        insns = []
+        for m in _SASS_INSN.finditer(body):
+            words = m.group(2).split()
+            if words[0].startswith("@"):
+                words = words[1:]
+            target = _SASS_BRANCH.match(" ".join(words))
+            insns.append((int(m.group(1), 16), words[0], int(target.group(1), 16) if target else None))
+        kernels[name.strip()] = insns
+    return kernels
+
+
+def _inner_loop_mix(insns):
+    """(opcode -> count, pairs): the instructions of the innermost loops that
+    add bf16 pairs (the probe's loop over k, its rows unrolled), and how many
+    bf16 pair adds they hold. A loop is a backward branch."""
+    loops = [(t, a) for a, _, t in insns if t is not None and t < a]
+    inner = [(t, a) for t, a in loops if not any(t <= c and d <= a and (c, d) != (t, a) for c, d in loops)]
+    mix = collections.Counter()
+    for t, a in inner:
+        body = collections.Counter(op for addr, op, _ in insns if t <= addr <= a)
+        if any(_pair_adds(op) for op in body):
+            mix.update(body)
+    pairs = sum(n for op, n in mix.items() if _pair_adds(op))
+    return mix, pairs
+
+
+def _pair_adds(op):
+    return re.match(r"H(ADD|FMA)2(\.MMA)?\.BF16", op) is not None
+
+
+def probe_machine_code() -> list:
+    """What the probe's bf16 kernels on 16-byte vectors became, from their
+    machine code. bf16x2 (the first design): its MUFU.TANH over the pairs of
+    elements its source forms a tanh of (two batches of U rows of 4 pairs,
+    the loop over k not unrolled), and the instruction mix per pair of its
+    inner loop (o). split<P> (the ring design, each K instance): MUFU.TANH
+    per bf16 pair add, which must be (4 - P) / 4 of bf16x2's 2 per pair, and
+    from split4 against split0 (the same skeleton) what the polynomial issues
+    per element in place of the MUFU (c). Where the toolkit has
+    ``cuobjdump``, any other MUFU count raises. Returns the lines to print."""
     from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.ops import tanh_probe as tp
 
-    what = "tanh.approx.bf16x2 in the probe's machine code"
+    what = "the probe's machine code"
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return f"{what}: no cuobjdump (not measured)"
+        return [f"{what}: no cuobjdump (not measured)"]
     with open(os.path.join(cuda_lib.CSRC, "tanh_probe.cu")) as fh:
         pairs = 2 * int(re.search(r"constexpr int U = (\d+);", fh.read()).group(1)) * 4
-    sass = subprocess.run([tool, "-sass", cuda_lib._lib_path("tanh_probe.cu")],
-                          capture_output=True, text=True, timeout=120).stdout
-    for fn in sass.split("Function : ")[1:]:
-        if "Li8ELi0E" in fn.split("\n", 1)[0]:  # <bf16, VEC = 8, FORM = BF16X2>
-            n = len(re.findall(r"MUFU\.TANH", fn))
-            assert n == 2 * SFU_PER_TANH["bf16x2"] * pairs, \
-                f"{what}: {n} MUFU.TANH for {pairs} pairs; the bounds assume {SFU_PER_TANH['bf16x2']:g} per tanh"
-            return (f"{what}: {n} MUFU.TANH for {pairs} pairs of elements = "
-                    f"{n / pairs:g} special-function operations per pair of tanh")
-    raise AssertionError(f"{what}: the bf16x2 kernel is not in the library")
+    bf16x2, ring = None, {}  # ring: (form, K instance) -> machine code
+    for name, insns in _sass_kernels(tool, cuda_lib._lib_path("tanh_probe.cu")).items():
+        if re.search(r"tanh_probe_kernelI13__nv_bfloat16Li8ELi0E", name):
+            bf16x2 = insns
+        m = re.search(r"tanh_probe_ringILi(\d+)ELi(\d+)E", name)
+        if m:
+            ring[tp.TANH_FORMS[int(m.group(1))], int(m.group(2))] = insns
+    assert bf16x2 is not None, f"{what}: no bf16x2 kernel on 16-byte vectors"
+    assert {f for f, _ in ring} == set(tp.SPLIT_SHARE), f"{what}: ring kernels for {sorted(ring)}"
+    lines = []
+    n = sum(1 for _, op, _ in bf16x2 if op.startswith("MUFU.TANH"))
+    assert n == 2 * SFU_PER_TANH["bf16x2"] * pairs, \
+        f"{what}: {n} MUFU.TANH for {pairs} pairs; the bounds assume {SFU_PER_TANH['bf16x2']:g} per tanh"
+    lines.append(f"tanh.approx.bf16x2 in {what}: {n} MUFU.TANH for {pairs} pairs of elements = "
+                 f"{n / pairs:g} special-function operations per pair of tanh")
+    mix, npairs = _inner_loop_mix(bf16x2)
+    o = None
+    if npairs:
+        total = sum(mix.values()) / npairs
+        mu = sum(v for k, v in mix.items() if k.startswith("MUFU")) / npairs
+        o = (total - mu) / 2
+        top = ", ".join(f"{op} {c / npairs:.2f}" for op, c in mix.most_common(12))
+        lines.append(f"  bf16x2 inner loop, per pair ({npairs} pair adds): {total:.2f} instructions: {top}")
+    else:
+        lines.append("  bf16x2: no inner loop of bf16 pair adds found (instruction mix not measured)")
+    counts = {}
+    for (form, kc), insns in sorted(ring.items()):
+        adds = sum(1 for _, op, _ in insns if _pair_adds(op))
+        mufu = sum(1 for _, op, _ in insns if op.startswith("MUFU.TANH"))
+        assert adds and mufu == 2 * SFU_PER_TANH[form] * adds, \
+            f"{what}: {form} (K={kc or 'any'}) has {mufu} MUFU.TANH for {adds} pair adds, not {SFU_PER_TANH[form]:g} " \
+            f"of bf16x2's 2 per pair"
+        counts[form, kc] = (len(insns), adds, mufu)
+    lines.append("split<P> (ring) in " + what + ": MUFU.TANH per pair add " + ", ".join(
+        f"{f} K={kc or 'any'} {m}/{a} = {m / a:g}" for (f, kc), (_, a, m) in sorted(counts.items())))
+    c = None
+    n0, a0, _ = counts["split0", 3]
+    n4, a4, _ = counts["split4", 3]
+    if a0 == a4:
+        c = 1 + (n4 - n0) / (2 * a0)
+    lines.append(f"  per element: o = {o if o is None else round(o, 2)} (bf16x2's inner loop but its MUFU), c = "
+                 f"{c if c is None else round(c, 2)} (split4's instructions over split0's, K=3, plus the MUFU "
+                 f"they replace); the bounds use o = {TANH_OTHER_PER_ELEMENT}, c = {TANH_POLY_PER_ELEMENT}")
+    return lines
 
 
 def _design(name: str) -> str:
@@ -733,22 +874,67 @@ def phase_check():
             report(f"  hybrid-{variant}", "B=5 K=3 L=13 D=36", dtype,
                    {"ctx": (ch, cr), "alpha": (ah, ar)}, TOL[dtype]["attention"], False)
         # the probe: the serving shape by every tanh form (held: the forms
-        # that meet the dtype's tolerance), and edge shapes by the default:
-        # rows without 16-byte vectors (one element per thread), L=197 and
-        # D=1000 (a ragged last batch of rows and last block), one patch row
+        # that meet the dtype's tolerance), and edge shapes by the default
+        # and, in bf16, by every split form: rows without 16-byte vectors (one
+        # element per thread), L=197 and D=1000 (a ragged last batch of rows
+        # and last block), one patch row, K=1 and K=8, and an unaligned view
+        # (which must take one element per thread)
+        splits = list(tp.SPLIT_SHARE) if dtype == torch.bfloat16 else []
+        edge_forms = list(dict.fromkeys([tp.DEFAULT_FORM[dtype], *splits]))
         for B, K, L, D, serving in ((256, 3, 196, 512, True), (5, 3, 13, 36, False),
-                                    (3, 2, 197, 1000, False), (2, 8, 1, 520, False)):
+                                    (3, 2, 197, 1000, False), (2, 8, 1, 520, False), (4, 1, 64, 512, False)):
             g = _gen(SEED + 7)
             ce, hp = _randn((B, L, D), g, dtype), _randn((B, K, D), g, dtype)
-            forms = [n for n in tp.TANH_FORMS if n != "bf16x2" or dtype == torch.bfloat16] if serving else [None]
+            forms = [n for n in tp.TANH_FORMS if n not in tp.BF16_ONLY or dtype == torch.bfloat16] if serving \
+                else edge_forms
+            ref = tp.tanh_probe_reference(ce, hp)
             for form in forms:
-                ref = tp.tanh_probe_reference(ce, hp)
                 out = tp.tanh_probe(ce, hp, form)
                 assert out.shape == (B, D) and out.dtype == torch.float32
-                held = form is None or form in PROBE_HELD[dtype]
                 report("tanh_probe", f"B={B} K={K} L={L} D={D}", dtype, {"out": (out, ref)}, PROBE_TOL[dtype],
-                       serving and form == tp.DEFAULT_FORM[dtype], form or tp.DEFAULT_FORM[dtype], held,
+                       serving and form == tp.DEFAULT_FORM[dtype], form, form in PROBE_HELD[dtype],
                        PROBE_RTOL[dtype])
+        B, K, L, D = 2, 3, 13, 512
+        g = _gen(SEED + 8)
+        off = _randn((B * L * D + 8,), g, dtype)[1:1 + B * L * D].view(B, L, D)
+        hp = _randn((B, K, D), g, dtype)
+        assert not cuda_lib.vectorizable((D,), off, hp)
+        ref = tp.tanh_probe_reference(off, hp)
+        for form in edge_forms:
+            report("tanh_probe", f"B={B} K={K} L={L} D={D} view", dtype, {"out": (tp.tanh_probe(off, hp, form), ref)},
+                   PROBE_TOL[dtype], False, form, True, PROBE_RTOL[dtype])
+        if dtype == torch.bfloat16:
+            # the split forms' compute-only loop (phase 4 times it): 6 steps
+            # of 32 tanh per thread against its plain version
+            g = _gen(SEED + 10)
+            x0, hq = _randn((512, 32), g, dtype, 0.5), _randn((8,), g, dtype, 0.05)
+            ref = tp.tanh_rate_reference(x0, hq, 6)
+            for form in tp.SPLIT_SHARE:
+                report("tanh_rate", "n=512 iters=6", dtype, {"out": (tp.tanh_rate(x0, hq, 6, form), ref)},
+                       PROBE_TOL[dtype], False, form, True, PROBE_RTOL[dtype])
+        # a NaN and +-inf in ce, in pairs that a split form sends to the
+        # polynomial and to the special-function units: a NaN's column is NaN,
+        # tanh(+-inf) = +-1, every other column as held above
+        B, K, L, D = 4, 3, 196, 512
+        g = _gen(SEED + 9)
+        ce, hp = _randn((B, L, D), g, dtype), _randn((B, K, D), g, dtype)
+        ce[0, 5, 0] = ce[1, 7, 6] = float("nan")
+        ce[2, 9, 2] = ce[3, 0, 40] = float("inf")
+        ce[2, 11, 7] = ce[3, 195, 41] = float("-inf")
+        ref = tp.tanh_probe_reference(ce, hp)
+        assert int(ref.isnan().sum()) == 2 and bool(ref.isfinite().sum() == ref.numel() - 2)
+        for form in [n for n in tp.TANH_FORMS if n not in tp.BF16_ONLY or dtype == torch.bfloat16]:
+            out = tp.tanh_probe(ce, hp, form)
+            nan_ok = torch.equal(out.isnan(), ref.isnan()) and bool(out[~ref.isnan()].isfinite().all())
+            keep = ~ref.isnan()
+            d, r = _diffs(out[keep], ref[keep])
+            ok = nan_ok and d <= PROBE_TOL[dtype] and r <= PROBE_RTOL[dtype]
+            held = form in PROBE_HELD[dtype]
+            print(f"  {'tanh_probe':19s} {'NaN and +-inf in ce':26s} {str(dtype).replace('torch.', ''):8s} "
+                  f"{form:15s} NaN columns {'as the plain version' if nan_ok else 'DIFFER'}, elsewhere max|diff| "
+                  f"{d:.3e} (rel {r:.2e})  {('ok' if ok else 'FAIL') if held else '(printed)'}")
+            if held and not ok:
+                failures.append(f"tanh_probe NaN/inf {dtype} {form}")
     torch.cuda.synchronize()
     failures += check_functions()
     if failures:
@@ -958,32 +1144,84 @@ def phase_times():
            lambda: fda.attention_scores(ce, hp, watt, "s16"), rows["attention_scores"]["bound_ms"])
 
     # the probe: one line in the table by the default form, then every form
-    # with its tanh per second beside the special-function rate assumed above
+    # with its tanh per second beside both floors: the special-function
+    # units alone at 4.18 T/s, and the tanh over both pipes
     rows["tanh_probe"] = show(
         "tanh_probe", shape,
         lambda: tp.tanh_probe(ce, hp),
         lambda: tp.tanh_probe_reference(ce, hp),
         probe_bound(B, 3, L, D, dt),
     )
+    default = tp.DEFAULT_FORM[dt]
+    print("    in turns, bf16x2 and the default " + default + ": " + ", ".join(
+        f"{form} {time_cold(lambda: tp.tanh_probe(ce, hp, form)):.4f}"
+        for form in ("bf16x2", default, default, "bf16x2")) + " ms")
     # K=3 is the serving shape; K=8 reads the same ce for 2.7 times the tanh,
     # which takes the memory out of the way of the tanh rate
+    probe_ms = {}  # (form, dtype, K) -> (tanh, ms, ms after a read flush)
     for dtype, K in ((dt, 3), (dt, 8), (torch.float32, 3), (torch.float32, 8)):
         g = _gen(SEED + 7)
         pce, php = _randn((B, L, D), g, dtype), _randn((B, K, D), g, dtype)
         n_tanh = B * K * L * D
         ce_ms = pce.numel() * pce.element_size() / PEAK_BYTES_PER_S * 1e3
+        both = (", tanh over both pipes {:.4f} ms (polynomial share {:.3f})".format(*tanh_floor(n_tanh))
+                if dtype == dt else "")
         print(f"    tanh_probe {str(dtype).replace('torch.', '')} K={K}: {n_tanh / 1e6:.1f} M tanh, "
-              f"ce's bytes at 3.35 TB/s {ce_ms:.4f} ms")
+              f"ce's bytes at 3.35 TB/s {ce_ms:.4f} ms, special-function only "
+              f"{n_tanh / PEAK_SFU_PER_S * 1e3:.4f} ms{both}")
         for form in tp.TANH_FORMS:
-            if form == "bf16x2" and dtype != torch.bfloat16:
+            if form in tp.BF16_ONLY and dtype != torch.bfloat16:
                 continue
             ms = time_cold(lambda: tp.tanh_probe(pce, php, form))
             clean = time_cold(lambda: tp.tanh_probe(pce, php, form), flush_by="read")
             per = SFU_PER_TANH[form]
             floor = (f"{n_tanh * per / PEAK_SFU_PER_S * 1e3:.4f} ms at {per:g} operations per tanh"
-                     if per else "not counted")
+                     if per is not None else "not counted")
+            if form in tp.BF16_ONLY:
+                f = tp.SPLIT_SHARE.get(form, 0.0)
+                issue = n_tanh * (TANH_OTHER_PER_ELEMENT + (1 - f) + f * TANH_POLY_PER_ELEMENT) / PEAK_ISSUE_PER_S
+                floor += f", its issue floor {issue * 1e3:.4f} ms"
             print(f"      {form:10s} {ms:.4f} ms = {n_tanh / ms / 1e9:.2f} T tanh/s, after a read flush "
-                  f"{clean:.4f} ms = {n_tanh / clean / 1e9:.2f} T tanh/s  (special-function floor assumed: {floor})")
+                  f"{clean:.4f} ms = {n_tanh / clean / 1e9:.2f} T tanh/s  (its special-function floor: {floor})")
+            probe_ms[form, dtype, K] = (n_tanh, ms, clean)
+        if K == 8 and dtype == dt:
+            # the SM clock while the card runs the K=8 bf16x2 form back to back
+            for _ in range(6000):
+                tp.tanh_probe(pce, php, "bf16x2")
+            sm_mhz = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+            torch.cuda.synchronize()
+    # the sustained MUFU.TANH rate: the K=8 runs of the forms that run one
+    # special-function operation per tanh, per SM and clock at the clock read
+    # under that load
+    for form, dtype in (("bf16x2", dt), ("approx_f32", dt), ("approx_f32", torch.float32)):
+        n_tanh, ms, clean = probe_ms[form, dtype, 8]
+        rate = n_tanh * SFU_PER_TANH[form] / (min(ms, clean) * 1e-3)
+        print(f"    sustained MUFU.TANH, {form} {str(dtype).replace('torch.', '')} K=8: {rate / 1e12:.3f} T/s = "
+              f"{rate / (132 * sm_mhz * 1e6):.2f} per clock per SM at the {sm_mhz:.0f} MHz read under load "
+              f"({rate / (132 * 1.98e9):.2f} at 1.98 GHz; the bounds assume 16)")
+    # the split forms' compute-only loop: what the two pipes sustain with the
+    # stream of ce out of the way, at 4 and at 2 blocks of 8 warps per SM
+    # (the ring kernel runs 2 blocks of 8 consumer warps per SM)
+    for per_sm in (4, 2):
+        n = 132 * per_sm * 256
+        g = _gen(SEED + 10)
+        x0, hq = _randn((n, 32), g, dt, 0.5), _randn((8,), g, dt, 0.05)
+        n_tanh = n * 32 * RATE_ITERS
+        for form in tp.SPLIT_SHARE:
+            ms = time_cold(lambda: tp.tanh_rate(x0, hq, RATE_ITERS, form), iters=10)
+            print(f"    compute-only loop, {form} (share {tp.SPLIT_SHARE[form]:g} on the polynomial), {per_sm} blocks "
+                  f"per SM: {ms:.4f} ms = {n_tanh / ms / 1e9:.3f} T tanh/s = "
+                  f"{n_tanh / (ms * 1e-3) / (132 * sm_mhz * 1e6):.2f} per clock per SM at {sm_mhz:.0f} MHz")
+    # what holds bf16x2 at K=3: its time beside its tanh at the K=8 pace,
+    # the bytes and its issue floor
+    n3, ms3, _ = probe_ms["bf16x2", dt, 3]
+    n8, ms8, _ = probe_ms["bf16x2", dt, 8]
+    issue3 = n3 * (TANH_OTHER_PER_ELEMENT + 1) / PEAK_ISSUE_PER_S * 1e3
+    print(f"    bf16x2 at K=3: {ms3:.4f} ms; its tanh at the K=8 pace {n3 * ms8 / n8:.4f} ms, ce's bytes "
+          f"{ce.numel() * 2 / PEAK_BYTES_PER_S * 1e3:.4f} ms, its issue floor {issue3:.4f} ms; ns per 1,000 tanh "
+          f"{ms3 / n3 * 1e9:.4f} at K=3, {ms8 / n8 * 1e9:.4f} at K=8")
     # what the harness itself reads for a call that does next to nothing, and
     # for a plain read of the serving shape's ce (a sum over L: no tanh)
     tce, thp = _randn((1, 1, 8), _gen(SEED), dt), _randn((1, 1, 8), _gen(SEED), dt)
@@ -1038,6 +1276,9 @@ def phase_probe():
     print(f"  tanh probe loop: {STEPS} steps, {ms:.4f} ms/step (host clock), launches {n} "
           f"({_design('tanh_probe')}), sum {float(total):.1f}")
     assert n == STEPS, f"the probe loop launched the probe {n} times"
+    default = tp.DEFAULT_FORM[torch.bfloat16]
+    assert cuda_lib.designs("tanh_probe") == {default: STEPS}, \
+        f"the probe loop ran {cuda_lib.designs('tanh_probe')}, not the default form {default}"
     assert o.shape == (B, D) and torch.isfinite(o).all() and np.isfinite(float(total))
     return {"tanh_probe": n}
 

@@ -14,7 +14,9 @@
 // = 8 bf16 or 4 fp32 elements. The tanh forms:
 //   - bf16: ce + hp and its tanh two at a time in bf16 (`add.bf16x2`,
 //     `tanh.approx.bf16x2`, which runs as one special-function operation
-//     per half), rounded where the plain versions round them;
+//     per half), rounded where the plain versions round them; the tanh
+//     probe's split forms also run some pairs as a polynomial on the FMA
+//     pipe (`tanh_poly_bf16x2`);
 //   - fp32: 1 - 2 / (1 + 2^(2x log2 e)) from `ex2.approx` and `rcp.approx`
 //     (two special-function operations, absolute error below 5e-7), since
 //     `tanh.approx.f32` (~2^-11 relative error) fails the fp32 tolerance.
@@ -67,6 +69,41 @@ __device__ __forceinline__ __nv_bfloat162 tanh_bf16x2(__nv_bfloat162 x) {
   uint32_t y;
   asm("tanh.approx.bf16x2 %0, %1;" : "=r"(y) : "r"(*reinterpret_cast<const uint32_t*>(&x)));
   return *reinterpret_cast<const __nv_bfloat162*>(&y);
+}
+
+// tanh of two packed bf16 on the FMA pipe, with no special-function
+// operation (the tanh probe's `split<P>` forms run it on a share of their
+// pairs, so that both pipes work). |x| is clamped at 3.46875 (bf16 0x405E),
+// the first bf16 at or past atanh(1 - 2^-9) ~ 3.4652, from where the
+// correctly rounded bf16 tanh is +-1: one `min.NaN.xorsign.abs.bf16x2` per
+// pair keeps the sign, and a NaN stays NaN, which an fminf/fmaxf clamp would
+// turn into the clamp. Then x * P(x^2) in fp32 by Horner's rule with fmaf,
+// rounded to bf16. Every finite bf16 input lands within one bf16 step of the
+// correctly rounded tanh; six FMAs (P of degree 6 in x^2) are the fewest
+// that do with this clamp. tests/test_torch_port_kernel_sources.py reads
+// the clamp and the coefficients from here and proves both over all 65,536
+// bit patterns.
+constexpr uint32_t TANH_POLY_CLAMP_BF16X2 = 0x405E405Eu;  // 3.46875 in both halves
+
+__device__ __forceinline__ float tanh_poly_f32(float x) {
+  const float x2 = x * x;
+  float p = 2.53814983e-06f;
+  p = fmaf(p, x2, -1.08357446e-04f);
+  p = fmaf(p, x2, 1.86643330e-03f);
+  p = fmaf(p, x2, -1.68876350e-02f);
+  p = fmaf(p, x2, 8.94631296e-02f);
+  p = fmaf(p, x2, -3.10782850e-01f);
+  p = fmaf(p, x2, 9.98661578e-01f);
+  return x * p;
+}
+
+__device__ __forceinline__ __nv_bfloat162 tanh_poly_bf16x2(__nv_bfloat162 x) {
+  uint32_t c;
+  asm("min.NaN.xorsign.abs.bf16x2 %0, %1, %2;"
+      : "=r"(c)
+      : "r"(*reinterpret_cast<const uint32_t*>(&x)), "r"(TANH_POLY_CLAMP_BF16X2));
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
+  return __floats2bfloat162_rn(tanh_poly_f32(v.x), tanh_poly_f32(v.y));
 }
 
 // The VEC elements of the vector `raw` as fp32.

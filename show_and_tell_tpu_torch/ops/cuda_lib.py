@@ -69,6 +69,7 @@ _SIGNATURES = {
     },
     "tanh_probe.cu": {
         "sat_tanh_probe": (_vp,) * 3 + (_i,) * 7 + (_vp,),
+        "sat_tanh_rate": (_vp,) * 3 + (_i,) * 3 + (_vp,),
     },
 }
 

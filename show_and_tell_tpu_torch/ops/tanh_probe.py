@@ -10,7 +10,10 @@ measures the card's rate for each form the attention kernels could use.
 
 ``tanh_probe`` launches the kernel for CUDA tensors and runs
 ``tanh_probe_reference`` for CPU tensors. On a CUDA tensor it never falls
-back: the launch succeeds or it raises.
+back: the launch succeeds or it raises. ``tanh_rate`` runs the split forms'
+per-pair work on values held in registers, without the stream of ce, so that
+what the card's two tanh pipes sustain can be timed apart
+(``tanh_rate_reference`` is its plain version).
 """
 
 from __future__ import annotations
@@ -24,10 +27,19 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 # the kernel's `Form`, in its order: the tanh of bf16 pairs (run as one
 # special-function operation per half); one operation per tanh in fp32 (~2^-11
 # relative error); 1 - 2 / (1 + 2^(2x log2 e)) from ex2.approx and rcp.approx
-# (two operations, absolute error below 5e-7); and the precise tanhf
-TANH_FORMS = ("bf16x2", "approx_f32", "ex2_rcp", "precise")
-# the form that meets the dtype's tolerance at the least cost
-DEFAULT_FORM = {torch.bfloat16: "bf16x2", torch.float32: "ex2_rcp"}
+# (two operations, absolute error below 5e-7); the precise tanhf; and
+# split<P>, the kernel's ring design (ce streamed through shared memory by
+# bulk copies), with P of each 16-byte vector's 4 bf16 pairs by an odd
+# polynomial on the FMA pipe (within one bf16 step of the correctly rounded
+# tanh) and the rest as bf16x2
+TANH_FORMS = ("bf16x2", "approx_f32", "ex2_rcp", "precise", "split0", "split1", "split2", "split3", "split4")
+# the share of the elements whose tanh a split form runs as the polynomial
+SPLIT_SHARE = {f"split{p}": p / 4 for p in range(5)}
+BF16_ONLY = ("bf16x2", *SPLIT_SHARE)
+# the form that meets the dtype's tolerance at the least cost (bf16: the
+# fastest at the serving shape, B=256 K=3 L=196 D=512, on the H100 in
+# chip_smoke.py phase 4)
+DEFAULT_FORM = {torch.bfloat16: "split0", torch.float32: "ex2_rcp"}
 
 
 def tanh_probe_reference(ce: torch.Tensor, hp: torch.Tensor) -> torch.Tensor:
@@ -56,8 +68,8 @@ def tanh_probe(ce: torch.Tensor, hp: torch.Tensor, form: Optional[str] = None) -
         raise TypeError(f"{name}: ce and hp dtypes differ")
     code = cuda_lib.dtype_code(ce)
     form = form or DEFAULT_FORM[ce.dtype]
-    if form == "bf16x2" and ce.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the bf16x2 form takes bfloat16 inputs, got {ce.dtype}")
+    if form in BF16_ONLY and ce.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the {form} form takes bfloat16 inputs, got {ce.dtype}")
     B, L, D = ce.shape
     K = hp.shape[1]
     if not 1 <= K <= 8 or B > 65535:
@@ -70,6 +82,49 @@ def tanh_probe(ce: torch.Tensor, hp: torch.Tensor, form: Optional[str] = None) -
     err = cuda_lib.library("tanh_probe.cu").sat_tanh_probe(
         cuda_lib.ptr(ce), cuda_lib.ptr(hp), cuda_lib.ptr(out), B, K, L, D, code,
         TANH_FORMS.index(form), int(cuda_lib.vectorizable((D,), ce, hp)), cuda_lib.stream(ce.device),
+    )
+    cuda_lib.check(err, name)
+    cuda_lib.count(name, form)
+    return out
+
+
+def tanh_rate_reference(x0: torch.Tensor, hp: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of ``tanh_rate``: x0 [n, 32] bf16, hp [8] bf16 -> out
+    [n] fp32, out[i] = sum over ``iters`` steps of sum_j tanh(x[i, j]) after
+    x[i, j] += hp[j % 8] in bf16 (the sum and its tanh rounded to bf16, the
+    accumulation fp32)."""
+    x = x0
+    h = hp.repeat(4)
+    out = torch.zeros(x0.shape[0], dtype=torch.float32, device=x0.device)
+    for _ in range(iters):
+        x = x + h
+        out += torch.tanh(x).sum(dim=1, dtype=torch.float32)
+    return out
+
+
+def tanh_rate(x0: torch.Tensor, hp: torch.Tensor, iters: int, form: str) -> torch.Tensor:
+    """The compute-only loop of split form ``form`` (a name of
+    ``SPLIT_SHARE``): for CUDA tensors the kernel, one thread per row of x0
+    [n, 32] bf16 (n a multiple of 256), counted under ``tanh_rate`` by form;
+    for CPU tensors ``tanh_rate_reference``."""
+    if form not in SPLIT_SHARE:
+        raise ValueError(f"unknown split form {form!r}; options: {tuple(SPLIT_SHARE)}")
+    if x0.dtype != torch.bfloat16 or hp.dtype != torch.bfloat16 or x0.dim() != 2 or x0.shape[1] != 32 \
+            or hp.shape != (8,) or x0.shape[0] % 256 or iters < 0:
+        raise ValueError(f"tanh_rate: x0 {tuple(x0.shape)} {x0.dtype} must be [n, 32] bf16 with n a multiple "
+                         f"of 256, hp {tuple(hp.shape)} {hp.dtype} [8] bf16, iters >= 0")
+    if not x0.is_cuda:
+        return tanh_rate_reference(x0, hp, iters)
+    name = "tanh_rate"
+    cuda_lib.check_operands(name, x0.device, x0=x0, hp=hp)
+    if not cuda_lib.vectorizable((32,), x0, hp):
+        raise ValueError(f"{name}: x0 and hp must be 16-byte aligned")
+    out = torch.empty(x0.shape[0], dtype=torch.float32, device=x0.device)
+    if x0.shape[0] == 0:
+        return out
+    err = cuda_lib.library("tanh_probe.cu").sat_tanh_rate(
+        cuda_lib.ptr(x0), cuda_lib.ptr(hp), cuda_lib.ptr(out), x0.shape[0], iters, TANH_FORMS.index(form),
+        cuda_lib.stream(x0.device),
     )
     cuda_lib.check(err, name)
     cuda_lib.count(name, form)

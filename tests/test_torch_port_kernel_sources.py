@@ -18,6 +18,7 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 from show_and_tell_tpu_torch.ops import fused_attention as tfa
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda
 from show_and_tell_tpu_torch.ops import lstm as tlstm
+from show_and_tell_tpu_torch.ops import tanh_probe as tprobe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
@@ -458,6 +459,189 @@ def test_ex2_tanh_error_bound():
             assert np.abs(y - ref).max() <= TANH_EX2_BOUND, (e1, e2)
     y = tanh_ex2(specials)
     assert y[0] == 0 and y[2] == 1 and y[3] == -1 and y[4] == 1 and y[5] == -1
+
+
+def tanh_poly_source():
+    """(clamp, coefficients from x^1 up) of the polynomial tanh in
+    csrc/sat_common.cuh, read from the source."""
+    src = _source("sat_common.cuh")
+    bits = int(re.search(r"TANH_POLY_CLAMP_BF16X2 = 0x([0-9A-Fa-f]{8})u", src).group(1), 16)
+    assert bits >> 16 == bits & 0xFFFF  # the same clamp in both halves
+    clamp = float(np.array([(bits & 0xFFFF) << 16], np.uint32).view(np.float32)[0])
+    body = re.search(r"float tanh_poly_f32\(float x\) \{(.*?)\n\}", src, re.S).group(1)
+    top = re.search(r"float p = ([-+0-9.e]+)f;", body).group(1)
+    rest = re.findall(r"p = fmaf\(p, x2, ([-+0-9.e]+)f\);", body)
+    assert "return x * p;" in body
+    return clamp, [np.float32(c) for c in reversed([top, *rest])]
+
+
+def _bf16(v):
+    """fp32 -> bf16 (round to nearest even) -> fp32."""
+    return torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def tanh_poly(x):
+    """numpy fp32 emulation of `sat::tanh_poly_bf16x2` on bf16 inputs given
+    as fp32: min.NaN.xorsign.abs with the clamp, x^2 and x * P in fp32, P by
+    Horner's rule with fmaf (emulated in float64, where the product is exact;
+    the sum is rounded twice, which can move an fp32 result by one unit only
+    on an fp32 midpoint), the result rounded to bf16."""
+    clamp, coeffs = tanh_poly_source()
+    x = np.asarray(x, np.float32)
+    with np.errstate(invalid="ignore"):
+        xc = np.where(np.isnan(x), np.float32(np.nan), np.copysign(np.minimum(np.abs(x), np.float32(clamp)), x))
+        xc = xc.astype(np.float32)
+        x2 = (xc.astype(np.float64) ** 2).astype(np.float32)
+        p = np.full_like(x2, coeffs[-1])
+        for c in coeffs[-2::-1]:
+            p = (p.astype(np.float64) * x2 + np.float64(c)).astype(np.float32)
+        return _bf16((xc.astype(np.float64) * p).astype(np.float32))
+
+
+def _every_bf16():
+    return (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+
+
+def _bf16_order(v):
+    """bf16 values as integers in their order (adjacent values differ by 1)."""
+    b = torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16).view(torch.int16).numpy().astype(np.int64)
+    return np.where(b < 0, -(b & 0x7FFF), b)
+
+
+def test_tanh_poly_within_one_bf16_step():
+    """Every finite bf16 input (all 65,280 of the 65,536 bit patterns):
+    the polynomial tanh within one bf16 step of tanh in float64 rounded to
+    bf16. And its degree is the least: with one coefficient fewer (one FMA
+    less) no odd polynomial, even one evaluated exactly, keeps every bf16
+    input from 2^-14 to the clamp within one step (a linear program over
+    those inputs finds no slack)."""
+    from scipy.optimize import linprog
+
+    x = _every_bf16()
+    x = x[np.isfinite(x)]
+    assert x.size == 65280
+    steps = np.abs(_bf16_order(tanh_poly(x)) - _bf16_order(_bf16(np.tanh(x.astype(np.float64)))))
+    assert steps.max() <= 1
+    clamp, coeffs = tanh_poly_source()
+    assert len(coeffs) == 7  # six FMAs
+    grid = x[(x >= 2.0 ** -14) & (x <= clamp)].astype(np.float64)
+
+    def value(order):  # positive bf16 with these order numbers, as float64
+        return (np.asarray(order, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+    ref = _bf16_order(_bf16(np.tanh(grid)))
+    top = _bf16_order(np.float32(1.0))
+    lo = (value(ref - 2) + value(ref - 1)) / 2  # the output rounds to ref - 1 or above ...
+    hi = (value(np.minimum(ref + 1, top)) + value(np.minimum(ref + 1, top) + 1)) / 2  # ... to ref + 1 or below
+    step = value(ref + 1) - value(ref)
+    A = np.stack([grid ** (2 * k + 1) for k in range(len(coeffs) - 1)], 1)
+    # maximize s with lo + s step <= A a <= hi - s step
+    res = linprog(np.r_[np.zeros(A.shape[1]), -1.0],
+                  A_ub=np.vstack([np.hstack([-A, step[:, None]]), np.hstack([A, step[:, None]])]),
+                  b_ub=np.concatenate([-lo, hi]), bounds=[(None, None)] * (A.shape[1] + 1), method="highs")
+    assert res.status == 0 and -res.fun < 0
+
+
+def test_tanh_poly_is_odd_and_saturates():
+    """Odd bit for bit; |tanh| <= 1 everywhere; exactly +-1 from the clamp
+    on, for +-inf, and at no input where the correctly rounded tanh is not
+    within a step of 1; the clamp is the first bf16 at or past atanh(1 -
+    2^-9), from where the correctly rounded bf16 tanh is 1."""
+    x = _every_bf16()
+    x = x[~np.isnan(x)]
+    y = tanh_poly(x)
+    assert np.array_equal(tanh_poly(-x), -y)
+    assert np.abs(y).max() == 1.0
+    clamp, _ = tanh_poly_source()
+    assert np.all(np.abs(y[np.abs(x) >= clamp]) == 1.0)
+    assert list(tanh_poly(np.array([np.inf, -np.inf], np.float32))) == [1.0, -1.0]
+    edge = np.arctanh(1 - 2.0 ** -9)
+    positive = np.sort(x[x > 0])
+    assert clamp == positive[positive >= edge][0]
+    assert _bf16(np.tanh(np.float64(clamp))) == 1.0
+    assert _bf16(np.tanh(np.float64(positive[positive < clamp][-1]))) < 1.0
+
+
+def test_tanh_poly_keeps_nan():
+    """A NaN (every NaN bit pattern, either sign) gives a NaN, where an
+    fminf/fmaxf clamp would give the clamp's tanh."""
+    x = _every_bf16()
+    nan = x[np.isnan(x)]
+    assert nan.size == 2 * 127
+    assert np.isnan(tanh_poly(nan)).all()
+
+
+def test_tanh_forms_follow_the_kernel_enum():
+    """TANH_FORMS lists the kernel's `Form` in its order (the wrapper passes
+    the index), and the bf16-only forms are the ones the source launches for
+    bfloat16 alone."""
+    src = _source("tanh_probe.cu")
+    enum = re.search(r"enum Form \{([^}]*)\}", src).group(1)
+    entries = [(name.strip(), int(v)) for name, v in re.findall(r"(\w+) = (\d+)", enum)]
+    assert [v for _, v in entries] == list(range(len(entries)))
+    assert tuple(name.lower() for name, _ in entries) == tprobe.TANH_FORMS
+    fp32_cases = re.search(r"if \(dtype == 0\) \{(.*?)\n  \}", src, re.S).group(1)
+    bf16_cases = re.search(r"if \(dtype == 1\) \{(.*?)\n  \}", src, re.S).group(1)
+    fp32 = {n.lower() for n in re.findall(r"case (\w+):", fp32_cases)}
+    bf16 = {n.lower() for n in re.findall(r"case (\w+):", bf16_cases)}
+    assert bf16 == set(tprobe.TANH_FORMS)
+    assert set(tprobe.BF16_ONLY) == bf16 - fp32
+    assert set(tprobe.DEFAULT_FORM.values()) <= set(tprobe.TANH_FORMS)
+    assert tprobe.DEFAULT_FORM[torch.float32] in fp32
+
+
+def test_split_share_as_the_source_states_it():
+    """split<P> sends P of a 16-byte vector's PAIRS pairs to the polynomial:
+    SPLIT_SHARE is P / PAIRS by the source's enum and `poly_pairs`, and the
+    split forms on 16-byte vectors launch the ring design."""
+    src = _source("tanh_probe.cu")
+    pairs = int(re.search(r"constexpr int PAIRS = (\d+);", src).group(1))
+    assert pairs == 16 // 2 // 2  # bf16 pairs in 16 bytes
+    assert "return FORM >= SPLIT0 ? FORM - SPLIT0 : 0;" in src
+    first = int(re.search(r"SPLIT0 = (\d+)", src).group(1))
+    splits = {name.lower(): int(v) - first for name, v in re.findall(r"(SPLIT\d) = (\d+)", src)}
+    assert {f"split{p}" for p in splits.values()} == set(splits)
+    assert tprobe.SPLIT_SHARE == {name: p / pairs for name, p in splits.items()}
+    assert set(tprobe.SPLIT_SHARE) < set(tprobe.BF16_ONLY)
+    assert "if (vec) return launch_ring<FORM>(" in src
+
+
+def test_tanh_probe_split_forms_on_cpu():
+    """On CPU tensors every form, the split ones included, is the plain
+    version; an unknown form raises before any launch."""
+    rng = np.random.default_rng(13)
+    for dt in (torch.bfloat16, torch.float32):
+        ce = torch.from_numpy(rng.standard_normal((2, 13, 40), dtype=np.float32)).to(dt)
+        hp = torch.from_numpy(rng.standard_normal((2, 3, 40), dtype=np.float32)).to(dt)
+        ref = tprobe.tanh_probe_reference(ce, hp)
+        for form in tprobe.SPLIT_SHARE:
+            assert torch.equal(tprobe.tanh_probe(ce, hp, form), ref)
+        with pytest.raises(ValueError, match="unknown tanh form"):
+            tprobe.tanh_probe(ce, hp, "split8")
+
+
+def test_tanh_rate_plain_version_on_cpu():
+    """The split forms' compute-only loop on CPU tensors is its plain
+    version, which steps x in bf16 and sums the bf16 tanh of every step in
+    fp32 (checked here against numpy); bad operands and forms raise."""
+    rng = np.random.default_rng(7)
+    x0 = torch.from_numpy(rng.standard_normal((256, 32), dtype=np.float32) * 0.5).to(torch.bfloat16)
+    hp = torch.from_numpy(rng.standard_normal(8, dtype=np.float32) * 0.05).to(torch.bfloat16)
+    ref = tprobe.tanh_rate_reference(x0, hp, 5)
+    for form in tprobe.SPLIT_SHARE:
+        assert torch.equal(tprobe.tanh_rate(x0, hp, 5, form), ref)
+    x, want = x0.float().numpy(), np.zeros(256, np.float64)
+    h = np.tile(hp.float().numpy(), 4)
+    for _ in range(5):
+        x = _bf16(x + h)
+        want += _bf16(np.tanh(x.astype(np.float64))).sum(1)
+    assert ref.dtype == torch.float32 and np.abs(ref.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    with pytest.raises(ValueError, match="unknown split form"):
+        tprobe.tanh_rate(x0, hp, 5, "bf16x2")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tprobe.tanh_rate(x0[:100], hp, 5, "split1")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tprobe.tanh_rate(x0.float(), hp, 5, "split1")
 
 
 def test_launch_counts_by_design():
