@@ -23,7 +23,9 @@ Phases, each printing its own lines:
    I=H=1000, B=1; the attentions and the scores: K=1, 2, 4 and 8, B=1, L=1,
    13, 64 and 197, D=36, 1000 and 1024, unaligned views, and the first
    kernels of rows 2 and 4-6 by name), in fp32 and bf16, each line naming the
-   design that ran (the cell's ``wgmma`` or ``tiled`` kernel, the beam
+   design that ran (the cell's ``wgmma`` (bf16), ``tf32x3`` (fp32: asserted
+   at every shape whose I and H are multiples of 4) or ``tiled`` kernel, and
+   ``tiled`` by name at the fp32 serving shapes, the beam
    attention's cluster size and loads, the per-row attention's and the
    (image, beam) grid's ``onepass<C>`` or ``direct``, the transposed form's
    ``cluster<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
@@ -37,8 +39,8 @@ Phases, each printing its own lines:
    variant name of the beam attention; and the two autograd Functions that
    training runs (the cell and the per-row attention: the kernel forward, a
    plain recompute backward), whose input gradients at the training shapes
-   are held against autograd through the plain versions (fp32; bf16
-   printed);
+   are held against autograd through the plain versions (fp32, the cell's
+   forward by ``tf32x3``; bf16 printed);
 4. each kernel's time at the serving shapes in bf16 (CUDA events, L2 flushed
    and the card held busy ~1 ms before every call so that the host has
    queued the whole call before it starts: device time, not the host's
@@ -56,7 +58,13 @@ Phases, each printing its own lines:
    of the tanh (the special-function units alone, and both pipes with a
    share on the polynomial), the sustained MUFU rate of the K=8 runs, the
    split forms' compute-only loop at 4 and 2 blocks per SM and a plain read
-   of the same ce, and then runs the JAX benchmark's probe loop (20 steps,
+   of the same ce; then an fp32 block: rows 1-7 at their serving shapes in
+   fp32, the cell at B=768 and 256 with I=1024 and 512 by ``tf32x3`` beside
+   its bound (the bytes, or three TF32 products at 495 TFLOP/s; the CUDA
+   cores' 67 TFLOP/s figure printed beside), the plain cell,
+   ``torch.lstm_cell`` (TF32 off) and, by name, the ``tiled`` kernel it
+   replaced, and the W split it makes once per weight version; and then
+   runs the JAX benchmark's probe loop (20 steps,
    each feeding the next step's hp), its launches counted and all of them
    by the default form;
 5. serving: ``Captioner`` at the model's full width (VGG16 at 224 px,
@@ -70,7 +78,10 @@ Phases, each printing its own lines:
    (device busy share, top kernels); the decode step's logits through the
    kernels are held against the plain path (the same weights on the CPU,
    where every op runs its plain version, fed the card's features) in fp32
-   and in bf16;
+   and in bf16; then the ``Config`` default, fp32, at the same width over
+   the same images: beam-3 and greedy img/s and the decode alone, each cell
+   launch by ``tf32x3`` (20 per batch, asserted), in turns with the cell on
+   ``tiled`` (the planner overridden for the comparison);
 6. the beam-route decode chain: with the same model's weights and the
    features of the same images, 20 steps of h-projection, beam attention by
    one route (``s16_cmxu``, ``grid2``, ``st_cmxu``, ``hybrid-s16``), the
@@ -90,7 +101,9 @@ Phases, each printing its own lines:
    loss finite and falling,
    and one fp32 step whose
    gradients through the kernels are held against the plain path's on the
-   card;
+   card (the cell by ``tf32x3``, 19 launches); then fp32 steps (ms and
+   img/s, 19 cell launches per step, all by ``tf32x3``, losses finite) in
+   turns with the cell on ``tiled``;
 8. the rest of serving, on phase 5's 256 images and weights: the serving
    model saved by ``ckpt.save_best`` and its trunk as a torchvision state
    dict, read back by ``Captioner.from_checkpoint`` (beam and greedy captions
@@ -229,7 +242,10 @@ of the cell on its main path, phase 13's launches of the cell and the
 attentions on the int8 runs, and phase 14's of rows 1-3 in the NCCL
 ``Trainer`` steps and both ranks' mesh runs.
 
-The line before the last is a JSON object with one entry per kernel; the last
+The line before the last is a JSON object with one entry per kernel, and one
+for the cell's fp32 form (``lstm_cell_tf32x3``: its launches on the fp32
+serving and training runs of phases 5 and 7, its phase 3 error and phase 4
+times at B=768, I=H=1024); the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero. Without CUDA it exits non-zero before any result.
 """
@@ -260,7 +276,8 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # fp32: CUDA cores
+              "tf32": 495e12}  # the tensor cores in TF32
 # tanh, exp and reciprocal run on the special-function units: 16 operations
 # per clock per SM, 132 SMs, at the 1.98 GHz boost clock
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
@@ -321,6 +338,7 @@ PROBE_HELD = {torch.float32: ("ex2_rcp", "precise"),
               torch.bfloat16: ("bf16x2", "approx_f32", "ex2_rcp", "precise", *(f"split{p}" for p in range(5)))}
 CHAIN_REPS = 10  # timed decodes per route of the beam-route chain
 WARM_STEPS, TIMED_STEPS = 2, 10  # training steps
+FP32_STEPS = 3  # timed fp32 training steps per turn
 
 REPLACES = {
     "lstm_cell": "show_and_tell_tpu/ops/lstm.py:109",
@@ -391,11 +409,18 @@ def attention_inputs(B, K, L, D, dtype, seed):
 
 
 def cell_bound(B, I, H, dtype):
+    """The cell's bound. fp32 at fp32 accuracy runs as three TF32 products on
+    the tensor cores (the ``tf32x3`` design), so its operations count three
+    times at 495 TFLOP/s; the CUDA cores' figure (once at 67 TFLOP/s) is
+    printed beside it."""
     es = torch.tensor([], dtype=dtype).element_size()
     flops = 2.0 * B * (I + H) * 4 * H
     nbytes = (B * I + B * H + (I + H) * 4 * H) * es + 4 * H * 4 + B * H * 4  # in: x h W b c
     nbytes += B * H * es + B * H * 4  # out: h' c'
-    return _bound(flops, nbytes, dtype)
+    if dtype != torch.float32:
+        return _bound(flops, nbytes, dtype)
+    ms, by, ops, parts = _bound(3 * flops, nbytes, "tf32")
+    return ms, by, ops, parts + f" (3 x TF32), CUDA cores {flops / PEAK_FLOPS[torch.float32] * 1e3:.4f}"
 
 
 def attention_bound(B, K, L, D, dtype):
@@ -725,6 +750,8 @@ def phase_check():
             failures.append(f"{name} {shape} {dname} {design}")
         if serving and dtype == torch.bfloat16:
             errs[name] = max(errs.get(name, 0.0), worst)
+        if serving and dtype == torch.float32 and name == "lstm_cell":  # the tf32x3 design's line
+            errs["lstm_cell_tf32x3"] = max(errs.get("lstm_cell_tf32x3", 0.0), worst)
 
     for dtype in (torch.float32, torch.bfloat16):
         # the serving shapes, phase 9's (the eval driver's 64 images: B=64
@@ -746,8 +773,16 @@ def phase_check():
             design = _design("lstm_cell")
             hr, cr = lstm.lstm_cell_reference(p, x, h, c)
             assert hk.dtype == dtype and ck.dtype == torch.float32
+            if dtype == torch.float32:  # every shape TMA takes runs the 3xTF32 design
+                assert design == ("tiled" if I % 4 or H % 4 else "tf32x3"), (B, I, H, design)
             report("lstm_cell", f"B={B} I={I} H={H}", dtype,
                    {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving, design)
+            if dtype == torch.float32 and (B, I) in ((768, 1024), (256, 1024)):
+                # the tiled kernel by name, which phase 4 times beside the plan's
+                cuda_lib.LAUNCHES.clear()
+                hk, ck = lstm.lstm_cell_tiled(p, x, h, c)
+                report("lstm_cell", f"B={B} I={I} H={H}", dtype,
+                       {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], False, _design("lstm_cell"))
         # the attentions: K = 2..8, one patch row, one image, rows longer
         # than one pass of registers (D=1024), L=13, D=36; the per-row
         # attention also at L=197 (three blocks per image), D=1000 and a
@@ -954,6 +989,7 @@ def check_functions():
     gradients through the kernel forward and the recompute backward, against
     autograd through the plain version on the same inputs. Held in fp32;
     printed in bf16. Returns the failures."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.ops import fused_attention as fa
     from show_and_tell_tpu_torch.ops import lstm
 
@@ -981,18 +1017,58 @@ def check_functions():
                       (_randn((B, D), g, dtype), _randn((B, L), g, torch.float32))))
         dname = str(dtype).replace("torch.", "")
         for name, shape, fn, plain, ins, names, weights in cases:
+            cuda_lib.LAUNCHES.clear()
             gk = _input_grads(fn, [t.clone().requires_grad_() for t in ins], weights)
+            design = _design("lstm_cell") if name == "LSTMCellFunction" else _design("additive_attention")
             gp = _input_grads(plain, [t.clone().requires_grad_() for t in ins], weights)
             rel = {n: _diffs(a, b)[1] for n, a, b in zip(names, gk, gp)}
             worst = max(rel.values())
             ok = worst <= GRAD_RTOL or dtype != torch.float32
             verdict = ("ok" if ok else "FAIL") if dtype == torch.float32 else "(printed)"
-            print(f"  {name:22s} {shape:22s} {dname:8s} " + " ".join(f"d{n} {r:.2e}" for n, r in rel.items())
-                  + f"  {verdict}")
+            print(f"  {name:22s} {shape:22s} {dname:8s} {design:9s} "
+                  + " ".join(f"d{n} {r:.2e}" for n, r in rel.items()) + f"  {verdict}")
             if not ok:
                 failures.append(f"{name} {dname}")
     torch.cuda.synchronize()
     return failures
+
+
+def show(name, shape, kernel, plain, bound, library=None):
+    """Times ``kernel``, ``plain`` and ``library`` (callables) and prints
+    them with the design that the kernel's launches took."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    bound_ms, bound_by, bound_ops, bound_parts = bound
+    by = bound_by + (f": {bound_ops}" if bound_ops else "")
+    cuda_lib.LAUNCHES.clear()
+    kernel_ms = time_cold(kernel)
+    design = _design(name)
+    clean_ms = time_cold(kernel, flush_by="read")
+    plain_ms = time_cold(plain)
+    host_paced_ms = time_cold(plain, head_start=False)
+    library_ms = time_cold(library) if library is not None else None
+    lib = f"{library_ms:.4f}" if library_ms is not None else "null"
+    print(
+        f"  {name:19s} {shape:24s} {design:15s} kernel_ms {kernel_ms:.4f} (after a read flush "
+        f"{clean_ms:.4f})  bound_ms {bound_ms:.4f} "
+        f"({by}, {bound_ms / kernel_ms:.1%} of it; {bound_parts})  plain_ms {plain_ms:.4f} "
+        f"(host-paced {host_paced_ms:.4f})  library_ms {lib}"
+    )
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_operations": bound_ops, "library_ms": library_ms}
+
+
+def beside(name, others, planned, bound_ms):
+    """Times each of ``others`` ((label, callable)), then ``planned`` again,
+    each with its share of the bound."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    for label, fn in others:
+        ms = time_cold(fn)
+        print(f"    {label}: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
+    cuda_lib.LAUNCHES.clear()
+    ms = time_cold(planned)
+    print(f"    {name} by the plan's {_design(name)}, again: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
 
 
 def phase_times():
@@ -1006,28 +1082,6 @@ def phase_times():
           "given a head start before each call)")
     dt = torch.bfloat16
     rows = {}
-
-    def show(name, shape, kernel, plain, bound, library=None):
-        """Times ``kernel``, ``plain`` and ``library`` (callables) and prints
-        them with the design that the kernel's launches took."""
-        bound_ms, bound_by, bound_ops, bound_parts = bound
-        by = bound_by + (f": {bound_ops}" if bound_ops else "")
-        cuda_lib.LAUNCHES.clear()
-        kernel_ms = time_cold(kernel)
-        design = _design(name)
-        clean_ms = time_cold(kernel, flush_by="read")
-        plain_ms = time_cold(plain)
-        host_paced_ms = time_cold(plain, head_start=False)
-        library_ms = time_cold(library) if library is not None else None
-        lib = f"{library_ms:.4f}" if library_ms is not None else "null"
-        print(
-            f"  {name:19s} {shape:24s} {design:15s} kernel_ms {kernel_ms:.4f} (after a read flush "
-            f"{clean_ms:.4f})  bound_ms {bound_ms:.4f} "
-            f"({by}, {bound_ms / kernel_ms:.1%} of it; {bound_parts})  plain_ms {plain_ms:.4f} "
-            f"(host-paced {host_paced_ms:.4f})  library_ms {lib}"
-        )
-        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bound_operations": bound_ops, "library_ms": library_ms}
 
     for B in (768, 256):
         I = H = 1024
@@ -1077,14 +1131,6 @@ def phase_times():
     # the first kernel, and for the per-row attention the cluster kernel at
     # K=1 (the baseline its one-pass design has to beat), then the plan's
     # again, each with its share of the bound
-    def beside(name, others, planned, bound_ms):
-        for label, fn in others:
-            ms = time_cold(fn)
-            print(f"    {label}: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
-        cuda_lib.LAUNCHES.clear()
-        ms = time_cold(planned)
-        print(f"    {name} by the plan's {_design(name)}, again: {ms:.4f} ms ({bound_ms / ms:.1%} of the bound)")
-
     beside("additive_attention",
            [("additive_attention by direct (the first kernel)",
              lambda: fa.launch_attention("additive_attention", ce, f, hp, watt)),
@@ -1244,6 +1290,79 @@ def phase_times():
     return rows, st_rows
 
 
+def phase_times_fp32():
+    """Phase 4's fp32 block: rows 1-7 at their serving shapes in fp32, the
+    type of the ``Config`` default. The cell at B=768 and 256, I=1024 and
+    512 (Show-and-Tell's layer 0), by the plan's ``tf32x3`` design beside
+    its 3xTF32 bound (the CUDA cores' figure printed with it), the plain
+    cell, ``torch.lstm_cell`` (TF32 off since phase 1) and, by name, the
+    ``tiled`` kernel that ran every fp32 cell before. Returns {name: row}
+    (rows 2-7 at phase 4's shapes; the cell at B=768, I=1024) and the
+    cell's four rows by shape."""
+    from show_and_tell_tpu_torch.ops import fused_attention as fa
+    from show_and_tell_tpu_torch.ops import fused_decode_attention as fda
+    from show_and_tell_tpu_torch.ops import lstm
+    from show_and_tell_tpu_torch.ops import tanh_probe as tp
+
+    print("== 4. times at the serving shapes, fp32 (median ms, as the bf16 block; "
+          f"TF32 off: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    dt = torch.float32
+    rows, cell_rows = {}, {}
+    for I in (1024, 512):
+        for B in (768, 256):
+            H = 1024
+            p, x, h, c = cell_inputs(B, I, H, dt, SEED)
+            w_ih = p["w"][:I].t().contiguous()
+            w_hh = p["w"][I:].t().contiguous()
+            b_hh = torch.zeros_like(p["b"])
+            shape = f"B={B} I={I} H={H}"
+            row = show(
+                "lstm_cell", shape,
+                lambda: lstm.lstm_cell_cuda(p, x, h, c),
+                lambda: lstm.lstm_cell_reference(p, x, h, c),
+                cell_bound(B, I, H, dt),
+                lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, p["b"], b_hh),
+            )
+            tiled_ms = time_cold(lambda: lstm.lstm_cell_tiled(p, x, h, c))
+            row["tiled_ms"] = tiled_ms
+            # the split of W, made once per weight version (per training step)
+            row["prepare_w_ms"] = time_cold(lambda: lstm.tf32x3_weight(p["w"]))
+            print(f"    lstm_cell by tiled (the fp32 design before): {tiled_ms:.4f} ms "
+                  f"({row['bound_ms'] / tiled_ms:.1%} of the bound); the plan's tf32x3 takes "
+                  f"{row['ms'] / tiled_ms:.1%} of its time and {row['ms'] / row['library_ms']:.1%} of "
+                  f"torch.lstm_cell's; the W split (tf32x3_weight, once per weight version) "
+                  f"{row['prepare_w_ms']:.4f} ms")
+            cell_rows[shape] = row
+            if B == 768 and I == 1024:
+                rows["lstm_cell"] = row
+    B, L, D = 256, 196, 512
+    ce, f, hp, watt = attention_inputs(B, 1, L, D, dt, SEED + 1)
+    hp1 = hp[:, 0].contiguous()
+    rows["additive_attention"] = show(
+        "additive_attention", f"B={B} K=1 L={L} D={D}",
+        lambda: fa.fused_attention(ce, f, hp1, watt),
+        lambda: fa.attention_reference(ce, f, hp1, watt),
+        attention_bound(B, 1, L, D, dt),
+    )
+    ce, f, hp, watt = attention_inputs(B, 3, L, D, dt, SEED + 1)
+    shape = f"B={B} K=3 L={L} D={D}"
+    cet = ce.transpose(1, 2).contiguous()
+    for name, kernel, plain, bound in (
+        ("attention_beam", lambda: fda.attention_beam(ce, f, hp, watt),
+         lambda: fda.attention_beam_reference(ce, f, hp, watt), attention_bound(B, 3, L, D, dt)),
+        ("attention_beam_grid2", lambda: fda.attention_beam(ce, f, hp, watt, variant="grid2"),
+         lambda: fda.attention_beam_reference(ce, f, hp, watt), attention_bound(B, 3, L, D, dt)),
+        ("attention_beam_st", lambda: fda.attention_beam_st(cet, f, hp, watt),
+         lambda: fda.attention_beam_st_reference(cet, f, hp, watt), attention_bound(B, 3, L, D, dt)),
+        ("attention_scores", lambda: fda.attention_scores(ce, hp, watt, "s16"),
+         lambda: fda.attention_scores_reference(ce, hp, watt), scores_bound(B, 3, L, D, dt)),
+        ("tanh_probe", lambda: tp.tanh_probe(ce, hp), lambda: tp.tanh_probe_reference(ce, hp),
+         probe_bound(B, 3, L, D, dt)),
+    ):
+        rows[name] = show(name, shape, kernel, plain, bound)
+    return rows, cell_rows
+
+
 def phase_probe():
     """The JAX attention benchmark's probe loop (``micro_tanh``) on the port:
     20 steps of the probe at the serving shape in bf16, each step's output
@@ -1391,6 +1510,101 @@ def phase_end_to_end():
                       f"max|diff|/max|logit| {worst:.3e} (tol {rtol:g})")
                 assert worst <= rtol, f"{c.dtype} k={k}: kernel path logits disagree with the plain path"
     return launches, model, cfg, images, captions, img_s
+
+
+@contextlib.contextmanager
+def cell_planned_as(design):
+    """For a comparison only: the cell's planner picks ``design`` for every
+    fp32 cell (``tiled``, the fp32 design before ``tf32x3``), so that a
+    decode or a step can be timed on it in turns with the plan's."""
+    from show_and_tell_tpu_torch.ops import lstm
+
+    plan = lstm.cell_design
+
+    def forced(B, I, H, dtype, aligned, sms=lstm.H100_SMS):
+        return (design, 64) if dtype == torch.float32 else plan(B, I, H, dtype, aligned, sms)
+
+    lstm.cell_design = forced
+    try:
+        yield
+    finally:
+        lstm.cell_design = plan
+
+
+def _in_turns(fn, reps):
+    """{design: [seconds]} of ``reps`` synchronised calls of ``fn`` per turn,
+    tf32x3 / tiled / tiled / tf32x3, and each turn's cell launches by design."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+
+    secs, launches = {"tf32x3": [], "tiled": []}, {"tf32x3": collections.Counter(), "tiled": collections.Counter()}
+    for design in ("tf32x3", "tiled", "tiled", "tf32x3"):
+        with cell_planned_as("tiled") if design == "tiled" else contextlib.nullcontext():
+            fn()
+            torch.cuda.synchronize()
+            cuda_lib.LAUNCHES.clear()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs[design].append(time.perf_counter() - t0)
+            launches[design].update(cuda_lib.designs("lstm_cell"))
+    return secs, launches
+
+
+def phase_fp32_serving(images):
+    """Phase 5's fp32 lines: the ``Config`` default (``dtype="float32"``) at
+    full width served by the ``Captioner`` over phase 5's images, beam-3 and
+    greedy, every cell launch by the ``tf32x3`` design (20 per batch), img/s
+    and the decode alone, each in turns with the cell on the ``tiled``
+    kernel (the planner overridden for the comparison). Returns the figures,
+    with the tf32x3 launches of the serving runs under ``launches``."""
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.serve import Captioner
+    from show_and_tell_tpu_torch.utils.vocab import Vocabulary
+
+    V, N = 10000, images.shape[0]
+    cfg = Config()
+    assert cfg.dtype == "float32", cfg.dtype
+    print(f"== 5. serving in fp32, the Config default: {cfg.model} {cfg.encoder} crop {cfg.crop_size} "
+          f"E={cfg.embed_size} H={cfg.hidden_size} V={V}, {N} images (cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}, as phase 1 set it)")
+    vocab = Vocabulary.from_words(f"w{i}" for i in range(V - 4))
+    model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    cap = Captioner(cfg, model, None, vocab, device="cuda")
+    print(f"  warmup (beam and greedy at bucket {N}): {cap.warmup(modes=('beam', 'greedy'), buckets=(N,)):.2f} s")
+    out = {"img_s": {}, "decode_ms": {}, "launches": 0}
+    with torch.inference_mode():
+        feats = model.backbone_features(eval_transform(torch.from_numpy(images).cuda(), cfg.crop_size))
+    for mode in ("beam", "greedy"):
+        caps = {}
+
+        def batch():
+            caps["last"] = cap.caption_images(images, mode=mode)
+
+        secs, launches = _in_turns(batch, REPS)
+        for design, n in launches.items():
+            assert n == {design: 2 * REPS * cfg.max_decode_len}, (mode, design, dict(n))
+        out["launches"] += launches["tf32x3"]["tf32x3"]
+        img_s = {d: N / statistics.median(v) for d, v in secs.items()}
+
+        def decode():
+            with torch.inference_mode():
+                decode_ids(model, cfg, feats, mode)
+
+        dsecs, _ = _in_turns(decode, REPS)
+        dec = {d: statistics.median(v) * 1e3 for d, v in dsecs.items()}
+        out["img_s"][mode], out["decode_ms"][mode] = img_s, dec
+        print(f"  fp32 {mode:6s}: {img_s['tf32x3']:.1f} img/s by tf32x3 against {img_s['tiled']:.1f} by tiled "
+              f"(medians of 2 x {REPS} batches in turns); decode alone {dec['tf32x3']:.2f} ms against "
+              f"{dec['tiled']:.2f} ms ({(dec['tiled'] - dec['tf32x3']) / cfg.max_decode_len:.4f} ms per step); "
+              f"cell launches per batch {cfg.max_decode_len}, all by tf32x3 in its turns")
+        print(f"  fp32 {mode:6s} caption[0]: {caps['last'][0]!r}")
+    del cap, model, feats
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_beam_routes(model, cfg, images):
@@ -1614,15 +1828,42 @@ def phase_training(images):
             grads[path] = s32.backward(st32, loss)
         torch.cuda.synchronize()
         n = cuda_lib.LAUNCHES["lstm_cell"] + cuda_lib.LAUNCHES["additive_attention"]
-        print(f"  fp32 step, {path} path: loss {float(loss.detach()):.6f}, kernel launches {n}")
+        print(f"  fp32 step, {path} path: loss {float(loss.detach()):.6f}, kernel launches {n}, cell designs "
+              f"{cuda_lib.designs('lstm_cell')}")
         assert n == (2 * (T - 1) if path == "kernels" else 0)
+        assert cuda_lib.designs("lstm_cell") == ({"tf32x3": T - 1} if path == "kernels" else {})
     rel = {k: _diffs(grads["kernels"][k], grads["plain"][k])[1] for k in grads["plain"]}
     worst = max(rel, key=rel.get)
     print(f"  fp32 gradients, kernels vs plain, max|diff|/max|grad| per parameter: worst {worst} "
           f"{rel[worst]:.3e} (limit {GRAD_RTOL:g}); " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
     assert rel[worst] <= GRAD_RTOL, "kernel-path gradients disagree with the plain path"
+    del grads
+
+    # fp32 training steps, the Config default's dtype: every cell launch by
+    # the tf32x3 design (T-1 per step), in turns with the cell on tiled
+    losses32 = []
+
+    def step32():
+        nonlocal st32
+        st32, m = s32(st32, batch, lr, generator=gen)
+        losses32.append(m["loss"])
+
+    secs, launches = _in_turns(step32, FP32_STEPS)
+    for design, n in launches.items():
+        assert n == {design: 2 * FP32_STEPS * (T - 1)}, (design, dict(n))
+    ms32 = {d: statistics.median(v) * 1e3 for d, v in secs.items()}
+    losses32 = [float(x) for x in losses32]
+    assert all(np.isfinite(losses32)), "an fp32 training loss is not finite"
+    print(f"  fp32 steps: {ms32['tf32x3']:.2f} ms/step = {N / ms32['tf32x3'] * 1e3:.1f} img/s by tf32x3 "
+          f"against {ms32['tiled']:.2f} ms = {N / ms32['tiled'] * 1e3:.1f} img/s by tiled (medians of 2 x "
+          f"{FP32_STEPS} steps in turns); cell launches per step {T - 1}, all by tf32x3 in its turns; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses32)}")
+    fp32 = {"ms_per_step": ms32, "img_s": {d: N / v * 1e3 for d, v in ms32.items()},
+            "launches": launches["tf32x3"]["tf32x3"]}
+    del s32, st32, m32
+    torch.cuda.empty_cache()
     return {"img_s": img_s, "ms_per_step": dt * 1e3 / TIMED_STEPS, "split_ms": split,
-            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel}, state, cfg
+            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel, "fp32": fp32}, state, cfg
 
 
 def _first_difference(got, want):
@@ -4146,8 +4387,10 @@ def main() -> int:
     phase_build()
     errs = phase_check()
     rows, st_cell_rows = phase_times()
+    rows32, cell_rows32 = phase_times_fp32()
     probe_launches = phase_probe()
     launches, model, cfg, images, captions, serve_img_s = phase_end_to_end()
+    serving32 = phase_fp32_serving(images)
     launches.update(probe_launches)
     launches.update(phase_beam_routes(model, cfg, images))
     training, train_state, train_cfg = phase_training(images)
@@ -4177,6 +4420,15 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
         for name in REPLACES
     ]
+    # the cell's fp32 form: its launches on the fp32 main path (phase 5's serving
+    # and phase 7's steps in their tf32x3 turns), its fp32 figures of phases 3 and 4
+    kernels.append({
+        "name": "lstm_cell_tf32x3", "route": "cuda", "source": SOURCES["lstm_cell"],
+        "replaces": REPLACES["lstm_cell"], "launches": serving32["launches"] + training["fp32"]["launches"],
+        "max_abs_err": errs["lstm_cell_tf32x3"],
+        **{k: rows32["lstm_cell"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_operations",
+                                               "library_ms")},
+    })
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4184,7 +4436,8 @@ def main() -> int:
             json.dump({"card": smi, "kernels": kernels, "training": training, "serving": serving,
                        "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell, "int8": int8,
                        "multi_device": multi,
-                       "show_tell_cell": st_cell_rows}, fh, indent=1)
+                       "show_tell_cell": st_cell_rows, "fp32_times": rows32, "fp32_cell": cell_rows32,
+                       "fp32_serving": serving32}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,16 @@
 //     h' = sigmoid(z_o) * tanh(c')
 // x, h, W are fp32 or bf16 (one type); b, c and c' are fp32; h' has h's type.
 //
-// Bound on an H100 at the serving shape (B=768 beam rows, I=H=1024, bf16):
-// 12.9 GFLOP of matrix product, 13 us at the 989 TFLOP/s bf16 tensor-core
-// peak, against ~28 MB moved (W alone is 16.8 MB), ~8 us at 3.35 TB/s. So
-// it is bound by operations at beam widths and by bytes at greedy widths
-// (B=256: ~6 us).
+// Bounds on an H100 at the serving shape (B=768 beam rows, I=H=1024): 12.9
+// GFLOP of matrix product. In bf16 that is 13 us at the 989 TFLOP/s
+// tensor-core peak, against ~28 MB moved (W alone is 16.8 MB), ~8 us at
+// 3.35 TB/s: bound by operations at beam widths and by bytes at greedy
+// widths (B=256: ~6 us). In fp32 the CUDA cores (67 TFLOP/s) need 192 us;
+// on the tensor cores three TF32 products (below) need 3 x 12.9 GFLOP at
+// 495 TFLOP/s = 78 us (B=256: 26 us), against ~15 us of bytes (W is 33.6 MB).
 //
-// Two designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
-// shape, the type and the alignment before the launch. Both give one block
+// Three designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
+// shape, the type and the alignment before the launch. Each gives one block
 // BM batch rows and the same BN hidden columns of all four gates (W column
 // offsets 0, H, 2H, 3H), so the gate math runs on the block's own z tile
 // and z never reaches device memory; x and h are read apart, so no
@@ -45,14 +47,54 @@
 //     cuTensorMapEncodeTiled reached by cudaGetDriverEntryPoint (no -lcuda),
 //     and passed as __grid_constant__ parameters.
 //
-// `sat_lstm_cell` (fp32, and bf16 shapes TMA cannot take) is a shared-memory
+// `sat_lstm_cell_tf32x3` (fp32, I and H multiples of 4, 16-byte aligned
+// operands: the `Config` default's serving and training shapes) runs the
+// fp32 product on the tensor cores at fp32 accuracy ("3xTF32"): each operand
+// a is split into big = rna_tf32(a) and small = rna_tf32(a - big), both
+// exact in TF32's 10 mantissa bits, and z = a_s*w_b + a_b*w_s + a_b*w_b
+// (small products first; the dropped a_s*w_s is ~2^-22 of a*w), each a
+// `wgmma` m64n128k8 of kind TF32 into fp32 accumulators. The rounding is
+// explicit (cvt.rna.tf32.f32) because `wgmma` reads a 32-bit container and
+// drops its low 13 bits: an unrounded big would leave its truncation error
+// out of small.
+//   - W: for 32-bit types `wgmma` takes both shared-memory operands K-major,
+//     with no transpose, and W [I+H, 4H] is N-major. The wrapper keeps W^T
+//     split once per weight version (ops/lstm.py `tf32x3_weight`: [2, 4H,
+//     I+H], big then small, 2 x 33.6 MB for the serving W), so each stage
+//     loads both parts of four 32 x 32 boxes by TMA and nothing is split
+//     per block. The alternative, z^T = W^T [x, h]^T with W^T as A from
+//     registers, would meet the four gates on accumulator rows of different
+//     warps and need a second trip through shared memory.
+//   - [x | h]: a stage's 64 x 32 tile arrives by TMA (128-byte swizzle,
+//     K-major); the consumer warpgroup rounds it in place to its big part
+//     and writes the small part to a second buffer of the stage at the same
+//     offsets (the split is element-wise, so the swizzle needs no
+//     decoding), then `fence.proxy.async` and a named barrier of its 128
+//     threads before its `wgmma`s read them.
+//   - Sums: the tensor cores round each accumulation toward zero, so one
+//     running sum over the 3 (I + H) / 8 products drifts (past phase 3's
+//     1e-5 at the serving shape). Each 32-deep stage sums its twelve products into
+//     a fresh partial; the partials meet in an fp32 total by
+//     round-to-nearest adds. Two partials alternate, so that one stage's
+//     products run while the last one's partial is added (217 registers).
+//   - Tile: BM = 64 (one consumer warpgroup) by BN = 32 columns of each
+//     gate: the accumulator layout, the epilogue in registers and the ring
+//     on mbarriers are the bf16 design's. A stage is 2 x 8 KB of [x | h]
+//     and 2 x 16 KB of W^T: 4 stages (192 KB), one block per SM. Its pace
+//     is set by the stream of tiles from L2 through the ring (W^T's two
+//     parts are read again by every row block) and, close behind, by the
+//     consumer's work per stage, not by the tensor cores: 45 % of the
+//     3xTF32 bound at B=768 (PERF.md).
+//
+// `sat_lstm_cell` (the shapes neither design takes: I or H not a multiple
+// of 8 in bf16 or of 4 in fp32, a misaligned operand) is a shared-memory
 // tiled GEMM: bf16 runs on the tensor cores through WMMA (16x16x16, fp32
 // accumulators), fp32 on the CUDA cores (4x8 outputs per thread). The
 // k-loop is a 3-stage ring of shared memory: when I, H and the pointers
 // allow 16-byte vectors, tiles arrive by `cp.async` two k-steps ahead of the
 // math; otherwise (unaligned shapes) they are loaded element by element.
 // Ragged edges in B, I+H and H are zero-filled on load and masked on store,
-// so any shape runs.
+// so any shape runs. Before the 3xTF32 design it ran every fp32 cell.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
@@ -540,18 +582,20 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 2-D bf16 row-major [rows, cols] tensor, boxes of box_rows x box_cols.
+// A 2-D row-major [rows, cols] tensor of bf16 (or, with f32, fp32), boxes
+// of box_rows x box_cols.
 bool encode(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
-            uint32_t box_cols, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion promo) {
+            uint32_t box_cols, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion promo,
+            bool f32 = false) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[1] = {cols * (f32 ? sizeof(float) : sizeof(__nv_bfloat16))};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promo,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            promo, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int WG>
@@ -573,6 +617,244 @@ cudaError_t launch(const void* x, const void* h, const void* w, const float* b, 
   return cudaGetLastError();
 }
 
+// --- 3xTF32: the fp32 cell on the tensor cores ------------------------------
+
+// in a namespace of its own, so that its constants hide the bf16 design's
+namespace t3 {
+
+constexpr int BM = 64;                // batch rows per block: one consumer warpgroup
+constexpr int BK = 32;                // k per stage: 128 bytes of fp32, one swizzle row
+constexpr int BN = 32;                // hidden columns per gate per block
+constexpr int ROW = BK * 4;           // bytes of one k-row of a tile ([x|h] row, W^T row)
+constexpr int A_BYTES = BM * ROW;     // one stage's [x|h] tile
+constexpr int W_GATE = BN * ROW;      // one gate's box of W^T: 32 rows of 128 bytes
+constexpr int W_BYTES = 4 * W_GATE;   // the four gates: 128 rows, one wgmma's N
+// [x|h] rounded in place to its big part, its small part, W^T big, W^T small
+constexpr int STAGE = 2 * A_BYTES + 2 * W_BYTES;
+constexpr int STAGES = 4;
+constexpr int NT = 128 + 32;          // the consumer warpgroup, then one producer warp
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+
+// a rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ float tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
+// d = A (64x8, K-major) * B (8x128, K-major) + (accumulate ? d : 0), TF32
+// in, fp32 sum
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Stage kt of the consumer warpgroup (thread t of 128): wait for its tiles,
+// split [x|h] into its TF32 parts, and issue the stage's twelve products
+// into acc, a fresh partial sum (one commit group).
+__device__ __forceinline__ void tf32x3_stage(float (&acc)[64], int kt, uint32_t ring,
+                                             unsigned char* ring_p, uint32_t full, int t) {
+  const int s = kt % STAGES;
+  mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+  const uint32_t ab = ring + s * STAGE, as = ab + A_BYTES, wb = as + A_BYTES, ws = wb + W_BYTES;
+  // the split: 64 rows x 128 bytes = 512 float4, 4 per thread; element-wise,
+  // so the small part lands at the big part's (swizzled) offsets
+  float4* const pb = reinterpret_cast<float4*>(ring_p + (ab - ring));
+  float4* const ps = reinterpret_cast<float4*>(ring_p + (as - ring));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = t + 128 * i;
+    const float4 v = pb[j];
+    const float4 big = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+    pb[j] = big;
+    ps[j] = make_float4(tf32_rna(v.x - big.x), tf32_rna(v.y - big.y), tf32_rna(v.z - big.z),
+                        tf32_rna(v.w - big.w));
+  }
+  // this thread's generic-proxy writes before the async proxy's reads, then
+  // every thread of the warpgroup
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    // every tile: 128-byte rows, 8-row groups 1 KB apart; a k8 slice is 32 bytes on
+    const uint64_t dab = desc(ab + kk * 32, 16, 1024, 1), das = desc(as + kk * 32, 16, 1024, 1);
+    const uint64_t dwb = desc(wb + kk * 32, 16, 1024, 1), dws = desc(ws + kk * 32, 16, 1024, 1);
+    wgmma_tf32_m64n128k8(acc, das, dwb, kk > 0);
+    wgmma_tf32_m64n128k8(acc, dab, dws, 1);
+    wgmma_tf32_m64n128k8(acc, dab, dwb, 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+// After stage kt's products were issued: wait for stage kt - 1's, add its
+// partial sum into the total (round to nearest) and hand its tiles back.
+__device__ __forceinline__ void tf32x3_retire(float (&total)[64], float (&prev)[64], int kt,
+                                              uint32_t empty, int lane) {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  fence_acc(prev);
+  if (kt > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] += prev[i];
+    if (lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
+  }
+}
+
+__global__ void __launch_bounds__(t3::NT)
+lstm_cell_tf32x3_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th,
+                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ b,
+                        const float* __restrict__ c, float* __restrict__ h_out,
+                        float* __restrict__ c_out, int B, int I, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // swizzled tiles want 1 KB alignment
+  unsigned char* const ring_p = smem_raw + (ring - raw);
+  const uint32_t full = ring + STAGES * STAGE;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int KX = (I + BK - 1) / BK, KT = KX + (H + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(empty + 8 * s, 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: one thread issues every copy; W^T's small part is 4H rows on
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + 8 * s, ((kt / STAGES) - 1) & 1);
+        const uint32_t a = ring + s * STAGE, wb = a + 2 * A_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, A_BYTES + 2 * W_BYTES);
+        int k;
+        if (kt < KX) {
+          tma_load(a, &tx, kt * BK, m0, bar);
+          k = kt * BK;
+        } else {
+          tma_load(a, &th, (kt - KX) * BK, m0, bar);
+          k = I + (kt - KX) * BK;
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          tma_load(wb + g * W_GATE, &tw, k, g * H + n0, bar);
+          tma_load(wb + W_BYTES + g * W_GATE, &tw, k, 4 * H + g * H + n0, bar);
+        }
+      }
+    }
+  } else {
+    // the consumer warpgroup: rows m0 .. m0 + 64 of all four gates. The
+    // tensor cores round each accumulation toward zero, so a running sum
+    // over all 3 (I + H) / 8 products would drift by up to an ulp of z per
+    // product: each stage sums into a fresh partial (twelve products), and
+    // the partials meet in `total` by round-to-nearest adds. Two partials
+    // alternate, so that one stage's products run while the last one's
+    // partial is added.
+    float total[64], acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = acc0[i] = acc1[i] = 0.f;
+    for (int kt = 0; kt < KT; kt += 2) {
+      tf32x3_stage(acc0, kt, ring, ring_p, full, tid);
+      tf32x3_retire(total, acc1, kt, empty, lane);
+      if (kt + 1 < KT) {
+        tf32x3_stage(acc1, kt + 1, ring, ring_p, full, tid);
+        tf32x3_retire(total, acc0, kt + 1, empty, lane);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc0);
+    fence_acc(acc1);
+    if (KT & 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] += acc0[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] += acc1[i];
+    }
+
+    // epilogue in registers, as the bf16 design's: total[4 (4 g + jj) + 2 r + e]
+    // is z_g at row 16 warp + lane / 4 + 8 r, column 8 jj + 2 (lane % 4) + e
+    const int row0 = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = n0 + 8 * jj + 2 * (lane & 3);  // even; H % 4 == 0, so n < H covers n + 1
+      if (n >= H) continue;
+      const float2 bi = *reinterpret_cast<const float2*>(b + 0 * H + n);
+      const float2 bf = *reinterpret_cast<const float2*>(b + 1 * H + n);
+      const float2 bg = *reinterpret_cast<const float2*>(b + 2 * H + n);
+      const float2 bo = *reinterpret_cast<const float2*>(b + 3 * H + n);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = row0 + 8 * r;
+        if (m >= B) continue;
+        const size_t o = (size_t)m * H + n;
+        const float2 cv = *reinterpret_cast<const float2*>(c + o);
+        float hn[2], cn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * r + e;
+          const float gi = sigmoid(total[i] + (e ? bi.y : bi.x));
+          const float gf = sigmoid(total[16 + i] + (e ? bf.y : bf.x));
+          const float gg = tanhf(total[32 + i] + (e ? bg.y : bg.x));
+          const float go = sigmoid(total[48 + i] + (e ? bo.y : bo.x));
+          cn[e] = gf * (e ? cv.y : cv.x) + gi * gg;
+          hn[e] = go * tanhf(cn[e]);
+        }
+        *reinterpret_cast<float2*>(c_out + o) = make_float2(cn[0], cn[1]);
+        *reinterpret_cast<float2*>(h_out + o) = make_float2(hn[0], hn[1]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_tf32x3(const void* x, const void* h, const void* wt, const float* b, const float* c,
+                          void* h_out, float* c_out, int B, int I, int H, cudaStream_t stream) {
+  CUtensorMap tx, th, tw;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode(&tx, x, B, I, BM, BK, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, true) ||
+      !encode(&th, h, B, H, BM, BK, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, true) ||
+      !encode(&tw, wt, 8 * (uint64_t)H, (uint64_t)I + H, BN, BK, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              true))
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(lstm_cell_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((H + BN - 1) / BN, (B + BM - 1) / BM);
+  lstm_cell_tf32x3_kernel<<<grid, NT, SMEM, stream>>>(tx, th, tw, b, c, static_cast<float*>(h_out), c_out,
+                                                      B, I, H);
+  return cudaGetLastError();
+}
+
+}  // namespace t3
+
 }  // namespace sm90
 
 // The Hopper design, bf16 only. I and H multiples of 8; x, h, w, b, c, h_out
@@ -589,6 +871,17 @@ extern "C" int sat_lstm_cell_sm90(const void* x, const void* h, const void* w, c
     case 192: return (int)sm90::launch<3>(x, h, w, b, c, h_out, c_out, B, I, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The 3xTF32 design, fp32 only. wt is [2, 4H, I+H]: W^T rounded to TF32,
+// then the TF32 rounding of W^T minus it (ops/lstm.py `tf32x3_weight`). I
+// and H multiples of 4; x, h, wt, b, c, h_out and c_out 16-byte aligned; 64
+// batch rows per block. Returns a cudaError_t.
+extern "C" int sat_lstm_cell_tf32x3(const void* x, const void* h, const void* wt, const float* b,
+                                    const float* c, void* h_out, float* c_out, int B, int I, int H,
+                                    void* stream) {
+  if (B <= 0 || I <= 0 || H <= 0 || I % 4 || H % 4) return (int)cudaErrorInvalidValue;
+  return (int)sm90::t3::launch_tf32x3(x, h, wt, b, c, h_out, c_out, B, I, H, static_cast<cudaStream_t>(stream));
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, h, w and h_out). vec: 1 when I and H

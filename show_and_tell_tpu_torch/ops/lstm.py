@@ -9,9 +9,14 @@ Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
 ``lstm_cell`` launches a kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
 and runs ``lstm_cell_reference`` for CPU tensors. ``cell_design`` picks the
 kernel from the shape, the type and the alignment before the launch: the
-Hopper design (``wgmma`` fed by TMA) for bf16 shapes that TMA can take, the
-shared-memory tiled GEMM for the rest. On a CUDA tensor it never falls back:
-the launch succeeds or it raises.
+Hopper designs fed by TMA for the shapes TMA can take (``wgmma`` for bf16,
+``tf32x3`` for fp32: three TF32 products on the tensor cores, at fp32
+accuracy), the shared-memory tiled GEMM for the rest. On a CUDA tensor it
+never falls back: the launch succeeds or it raises.
+
+``tf32x3`` reads W^T split into TF32 parts (``tf32x3_weight``), made once
+per weight version by ``prepared_weight`` and kept beside the weight, out
+of any ``state_dict`` (2 x 33.6 MB for the serving model's W).
 
 Training: when an input requires grad, ``lstm_cell`` goes through
 ``LSTMCellFunction``, whose forward is that same kernel (or plain cell) and
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import functools
 import math
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,24 +39,33 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
 
-CELL_DESIGNS = ("wgmma", "tiled")
+CELL_DESIGNS = ("wgmma", "tf32x3", "tiled")
 H100_SMS = 132
 _WGMMA_BM = (64, 128, 192)  # batch rows per block: one to three consumer warpgroups
 _WGMMA_BN = 32  # hidden columns per gate per block
+# tf32x3: one consumer warpgroup of 64 rows, whose two partial sums and total
+# take the registers a second would need
+_TF32X3_BM = 64
 
 
 def cell_design(
     B: int, I: int, H: int, dtype: torch.dtype, aligned: bool, sms: int = H100_SMS
 ) -> Tuple[str, int]:
     """Which kernel of ``csrc/lstm_cell.cu`` runs a cell of this shape, and its
-    batch rows per block: ``("wgmma", BM)`` for bf16 with I and H multiples of
-    8 and 16-byte aligned operands (what TMA takes), else ``("tiled", 64)``.
+    batch rows per block, for operands that are 16-byte ``aligned`` (what TMA
+    takes): ``("wgmma", BM)`` for bf16 with I and H multiples of 8,
+    ``("tf32x3", 64)`` for fp32 with I and H multiples of 4, else
+    ``("tiled", 64)``.
 
-    BM is the one of 64, 128 and 192 whose blocks fill ``sms`` SMs in the
-    fewest rows of work per SM (waves x BM), the larger on a tie: the larger
-    the tile, the fewer times W is read. B=768: 192 (128 blocks, one wave);
-    B=256: 64 (128 blocks)."""
-    if dtype != torch.bfloat16 or I <= 0 or I % 8 or H % 8 or not aligned:
+    The wgmma BM is the one of 64, 128 and 192 whose blocks fill ``sms`` SMs
+    in the fewest rows of work per SM (waves x BM), the larger on a tie: the
+    larger the tile, the fewer times W is read. B=768: 192 (128 blocks, one
+    wave); B=256: 64 (128 blocks)."""
+    if I <= 0 or not aligned:
+        return "tiled", 64
+    if dtype == torch.float32 and I % 4 == 0 and H % 4 == 0:
+        return "tf32x3", _TF32X3_BM
+    if dtype != torch.bfloat16 or I % 8 or H % 8:
         return "tiled", 64
     n_tiles = -(-H // _WGMMA_BN)
 
@@ -59,6 +74,55 @@ def cell_design(
         return -(-blocks // sms) * bm
 
     return "wgmma", min(_WGMMA_BM, key=lambda bm: (rows_per_sm(bm), -bm))
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds (the low 13 bits zero);
+    inf and NaN pass."""
+    r = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(t), r, t)
+
+
+def tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
+    """The ``tf32x3`` kernel's W operand: [2, 4H, I+H] fp32, W^T rounded to
+    TF32 (big), then the TF32 rounding of W^T - big (small). W^T because
+    ``wgmma`` takes 32-bit operands K-major only."""
+    with torch.no_grad():
+        wt = w.t().contiguous()
+        big = tf32_round(wt)
+        return torch.stack([big, tf32_round(wt - big)])
+
+
+# id(w) -> (weakref to w, its key, tf32x3_weight(w))
+_PREPARED: Dict[int, tuple] = {}
+
+
+def weight_key(w: torch.Tensor) -> tuple:
+    """What a prepared copy of ``w`` is valid for: its storage, shape and
+    version counter (an in-place update, an optimizer step or a
+    ``load_state_dict`` copy, bumps the version)."""
+    return w.data_ptr(), tuple(w.shape), w._version
+
+
+def prepared_weight(w: torch.Tensor) -> torch.Tensor:
+    """``tf32x3_weight(w)``, made once per weight version and kept while
+    ``w`` lives. An inference tensor has no version counter: it is split at
+    every call."""
+    if w.is_inference():
+        return tf32x3_weight(w)
+    key = weight_key(w)
+    entry = _PREPARED.get(id(w))
+    if entry is not None and entry[0]() is w and entry[1] == key:
+        return entry[2]
+
+    def forget(ref, i=id(w)):
+        if _PREPARED.get(i, (None,))[0] is ref:
+            del _PREPARED[i]
+
+    prepared = tf32x3_weight(w)
+    _PREPARED[id(w)] = (weakref.ref(w, forget), key, prepared)
+    return prepared
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,11 +161,8 @@ def lstm_cell_reference(
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
 
-def lstm_cell_cuda(
-    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the fused cell kernel. x, h and W share one dtype (float32 or
-    bfloat16); b and c are float32. Returns (h' in h's dtype, c' float32)."""
+def _cell_shapes(params: Params, x, h, c) -> Tuple[int, int, int]:
+    """(B, I, H) of checked CUDA operands; raises on what no kernel takes."""
     w, b = params["w"], params["b"]
     what = "lstm_cell"
     cuda_lib.check_operands(what, x.device, x=x, h=h, c=c, w=w, b=b)
@@ -117,25 +178,56 @@ def lstm_cell_cuda(
         raise TypeError(f"{what}: x, h, W dtypes differ: {x.dtype}, {h.dtype}, {w.dtype}")
     if b.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"{what}: b and c must be float32, got {b.dtype}, {c.dtype}")
-    code = cuda_lib.dtype_code(x)
+    cuda_lib.dtype_code(x)
+    return B, I, H
+
+
+def lstm_cell_cuda(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fused cell kernel that ``cell_design`` picks. x, h and W
+    share one dtype (float32 or bfloat16); b and c are float32. Returns (h'
+    in h's dtype, c' float32)."""
+    B, I, H = _cell_shapes(params, x, h, c)
+    w, b = params["w"], params["b"]
+    aligned = cuda_lib.vectorizable((I, H), x, h, w) and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+    design, bm = cell_design(B, I, H, x.dtype, aligned, _sm_count(x.device.index or 0))
+    return _launch(design, bm, params, x, h, c, B, I, H)
+
+
+def lstm_cell_tiled(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``tiled`` kernel by name, whatever the plan says: for timing the
+    fp32 design that ``tf32x3`` replaced beside it. Nothing on the main path
+    calls it."""
+    B, I, H = _cell_shapes(params, x, h, c)
+    return _launch("tiled", 64, params, x, h, c, B, I, H)
+
+
+def _launch(design, bm, params, x, h, c, B, I, H):
+    w, b = params["w"], params["b"]
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     if B == 0:
         return h_out, c_out
     lib = cuda_lib.library("lstm_cell.cu")
-    aligned = cuda_lib.vectorizable((I, H), x, h, w) and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
-    design, bm = cell_design(B, I, H, x.dtype, aligned, _sm_count(x.device.index or 0))
+    stream = cuda_lib.stream(x.device)
+    if design == "tf32x3":
+        w = prepared_weight(w)
     operands = (
         cuda_lib.ptr(x), cuda_lib.ptr(h), cuda_lib.ptr(w), cuda_lib.ptr(b),
         cuda_lib.ptr(c), cuda_lib.ptr(h_out), cuda_lib.ptr(c_out), B, I, H,
     )
     if design == "wgmma":
-        err = lib.sat_lstm_cell_sm90(*operands, bm, cuda_lib.stream(x.device))
+        err = lib.sat_lstm_cell_sm90(*operands, bm, stream)
+    elif design == "tf32x3":
+        err = lib.sat_lstm_cell_tf32x3(*operands, stream)
     else:
         vec = int(cuda_lib.vectorizable((I, H), x, h, w))
-        err = lib.sat_lstm_cell(*operands, code, vec, cuda_lib.stream(x.device))
-    cuda_lib.check(err, what)
-    cuda_lib.count(what, design)
+        err = lib.sat_lstm_cell(*operands, cuda_lib.dtype_code(x), vec, stream)
+    cuda_lib.check(err, "lstm_cell")
+    cuda_lib.count("lstm_cell", design)
     return h_out, c_out
 
 

@@ -88,8 +88,19 @@ BF16, F32 = torch.bfloat16, torch.float32
     (9, 48, 40, BF16, True, ("wgmma", 64)),
     (5, 17, 20, BF16, True, ("tiled", 64)),  # I not a multiple of 8
     (256, 1024, 1024, BF16, False, ("tiled", 64)),  # a misaligned operand
-    (768, 1024, 1024, F32, True, ("tiled", 64)),
-    (13, 40, 24, F32, True, ("tiled", 64)),
+    # fp32, the Config default: the 3xTF32 design wherever TMA takes the shape
+    (768, 1024, 1024, F32, True, ("tf32x3", 64)),  # beam-3 serving
+    (256, 1024, 1024, F32, True, ("tf32x3", 64)),  # greedy, the first beam step, training
+    (768, 512, 1024, F32, True, ("tf32x3", 64)),  # Show-and-Tell's layer 0
+    (256, 512, 1024, F32, True, ("tf32x3", 64)),
+    (300, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (1, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (64, 1000, 1000, F32, True, ("tf32x3", 64)),  # ragged H and k-tiles on TMA
+    (13, 40, 24, F32, True, ("tf32x3", 64)),
+    (5, 17, 20, F32, True, ("tiled", 64)),  # I not a multiple of 4
+    (9, 48, 42, F32, True, ("tiled", 64)),  # H not a multiple of 4
+    (256, 1024, 1024, F32, False, ("tiled", 64)),  # a misaligned operand
+    (4, 0, 8, F32, True, ("tiled", 64)),
 ])
 def test_cell_design(B, I, H, dtype, aligned, want):
     assert tlstm.cell_design(B, I, H, dtype, aligned) == want
@@ -106,6 +117,23 @@ def test_cell_tile_fills_the_card():
             return math.ceil(math.ceil(B / t) * 32 / tlstm.H100_SMS) * t
 
         assert rows_per_sm(bm) == min(rows_per_sm(t) for t in (64, 128, 192)), B
+
+
+def test_tf32x3_entry_matches_the_wrapper():
+    """The 3xTF32 entry point is bound with the wrapper's arguments (seven
+    pointers, B, I, H, the stream), and the source's tile is the planner's:
+    one warpgroup of 64 rows by 32 columns of each gate."""
+    src = _source("lstm_cell.cu")
+    params = dict(_EXTERN.findall(src))["sat_lstm_cell_tf32x3"].split(",")
+    assert len(params) == 11 and "wt" in params[2]
+    assert cuda_lib._SIGNATURES["lstm_cell.cu"]["sat_lstm_cell_tf32x3"] == (
+        (cuda_lib.ctypes.c_void_p,) * 7 + (cuda_lib.ctypes.c_int,) * 3 + (cuda_lib.ctypes.c_void_p,))
+    t3 = src[src.index("namespace t3 {"):]
+    assert f"constexpr int BM = {tlstm._TF32X3_BM};" in t3
+    assert f"constexpr int BN = {tlstm._WGMMA_BN};" in t3
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in t3
+    assert "cvt.rna.tf32.f32" in t3
+    assert "tf32x3" in tlstm.CELL_DESIGNS
 
 
 # --- the beam attention: cluster size and load mode ---------------------------
@@ -664,3 +692,178 @@ def test_launch_counts_by_design():
     assert f"{design}{C}" == "onepass1"
     assert "".join(map(str, tfda.st_plan(3, 196, 512, 2, True))) == "cluster5"
     cuda_lib.LAUNCHES.clear()
+
+
+# --- the 3xTF32 product, emulated ---------------------------------------------
+#
+# The tf32x3 kernel's arithmetic in numpy: each operand split into big =
+# rna(a) and small = rna(a - big) (cvt.rna.tf32.f32: 10 mantissa bits, ties
+# away from zero); per k-step of 8 the products a_s*w_b, a_b*w_s, a_b*w_b, each
+# an exact 8-term dot added to the stage's partial sum with the result rounded
+# toward zero to fp32 (the tensor cores' accumulation, as a build with one
+# running sum showed on the card: below); per stage of 32 a fresh
+# partial, added to the total by a round-to-nearest fp32 add; the gates in
+# fp32. W's parts come from the port's own ``tf32x3_weight``.
+
+
+def _rna(a):
+    a = np.asarray(a, np.float32)
+    r = ((a.view(np.uint32).astype(np.uint64) + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+    return np.where(np.isfinite(a), r, a)
+
+
+def _container(a):
+    """What the tensor core reads of a 32-bit container: its top 19 bits."""
+    return (np.asarray(a, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _toward_zero(s):
+    r = s.astype(np.float32)
+    up = np.abs(r.astype(np.float64)) > np.abs(s)
+    r[up] = np.nextafter(r[up], np.float32(0))
+    return r
+
+
+def emulate_tf32x3_z(a, wt, partials=True, split="rna"):
+    """z = a @ W as the kernel forms it: a [B, K] fp32, wt [2, N, K] (W^T's
+    big and small parts). ``partials=False`` runs one running sum over the
+    whole k-loop; ``split`` "big_unrounded" hands the tensor core a's raw
+    fp32 as its big part, "small_unrounded" leaves a's small part unrounded."""
+    big = _rna(a)
+    small = _rna(a - big)
+    if split == "big_unrounded":
+        big = _container(a)
+    elif split == "small_unrounded":
+        small = _container(a - big)
+    ab, as_ = big.astype(np.float64), small.astype(np.float64)
+    wb, ws = wt[0].T.astype(np.float64), wt[1].T.astype(np.float64)
+    B, K = a.shape
+    acc = np.zeros((B, wb.shape[1]), np.float32)
+    total = np.zeros_like(acc)
+    for k0 in range(0, K, 32):
+        if partials:
+            acc[:] = 0
+        for kk in range(k0, min(k0 + 32, K), 8):
+            sl = slice(kk, kk + 8)
+            for x, w in ((as_, wb), (ab, ws), (ab, wb)):
+                acc = _toward_zero(acc + x[:, sl] @ w[sl])
+        if partials:
+            total = total + acc
+    return total if partials else acc
+
+
+def gates(z, b, c, dtype):
+    """(h', c') from z [B, 4n] and c [B, n] in ``dtype``."""
+    n = c.shape[1]
+    z = (z + b).astype(dtype)
+    sig = lambda v: 1 / (1 + np.exp(-v))  # noqa: E731
+    i, f, g, o = sig(z[:, :n]), sig(z[:, n:2 * n]), np.tanh(z[:, 2 * n:3 * n]), sig(z[:, 3 * n:])
+    c_new = f * c.astype(dtype) + i * g
+    return o * np.tanh(c_new), c_new
+
+
+def emulate_tf32x3_cell(w, b, x, h, c, hidden=None, **kw):
+    """The tf32x3 kernel's (h', c') on numpy fp32 inputs, at the hidden
+    columns ``hidden`` (all by default)."""
+    H = h.shape[1]
+    hidden = np.arange(H) if hidden is None else hidden
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    wt = tlstm.tf32x3_weight(torch.from_numpy(w)).numpy()[:, zc]
+    z = emulate_tf32x3_z(np.concatenate([x, h], 1), wt, **kw)
+    return gates(z, b[zc], c[:, hidden], np.float32)
+
+
+def _draw_cell(B, I, H, seed):
+    """chip_smoke.py ``cell_inputs``' distributions, from numpy: W and b
+    uniform in +-H^-0.5, x, h and c standard normal."""
+    rng = np.random.default_rng(seed)
+    k = H ** -0.5
+    w = rng.uniform(-k, k, (I + H, 4 * H)).astype(np.float32)
+    b = rng.uniform(-k, k, 4 * H).astype(np.float32)
+    x, h, c = (rng.standard_normal(s).astype(np.float32) for s in ((B, I), (B, H), (B, H)))
+    return w, b, x, h, c
+
+
+def test_tf32_round_is_cvt_rna():
+    """The port's TF32 rounding (W's split) is round to nearest, ties away
+    from zero, to 10 mantissa bits: ties, signs, the carry into the exponent,
+    inf and NaN, and random bits against the numpy model of the kernel's."""
+    one = np.float32(1)
+    cases = np.array([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23,
+                      2 - 2 ** -23, 3.4e38, np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40], np.float32)
+    want = [1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), one, 2.0]
+    got = tlstm.tf32_round(torch.from_numpy(cases)).numpy()
+    np.testing.assert_array_equal(got[:5], np.array(want, np.float32))
+    np.testing.assert_array_equal(got, _rna(cases))
+    bits = np.random.default_rng(0).integers(0, 2 ** 32, 100_000, dtype=np.uint64).astype(np.uint32)
+    a = bits.view(np.float32)
+    got = tlstm.tf32_round(torch.from_numpy(a.copy())).numpy()
+    fin = np.isfinite(a)
+    np.testing.assert_array_equal(got.view(np.uint32)[fin], _rna(a).view(np.uint32)[fin])
+    assert np.isnan(got[np.isnan(a)]).all()
+    assert not (got.view(np.uint32)[fin] & 0x1FFF).any()  # the low 13 bits, which wgmma drops, are 0
+
+
+def test_tf32x3_weight_is_wt_split():
+    """``tf32x3_weight``: [2, 4H, I+H], W^T's big part and the rounding of
+    what is left, both exact in TF32, which sum to W^T within 2^-22 of it."""
+    w = torch.from_numpy(_draw_cell(1, 12, 8, 0)[0])
+    wt = tlstm.tf32x3_weight(w)
+    assert wt.shape == (2, 32, 20) and wt.dtype == torch.float32 and wt.is_contiguous()
+    big, small = wt[0].double(), wt[1].double()
+    assert not (wt.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(wt[0].numpy(), _rna(w.t().numpy()))
+    err = ((big + small) - w.t().double()).abs()
+    assert bool((err <= 2.0 ** -22 * w.t().double().abs()).all())
+
+
+# B=768 I=H=1024 (beam-3 serving) and I=512 (Show-and-Tell's layer 0); every
+# 32nd hidden column of each gate: the kernel's blocks are independent
+@pytest.mark.parametrize("B,I,H", [(768, 1024, 1024), (768, 512, 1024)])
+def test_tf32x3_emulation_meets_the_cell_tolerance(B, I, H):
+    """The 3xTF32 algorithm meets phase 3's limit (1e-5 absolute and of
+    scale) against the float64 cell, and sits no farther from it than
+    twice plain fp32 (a float32 matmul) does. One running sum over the
+    k-loop does not meet it (a build with that design failed the limit on
+    the card, as this model of the tensor cores' sums predicts), so the
+    kernel sums each stage apart. Without the explicit rounding of big (the
+    tensor core truncating a's raw fp32) the error is a hundred times the
+    kernel's."""
+    w, b, x, h, c = _draw_cell(B, I, H, 0)
+    hidden = np.arange(0, H, 32)
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    a = np.concatenate([x, h], 1)
+    h64, c64 = gates(a.astype(np.float64) @ w[:, zc].astype(np.float64), b[zc], c[:, hidden], np.float64)
+    h32, c32 = gates(a @ w[:, zc], b[zc], c[:, hidden], np.float32)
+
+    def err(hc):
+        return max(np.abs(hc[0] - h64).max(), np.abs(hc[1] - c64).max())
+
+    scale = max(np.abs(h64).max(), np.abs(c64).max())
+    kernel = err(emulate_tf32x3_cell(w, b, x, h, c, hidden))
+    plain = err((h32, c32))
+    assert kernel <= 1e-5 and kernel / scale <= 1e-5, kernel
+    assert kernel <= 2 * plain, (kernel, plain)
+    running = err(emulate_tf32x3_cell(w, b, x, h, c, hidden, partials=False))
+    assert running > 1e-5, running
+    unrounded = err(emulate_tf32x3_cell(w, b, x, h, c, hidden, split="big_unrounded"))
+    assert unrounded > 100 * kernel and unrounded > 1e-4, (unrounded, kernel)
+
+
+def test_tf32x3_split_covers_fp32():
+    """Per element, big + small stands for a within 2^-23 |a|: big holds 11
+    of fp32's 24 significant bits, and a - big, at most half a TF32 step,
+    holds at most 12, of which small keeps 11. The one bit small drops is a
+    tie, so its truncation by the tensor core would miss by as much as the
+    rounding does. Big's rounding is the one that matters: handed a's raw
+    fp32, the tensor core reads it truncated (a whole TF32 step under big
+    where big rounded up), and the pair misses by up to 2^-10 |a|."""
+    a = np.random.default_rng(1).standard_normal(200_000).astype(np.float32)
+    big = _rna(a)
+
+    def rel(b, small):
+        return (np.abs(b.astype(np.float64) + small - a) / np.abs(a)).max()
+
+    assert rel(big, _rna(a - big)) <= 2.0 ** -23
+    assert rel(big, _container(a - big)) <= 2.0 ** -23
+    assert 2.0 ** -11 < rel(_container(a), _rna(a - big)) <= 2.0 ** -10

@@ -7,6 +7,7 @@ themselves are checked on the card by chip_smoke.py.
 """
 
 import ast
+import gc
 import os
 import re
 
@@ -25,6 +26,7 @@ from show_and_tell_tpu_torch.ops import fused_attention as tfa
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda
 from show_and_tell_tpu_torch.ops import lstm as tlstm
 from show_and_tell_tpu_torch.ops import tanh_probe as tprobe
+from test_torch_port_kernel_sources import emulate_tf32x3_cell
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_and_tell_tpu_torch")
@@ -468,3 +470,67 @@ def test_every_jax_module_and_public_name_has_a_port_counterpart():
                 (stale.remove if key in NOT_PORTED else missing.append)(key)
     assert not missing, f"no counterpart in the port and no reason in NOT_PORTED: {missing}"
     assert not stale, f"NOT_PORTED entries that the port has, or that the JAX package no longer has: {stale}"
+
+
+# --- the fp32 cell's 3xTF32 design ---------------------------------------------
+
+
+@pytest.mark.parametrize("B,I,H", [(5, 40, 128), (9, 48, 40)])
+def test_tf32x3_emulation_matches_jax_pallas_interpret(B, I, H):
+    """The tf32x3 kernel's arithmetic (numpy emulation, W split by the
+    port's ``tf32x3_weight``) against the JAX cell's Pallas kernel in
+    interpret mode, fp32, within phase 3's 1e-5."""
+    jin, _ = _cell_inputs(B, I, H, jnp.float32, torch.float32, seed=2)
+    jlstm.set_pallas_enabled(True, interpret=True)
+    jh, jc = jlstm.lstm_cell(*jin)
+    jp, jx, jhid, jcell = jin
+    eh, ec = emulate_tf32x3_cell(*(np.asarray(a, np.float32) for a in (jp["w"], jp["b"], jx, jhid, jcell)))
+    np.testing.assert_allclose(eh, np.asarray(jh), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ec, np.asarray(jc), atol=1e-5, rtol=0)
+
+
+def test_tf32x3_weight_copy_follows_the_weight():
+    """The prepared W of the tf32x3 design is made once per weight version:
+    the same copy while W is unchanged, a new one after an in-place update
+    (an optimizer step) and after ``load_state_dict``, each equal to a fresh
+    split; it is in no ``state_dict`` and dies with its weight."""
+    from show_and_tell_tpu_torch import ckpt
+    from show_and_tell_tpu_torch.config import Config
+    from show_and_tell_tpu_torch.models.registry import build_model
+
+    cfg = Config(embed_size=16, hidden_size=24, crop_size=32)
+    model = build_model(cfg, 40, device="cpu", generator=torch.Generator().manual_seed(0))
+    w = model.trainable_tree()["lstm"]["w"]
+    keys = set(model.state_dict())
+    key0, p0 = tlstm.weight_key(w), tlstm.prepared_weight(w)
+    assert tlstm.prepared_weight(w) is p0 and torch.equal(p0, tlstm.tf32x3_weight(w))
+    with torch.no_grad():
+        w.add_(0.25)
+    key1 = tlstm.weight_key(w)
+    assert key1 != key0
+    p1 = tlstm.prepared_weight(w)
+    assert p1 is not p0 and torch.equal(p1, tlstm.tf32x3_weight(w))
+    other = build_model(cfg, 40, device="cpu", generator=torch.Generator().manual_seed(1))
+    model.load_state_dict(other.state_dict())
+    assert tlstm.weight_key(w) != key1
+    p2 = tlstm.prepared_weight(w)
+    assert torch.equal(p2, tlstm.tf32x3_weight(other.trainable_tree()["lstm"]["w"]))
+    for sd in (model.state_dict(), ckpt.trainable_state_dict(model)):
+        assert all(t.data_ptr() != p2.data_ptr() and t.shape != p2.shape for t in sd.values())
+    assert set(model.state_dict()) == keys
+    n = len(tlstm._PREPARED)
+    del model, w, sd
+    gc.collect()
+    assert len(tlstm._PREPARED) == n - 1
+    with torch.inference_mode():  # no version counter: split afresh, never kept
+        wi = torch.ones(8, 12)
+        assert torch.equal(tlstm.prepared_weight(wi), tlstm.tf32x3_weight(wi))
+    assert len(tlstm._PREPARED) == n - 1
+
+
+def test_tiled_by_name_refuses_cpu_tensors():
+    """The timing entry that launches the tiled kernel by name is a kernel
+    launcher: no plain path on CPU tensors."""
+    _, (p, x, h, c) = _cell_inputs(3, 8, 16, None, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tlstm.lstm_cell_tiled(p, x, h, c)
