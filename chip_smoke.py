@@ -23,9 +23,12 @@ Phases, each printing its own lines:
    I=H=1000, B=1; the attentions and the scores: K=1, 2, 4 and 8, B=1, L=1,
    13, 64 and 197, D=36, 1000 and 1024, unaligned views, and the first
    kernels of rows 2 and 4-6 by name), in fp32 and bf16, each line naming the
-   design that ran (the cell's ``wgmma`` (bf16), ``tf32x3`` (fp32: asserted
-   at every shape whose I and H are multiples of 4) or ``tiled`` kernel, and
-   ``tiled`` by name at the fp32 serving shapes, the beam
+   design that ran (the cell's ``skinny`` up to its crossover, above it
+   ``wgmma`` (bf16) or ``tf32x3`` (fp32), or ``tiled``: asserted at every
+   shape by the plan's rule, ``tiled`` by name at the fp32 serving shapes;
+   at the serving front door's batches, B=2, the crossover and one above it
+   and a ragged edge, both dtypes, I=1024 and 512, also ``skinny`` and the
+   design it replaces by name), the beam
    attention's cluster size and loads, the per-row attention's and the
    (image, beam) grid's ``onepass<C>`` or ``direct``, the transposed form's
    ``cluster<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
@@ -63,7 +66,13 @@ Phases, each printing its own lines:
    its bound (the bytes, or three TF32 products at 495 TFLOP/s; the CUDA
    cores' 67 TFLOP/s figure printed beside), the plain cell,
    ``torch.lstm_cell`` (TF32 off) and, by name, the ``tiled`` kernel it
-   replaced, and the W split it makes once per weight version; and then
+   replaced, and the W split it makes once per weight version; then the
+   cell at the serving front door's batches (B = 1, 3, 8, 24, 32, 96, 128,
+   384: the buckets 1, 8, 32, 128 and 3x those for beam), I=1024 and 512,
+   bf16 and fp32: the plan's design beside its bound, ``torch.lstm_cell``
+   and the plain cell, the small-batch form (``skinny``) and the design it
+   replaces (``wgmma``, ``tf32x3``) by name, and the sweep of those two
+   that sets ``ops/lstm.SKINNY_MAX_B``; and then
    runs the JAX benchmark's probe loop (20 steps,
    each feeding the next step's hp), its launches counted and all of them
    by the default form;
@@ -81,7 +90,10 @@ Phases, each printing its own lines:
    and in bf16; then the ``Config`` default, fp32, at the same width over
    the same images: beam-3 and greedy img/s and the decode alone, each cell
    launch by ``tf32x3`` (20 per batch, asserted), in turns with the cell on
-   ``tiled`` (the planner overridden for the comparison);
+   ``tiled`` (the planner overridden for the comparison); and at buckets 1
+   and 8, beam-3 and greedy: the cell launches per batch by the plan's
+   designs (``skinny`` at B and 3B), asserted, and the decode
+   alone in turns with every fp32 cell on ``tf32x3``;
 6. the beam-route decode chain: with the same model's weights and the
    features of the same images, 20 steps of h-projection, beam attention by
    one route (``s16_cmxu``, ``grid2``, ``st_cmxu``, ``hybrid-s16``), the
@@ -171,7 +183,9 @@ Phases, each printing its own lines:
    img/s and p50/p95/p99, the batcher's stats, the worker's seconds in
    ``caption_images`` and the handlers' decode seconds, batches per bucket, decode
    steps and launches per batch by design: the cell and the mode's attention
-   once per step, nothing else); one ``/caption_batch`` of 256; every HTTP
+   once per step, nothing else, the cell by the plan's designs at the
+   bucket's batch, and every cell of buckets 1 and 8 by ``skinny``, asserted);
+   one ``/caption_batch`` of 256; every HTTP
    caption equal to the direct ``caption_images`` caption of the same image
    at the same bucket, and the HTTP img/s against the direct one; ``?nbest=1``
    headed by the beam caption, a burst answered with 429s that ``stats()``
@@ -185,7 +199,8 @@ Phases, each printing its own lines:
    ``model="show_tell"`` (ResNet-152, crop 224, E=512, H=1024, one layer,
    V=10,000, bf16) served by the ``Captioner`` over phase 5's 256 images,
    beam-3 and greedy (img/s, the cell's launches per batch: a layer per
-   decode step, by ``wgmma``, and no attention kernel; greedy's launches
+   decode step, by ``wgmma``, and no attention kernel; at buckets 1 and 8
+   the layer-0 launches by design, by ``skinny``; greedy's launches
    against the steps its ids show; trunk and decode apart, the trunk's
    device time beside its bound, a traced decode), the decode-step logits
    against the same weights on the CPU (bf16 and fp32, at B and 3B), fp32
@@ -242,10 +257,13 @@ of the cell on its main path, phase 13's launches of the cell and the
 attentions on the int8 runs, and phase 14's of rows 1-3 in the NCCL
 ``Trainer`` steps and both ranks' mesh runs.
 
-The line before the last is a JSON object with one entry per kernel, and one
+The line before the last is a JSON object with one entry per kernel, one
 for the cell's fp32 form (``lstm_cell_tf32x3``: its launches on the fp32
 serving and training runs of phases 5 and 7, its phase 3 error and phase 4
-times at B=768, I=H=1024); the last
+times at B=768, I=H=1024) and one per type for the small-batch form
+(``lstm_cell_skinny`` fp32: its launches at phase 5's buckets 1 and 8;
+``lstm_cell_skinny_bf16``: phase 11's HTTP batches and phase 12's small
+buckets; each with its phase 3 error and phase 4 times at B=1, I=1024); the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero. Without CUDA it exits non-zero before any result.
 """
@@ -339,6 +357,16 @@ PROBE_HELD = {torch.float32: ("ex2_rcp", "precise"),
 CHAIN_REPS = 10  # timed decodes per route of the beam-route chain
 WARM_STEPS, TIMED_STEPS = 2, 10  # training steps
 FP32_STEPS = 3  # timed fp32 training steps per turn
+
+# the cell at the serving front door's batches: the Captioner's buckets 1, 8,
+# 32 and 128 (greedy; Show-and-Tell's first beam step) and 3x those (beam)
+SMALL_B = (1, 3, 8, 24, 32, 96, 128, 384)
+# phase 4's sweep of the small-batch form against the design above its
+# crossover, by name, which sets ops/lstm.SKINNY_MAX_B
+SWEEP_B = (1, 2, 3, 4, 8, 16, 24, 32, 48, 64, 80, 96, 128, 160, 192, 256, 384)
+REPLACED = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # what the small-batch form replaces
+# the kernels line's entries of the small-batch form, by type
+SKINNY_ENTRY = {torch.float32: "lstm_cell_skinny", torch.bfloat16: "lstm_cell_skinny_bf16"}
 
 REPLACES = {
     "lstm_cell": "show_and_tell_tpu/ops/lstm.py:109",
@@ -715,6 +743,30 @@ def probe_machine_code() -> list:
     return lines
 
 
+def planned_cell(B, I, H, dtype):
+    """The cell design expected at a shape of 16-byte aligned operands: the
+    rule of ``ops/lstm.cell_design`` written out."""
+    from show_and_tell_tpu_torch.ops import lstm
+
+    align = 4 if dtype == torch.float32 else 8
+    if I % align or H % align:
+        return "tiled"
+    return "skinny" if B <= lstm.SKINNY_MAX_B[dtype] else REPLACED[dtype]
+
+
+def cell_designs_per_batch(mode, B, steps, layers, dtype, first_per_image=False, I=1024, H=1024):
+    """{design: launches} of the cell in one decode of ``steps`` steps of a
+    batch of B images, ``layers`` cells per step: greedy runs every step at
+    B, beam-3 every step at 3B (Show-Attend-Tell tiles its state per beam
+    before the first step) or, with ``first_per_image`` (Show-and-Tell, whose
+    first step runs per image), the first at B and the rest at 3B."""
+    out = collections.Counter()
+    for s in range(steps):
+        rows = B if mode != "beam" or (s == 0 and first_per_image) else 3 * B
+        out[planned_cell(rows, I, H, dtype)] += layers
+    return dict(out)
+
+
 def _design(name: str) -> str:
     """The designs of kernel ``name`` launched since the counts were cleared."""
     from show_and_tell_tpu_torch.ops import cuda_lib
@@ -752,6 +804,9 @@ def phase_check():
             errs[name] = max(errs.get(name, 0.0), worst)
         if serving and dtype == torch.float32 and name == "lstm_cell":  # the tf32x3 design's line
             errs["lstm_cell_tf32x3"] = max(errs.get("lstm_cell_tf32x3", 0.0), worst)
+        if name == "lstm_cell" and design.startswith("skinny"):  # the small-batch form's lines
+            key = SKINNY_ENTRY[dtype]
+            errs[key] = max(errs.get(key, 0.0), worst)
 
     for dtype in (torch.float32, torch.bfloat16):
         # the serving shapes, phase 9's (the eval driver's 64 images: B=64
@@ -773,16 +828,40 @@ def phase_check():
             design = _design("lstm_cell")
             hr, cr = lstm.lstm_cell_reference(p, x, h, c)
             assert hk.dtype == dtype and ck.dtype == torch.float32
-            if dtype == torch.float32:  # every shape TMA takes runs the 3xTF32 design
-                assert design == ("tiled" if I % 4 or H % 4 else "tf32x3"), (B, I, H, design)
+            assert design == planned_cell(B, I, H, dtype), (B, I, H, dtype, design)
             report("lstm_cell", f"B={B} I={I} H={H}", dtype,
                    {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], serving, design)
             if dtype == torch.float32 and (B, I) in ((768, 1024), (256, 1024)):
                 # the tiled kernel by name, which phase 4 times beside the plan's
                 cuda_lib.LAUNCHES.clear()
-                hk, ck = lstm.lstm_cell_tiled(p, x, h, c)
+                hk, ck = lstm.lstm_cell_by("tiled", p, x, h, c)
                 report("lstm_cell", f"B={B} I={I} H={H}", dtype,
                        {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], False, _design("lstm_cell"))
+        # the serving front door's batches (buckets 1, 8, 32 and 128, and 3x
+        # those for beam), B=2, the crossover and one above it, at I=1024 and
+        # Show-and-Tell's I=512, and a ragged edge: the plan's design,
+        # asserted, then the small-batch form and the design it replaces, each
+        # by name where the plan did not run it
+        old = REPLACED[dtype]
+        X = lstm.SKINNY_MAX_B[dtype]
+        shapes = [(B, I, 1024) for B in sorted({*SMALL_B, 2, X, X + 1}) for I in (1024, 512)] + [(5, 40, 40)]
+        for B, I, H in shapes:
+            p, x, h, c = cell_inputs(B, I, H, dtype, SEED)
+            hr, cr = lstm.lstm_cell_reference(p, x, h, c)
+            cuda_lib.LAUNCHES.clear()
+            hk, ck = lstm.lstm_cell_cuda(p, x, h, c)
+            design = _design("lstm_cell")
+            assert design == planned_cell(B, I, H, dtype), (B, I, H, dtype, design)
+            report("lstm_cell", f"B={B} I={I} H={H}", dtype,
+                   {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], False, design)
+            for by in ("skinny", old):
+                if by == design:
+                    continue
+                cuda_lib.LAUNCHES.clear()
+                hk, ck = lstm.lstm_cell_by(by, p, x, h, c)
+                assert _design("lstm_cell") == by
+                report("lstm_cell", f"B={B} I={I} H={H}", dtype,
+                       {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], False, f"{by} by name")
         # the attentions: K = 2..8, one patch row, one image, rows longer
         # than one pass of registers (D=1024), L=13, D=36; the per-row
         # attention also at L=197 (three blocks per image), D=1000 and a
@@ -1323,7 +1402,7 @@ def phase_times_fp32():
                 cell_bound(B, I, H, dt),
                 lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, p["b"], b_hh),
             )
-            tiled_ms = time_cold(lambda: lstm.lstm_cell_tiled(p, x, h, c))
+            tiled_ms = time_cold(lambda: lstm.lstm_cell_by("tiled", p, x, h, c))
             row["tiled_ms"] = tiled_ms
             # the split of W, made once per weight version (per training step)
             row["prepare_w_ms"] = time_cold(lambda: lstm.tf32x3_weight(p["w"]))
@@ -1361,6 +1440,64 @@ def phase_times_fp32():
     ):
         rows[name] = show(name, shape, kernel, plain, bound)
     return rows, cell_rows
+
+
+def phase_times_small():
+    """Phase 4's small-batch block: the cell at the serving front door's
+    batches (``SMALL_B``) for I=1024 and Show-and-Tell's I=512, H=1024, in
+    bf16 and in fp32 (TF32 off). At each: the plan's design beside
+    ``cell_bound`` (its bytes rule there), the plain cell and
+    ``torch.lstm_cell`` (``show``), then the small-batch form and the design
+    it replaces by name. Then the sweep over ``SWEEP_B`` of those two by
+    name, which sets ``ops/lstm.SKINNY_MAX_B``. Returns {(dtype name, I, B):
+    row}, each row with ``skinny_ms`` and ``replaced_ms``."""
+    from show_and_tell_tpu_torch.ops import lstm
+
+    print("== 4. the cell at the serving front door's batches (median ms, as above; "
+          f"TF32 off: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        old = REPLACED[dt]
+        for I in (1024, 512):
+            H = 1024
+            sweep = []
+            for B in SWEEP_B:
+                p, x, h, c = cell_inputs(B, I, H, dt, SEED)
+                shape = f"B={B} I={I} H={H}"
+                bound = cell_bound(B, I, H, dt)
+                row = {}
+                if B in SMALL_B:
+                    w_ih = p["w"][:I].t().contiguous()
+                    w_hh = p["w"][I:].t().contiguous()
+                    b_ih = p["b"].to(dt)
+                    b_hh = torch.zeros_like(b_ih)
+                    c_lib = c.to(dt)
+                    row = show(
+                        "lstm_cell", shape,
+                        lambda: lstm.lstm_cell_cuda(p, x, h, c),
+                        lambda: lstm.lstm_cell_reference(p, x, h, c),
+                        bound,
+                        lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh),
+                    )
+                    row["design"] = planned_cell(B, I, H, dt)
+                new_ms = time_cold(lambda: lstm.lstm_cell_by("skinny", p, x, h, c))
+                old_ms = time_cold(lambda: lstm.lstm_cell_by(old, p, x, h, c))
+                row.update(skinny_ms=new_ms, replaced_ms=old_ms, bound_ms=bound[0])
+                sweep.append((B, new_ms, old_ms))
+                if B in SMALL_B:
+                    print(f"    {dname} {shape}: plan {row['design']} {row['ms']:.4f} ms ({bound[0] / row['ms']:.1%} "
+                          f"of the bound); by name skinny {new_ms:.4f} ({bound[0] / new_ms:.1%}), {old} {old_ms:.4f} "
+                          f"({bound[0] / old_ms:.1%}); torch.lstm_cell {row['library_ms']:.4f}, plain "
+                          f"{row['plain_ms']:.4f}; skinny / {old} {new_ms / old_ms:.3f}, skinny / torch.lstm_cell "
+                          f"{new_ms / row['library_ms']:.3f}")
+                rows[dname, I, B] = row
+            print(f"    sweep {dname} I={I} H={H}, by name, skinny against {old} (ms; the ratio): " + ", ".join(
+                f"B={B} {a:.4f}/{b:.4f} {a / b:.2f}" for B, a, b in sweep))
+            faster = [B for B, a, b in sweep if a < b]
+            print(f"    sweep {dname} I={I}: skinny the faster at B in {faster}; the plan sends B <= "
+                  f"{lstm.SKINNY_MAX_B[dt]} to it")
+    return rows
 
 
 def phase_probe():
@@ -1515,8 +1652,9 @@ def phase_end_to_end():
 @contextlib.contextmanager
 def cell_planned_as(design):
     """For a comparison only: the cell's planner picks ``design`` for every
-    fp32 cell (``tiled``, the fp32 design before ``tf32x3``), so that a
-    decode or a step can be timed on it in turns with the plan's."""
+    fp32 cell (``tiled``, the fp32 design before ``tf32x3``; ``tf32x3``,
+    the design before ``skinny`` at small batches), so that a decode or a
+    step can be timed on it in turns with the plan's."""
     from show_and_tell_tpu_torch.ops import lstm
 
     plan = lstm.cell_design
@@ -1531,14 +1669,15 @@ def cell_planned_as(design):
         lstm.cell_design = plan
 
 
-def _in_turns(fn, reps):
-    """{design: [seconds]} of ``reps`` synchronised calls of ``fn`` per turn,
-    tf32x3 / tiled / tiled / tf32x3, and each turn's cell launches by design."""
+def _in_turns(fn, reps, plan="tf32x3", forced="tiled"):
+    """{label: [seconds]} of ``reps`` synchronised calls of ``fn`` per turn,
+    the plan's / ``forced`` / ``forced`` / the plan's (``plan`` labels the
+    plan's turns), and each turn's cell launches by design."""
     from show_and_tell_tpu_torch.ops import cuda_lib
 
-    secs, launches = {"tf32x3": [], "tiled": []}, {"tf32x3": collections.Counter(), "tiled": collections.Counter()}
-    for design in ("tf32x3", "tiled", "tiled", "tf32x3"):
-        with cell_planned_as("tiled") if design == "tiled" else contextlib.nullcontext():
+    secs, launches = {plan: [], forced: []}, {plan: collections.Counter(), forced: collections.Counter()}
+    for design in (plan, forced, forced, plan):
+        with cell_planned_as(forced) if design == forced else contextlib.nullcontext():
             fn()
             torch.cuda.synchronize()
             cuda_lib.LAUNCHES.clear()
@@ -1602,8 +1741,58 @@ def phase_fp32_serving(images):
               f"{dec['tiled']:.2f} ms ({(dec['tiled'] - dec['tf32x3']) / cfg.max_decode_len:.4f} ms per step); "
               f"cell launches per batch {cfg.max_decode_len}, all by tf32x3 in its turns")
         print(f"  fp32 {mode:6s} caption[0]: {caps['last'][0]!r}")
+    out["small"] = _fp32_small_buckets(cfg, model, vocab, images)
     del cap, model, feats
     torch.cuda.empty_cache()
+    return out
+
+
+def _fp32_small_buckets(cfg, model, vocab, images, buckets=(1, 8)):
+    """The serving front door's small batches in fp32: the ``Captioner`` at
+    buckets 1 and 8, beam-3 and greedy, each batch's cell launches by the
+    plan's designs (``skinny`` at B <= its crossover: greedy at B, beam at
+    3B), asserted, and the decode alone in
+    turns with every fp32 cell on ``tf32x3``, the design the small-batch
+    form replaced (the planner overridden for the comparison). Returns
+    {"launches": the skinny launches of the plan's serving batches,
+    "decode_ms": {mode@bucket: {label: ms}}}."""
+    from show_and_tell_tpu_torch.data.transforms import eval_transform
+    from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+
+    cap = Captioner(cfg, model, None, vocab, device="cuda", bucket_sizes=buckets)
+    cap.warmup(modes=("beam", "greedy"), buckets=buckets)
+    out = {"launches": 0, "decode_ms": {}}
+    T = cfg.max_decode_len
+    for B in buckets:
+        x = images[:B]
+        with torch.inference_mode():
+            feats = model.backbone_features(eval_transform(torch.from_numpy(x).cuda(), cfg.crop_size))
+        for mode in ("beam", "greedy"):
+            want = cell_designs_per_batch(mode, B, T, 1, torch.float32)
+            assert "skinny" in want, (mode, B, want)
+            cuda_lib.LAUNCHES.clear()
+            caps = cap.caption_images(x, mode=mode)
+            torch.cuda.synchronize()
+            got = cuda_lib.designs("lstm_cell")
+            assert len(caps) == B and got == want, (mode, B, got, want)
+            out["launches"] += got["skinny"]
+
+            def decode():
+                with torch.inference_mode():
+                    decode_ids(model, cfg, feats, mode)
+
+            secs, launches = _in_turns(decode, REPS, plan="skinny", forced="tf32x3")
+            assert launches["skinny"] == collections.Counter({d: 2 * REPS * n for d, n in want.items()}), launches
+            assert launches["tf32x3"] == collections.Counter({"tf32x3": 2 * REPS * T}), launches
+            ms = {d: statistics.median(v) * 1e3 for d, v in secs.items()}
+            out["decode_ms"][f"{mode}@{B}"] = ms
+            print(f"  fp32 {mode:6s} bucket {B}: cell launches per batch {want} (asserted); decode alone "
+                  f"{ms['skinny']:.2f} ms by the plan against {ms['tf32x3']:.2f} ms with every cell on tf32x3 "
+                  f"(medians of 2 x {REPS} in turns; {(ms['tf32x3'] - ms['skinny']) / T:.4f} ms per step); "
+                  f"caption[0] {caps[0]!r}")
+    del cap
     return out
 
 
@@ -3064,8 +3253,9 @@ def phase_http(smi, trained, tmp, direct_img_s):
 
         def per_batch(mode):
             """Launches per batch: the cell and the mode's attention once per
-            decode step, nothing else. Returns ({bucket: [steps]},
-            {bucket: designs})."""
+            decode step, nothing else, the cell by the plan's designs at the
+            bucket's batch (3x for beam), asserted. Returns ({bucket:
+            [steps]}, {bucket: designs})."""
             att = "attention_beam" if mode == "beam" else "additive_attention"
             steps, designs = {}, {}
             for b in batches:
@@ -3073,6 +3263,9 @@ def phase_http(smi, trained, tmp, direct_img_s):
                 s = base.get("lstm_cell", 0)
                 assert set(base) == {"lstm_cell", att} and base[att] == s and 1 <= s <= cfg.max_decode_len, \
                     (mode, b["bucket"], base)
+                cell = {k.split("/")[1]: v for k, v in b["launches"].items() if k.startswith("lstm_cell/")}
+                want = cell_designs_per_batch(mode, b["bucket"], s, 1, cell_dtype)
+                assert cell == want, (mode, b["bucket"], cell, want)
                 steps.setdefault(b["bucket"], []).append(s)
                 d = designs.setdefault(b["bucket"], {})
                 for k, v in b["launches"].items():
@@ -3083,6 +3276,8 @@ def phase_http(smi, trained, tmp, direct_img_s):
         # 2. closed-loop load: each level and mode on a fresh server over the
         # same Captioner, so that the batcher's stats are that run's
         out["levels"] = {}
+        small = {m: collections.Counter() for m in ("beam", "greedy")}  # skinny launches by bucket
+        cell_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         for mode in ("beam", "greedy"):
             for c in HTTP_LEVELS:
                 srv = serve_http.make_server(cfg, vocab, "127.0.0.1", 0, captioner=cap)
@@ -3121,6 +3316,14 @@ def phase_http(smi, trained, tmp, direct_img_s):
                     "batcher": stats, "batches_per_bucket": by_bucket, "worker_busy_s": busy,
                     "decode_ms": statistics.mean(decode_s) * 1e3,
                     "steps_per_batch": {b: s for b, s in steps.items()}, "designs": designs}
+                for bucket, d in designs.items():
+                    small[mode][bucket] += d.get("lstm_cell/skinny", 0)
+            # the small-batch form served the batch-1 clients' buckets: every
+            # cell launch of buckets 1 and 8 (greedy B = 1, 8; beam 3, 24)
+            seen = {bk: n for bk, n in small[mode].items() if bk in (1, 8)}
+            print(f"  {mode:6s} the cell by skinny at buckets 1 and 8 over the levels: {seen} launches")
+            assert all(seen.get(bk, 0) > 0 for bk in (1, 8)), (mode, dict(small[mode]))
+            out["skinny_launches"] = out.get("skinny_launches", 0) + sum(small[mode].values())
 
         # 3. one /caption_batch of 256, the health and metrics endpoints, n-best
         with _serving(srv0) as port:
@@ -3293,11 +3496,11 @@ def _greedy_steps(ids, T):
 def _st_serving(cap, images, label, layers):
     """Captions of ``images`` by beam and greedy: img/s as the median of REPS
     after a warm call, the cell's launches per batch (``layers`` per decode
-    step, by wgmma) and no attention kernel. Returns (captions, img/s,
-    launches of the cell per mode summed over the timed calls)."""
-    from show_and_tell_tpu_torch.ops import cuda_lib
-
+    step, by the plan's designs at the bucket's batch) and no attention
+    kernel. Returns (captions, img/s, launches of the cell per mode summed
+    over the timed calls)."""
     N, T = images.shape[0], cap.cfg.max_decode_len
+    dtype = torch.bfloat16 if cap.cfg.dtype == "bfloat16" else torch.float32
     captions, img_s, cell = {}, {}, {}
     for mode in ("beam", "greedy"):
         dt, secs, caps, per_call, designs = _timed_calls(lambda: cap.caption_images(images, mode=mode), REPLACES)
@@ -3311,9 +3514,39 @@ def _st_serving(cap, images, label, layers):
         assert len(caps) == N and all(isinstance(s, str) for s in caps)
         assert not others, f"{label} {mode}: attention kernels launched: {others}"
         assert n % layers == 0 and 1 <= n / layers <= T, f"{label} {mode}: {n} cell launches per batch"
-        assert designs["lstm_cell"] == {"wgmma": n}, f"{label} {mode}: cell designs {designs['lstm_cell']}"
+        want = cell_designs_per_batch(mode, cap._bucket(N), int(n // layers), layers, dtype, first_per_image=True)
+        assert designs["lstm_cell"] == want, f"{label} {mode}: cell designs {designs['lstm_cell']}, not {want}"
         captions[mode] = caps
     return captions, img_s, cell
+
+
+def _st_small_buckets(cfg, model, vocab, images, buckets=(1, 8)):
+    """Show-and-Tell's cell (one layer: layer 0, I = E = 512) at the serving
+    front door's small buckets: the ``Captioner`` at buckets 1 and 8, beam-3
+    and greedy, the launches by design per batch printed and held to the
+    plan's. Returns the launches {design: n}."""
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.serve import Captioner
+
+    cap = Captioner(cfg, model, None, vocab, device="cuda", bucket_sizes=buckets)
+    cap.warmup(modes=("beam", "greedy"), buckets=buckets)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    I = cfg.embed_size
+    total = collections.Counter()
+    for B in buckets:
+        for mode in ("beam", "greedy"):
+            cuda_lib.LAUNCHES.clear()
+            caps = cap.caption_images(images[:B], mode=mode)
+            torch.cuda.synchronize()
+            got = cuda_lib.designs("lstm_cell")
+            steps = sum(got.values()) // cfg.num_layers
+            want = cell_designs_per_batch(mode, B, steps, cfg.num_layers, dtype, first_per_image=True, I=I)
+            print(f"  small buckets: {mode:6s} bucket {B}: layer-0 cell launches by design {got} (I={I}, "
+                  f"{steps} steps); caption[0] {caps[0]!r}")
+            assert len(caps) == B and got == want and 1 <= steps <= cfg.max_decode_len, (mode, B, got, want)
+            total.update(got)
+    del cap
+    return dict(total)
 
 
 def _st_logits_vs_plain(model, cfg, x_u8, label):
@@ -3427,7 +3660,8 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
         print(f"  {label} split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in out["split_ms"].items()))
     print(f"  {label} launches per step: cell {n} ((T-1) x {layers} layers = {(T - 1) * layers}), designs "
           f"{designs}; attention kernels {others or 'none'}")
-    assert n == (T - 1) * layers and designs == {"wgmma": n} and not others, \
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    assert n == (T - 1) * layers and designs == {planned_cell(N, 1024, 1024, dtype): n} and not others, \
         f"{label}: training launches {n}, designs {designs}, others {others}"
     with torch.no_grad():
         f = dense(proj, feats).double()
@@ -3546,6 +3780,10 @@ def phase_show_tell(tmp, images):
     captions, img_s, cell = _st_serving(cap, images, "serving", cfg.num_layers)
     out["launches"] += sum(cell.values())
     out.update(serve_img_s=img_s)
+    small = _st_small_buckets(cfg, model, vocab, images)
+    assert small.get("skinny", 0) > 0, small
+    out["launches"] += sum(small.values())
+    out["skinny_launches"] = small["skinny"]
 
     # trunk and decode apart, a traced decode, and the greedy launches
     # against the steps its ids show
@@ -4388,6 +4626,7 @@ def main() -> int:
     errs = phase_check()
     rows, st_cell_rows = phase_times()
     rows32, cell_rows32 = phase_times_fp32()
+    small_rows = phase_times_small()
     probe_launches = phase_probe()
     launches, model, cfg, images, captions, serve_img_s = phase_end_to_end()
     serving32 = phase_fp32_serving(images)
@@ -4429,6 +4668,20 @@ def main() -> int:
         **{k: rows32["lstm_cell"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_operations",
                                                "library_ms")},
     })
+    # the small-batch form, one entry per type: its launches on the serving
+    # front door's small buckets (fp32: phase 5's Captioner at buckets 1 and
+    # 8; bf16: phase 11's HTTP batches and phase 12's small buckets), its
+    # phase 3 error over the shapes it ran, its phase 4 times at B=1, I=1024
+    skinny_launches = {torch.float32: serving32["small"]["launches"],
+                       torch.bfloat16: http["skinny_launches"] + show_tell["skinny_launches"]}
+    for dt, key in SKINNY_ENTRY.items():
+        row = small_rows[str(dt).replace("torch.", ""), 1024, 1]
+        assert row["design"] == "skinny" and skinny_launches[dt] > 0, (key, row["design"], skinny_launches[dt])
+        kernels.append({
+            "name": key, "route": "cuda", "source": SOURCES["lstm_cell"], "replaces": REPLACES["lstm_cell"],
+            "launches": skinny_launches[dt], "max_abs_err": errs[key],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_operations", "library_ms")},
+        })
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4437,7 +4690,8 @@ def main() -> int:
                        "eval": evaluation, "train_cli": train_cli, "http": http, "show_tell": show_tell, "int8": int8,
                        "multi_device": multi,
                        "show_tell_cell": st_cell_rows, "fp32_times": rows32, "fp32_cell": cell_rows32,
-                       "fp32_serving": serving32}, fh, indent=1)
+                       "fp32_serving": serving32,
+                       "small_cell": {f"{d} I={i} B={b}": r for (d, i, b), r in small_rows.items()}}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

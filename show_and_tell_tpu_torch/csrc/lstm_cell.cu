@@ -17,12 +17,45 @@
 // on the tensor cores three TF32 products (below) need 3 x 12.9 GFLOP at
 // 495 TFLOP/s = 78 us (B=256: 26 us), against ~15 us of bytes (W is 33.6 MB).
 //
-// Three designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
+// Four designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
 // shape, the type and the alignment before the launch. Each gives one block
 // BM batch rows and the same BN hidden columns of all four gates (W column
 // offsets 0, H, 2H, 3H), so the gate math runs on the block's own z tile
 // and z never reaches device memory; x and h are read apart, so no
 // concatenated [x, h] is materialised.
+//
+// `sat_lstm_cell_skinny` (bf16 and fp32, I and H multiples of 8 and 4,
+// 16-byte aligned operands, B up to ops/lstm.py `SKINNY_MAX_B`: the serving
+// front door's batches) is the cell as a matrix-vector product. There it
+// replaces `wgmma` and `tf32x3`, whose 64-row tiles give only H / 32 = 32
+// blocks on 132 SMs at B <= 64, B of each tile's 64 rows real. At B=1,
+// I=H=1024 the cell moves
+// ~16.8 MB (bf16; fp32 ~33.6 MB), almost all of it W: 5.0 us (10.0 us) at
+// 3.35 TB/s, against 16.8 MFLOP; at B=32 5.1 us (10.2 us) against 0.54
+// GFLOP, 8 us on the fp32 CUDA cores: bound by bytes. So it reads each byte
+// of W once, spread over H / 8 = 128 blocks:
+//   - Tile: BN = 8 hidden columns of each gate (32 columns of z) by BT = 8,
+//     16, 32 or 64 batch rows (B / 64 row blocks past 64).
+//   - Loads: one producer warp streams k-tiles of 128 bytes of [x|h] (BT
+//     rows; a tile never straddles x and h) and the same k-rows of the
+//     block's columns of W, as it is, by TMA into a ring of 16 stages (8 at
+//     BT=64) on mbarriers. bf16 takes W as four 2-D boxes of 64 k-rows by 8
+//     columns, one per gate, each 1 KB of 16-byte rows; fp32 one 3-D box over
+//     W viewed as [K][4][H], [32 k-rows][4][8], so a k-row is 128
+//     consecutive bytes.
+//   - Products: eight consumer warps take the k-tiles in turn (warp w tiles
+//     w, w + 8, ...), each summing a partial z of BT rows by 32 columns in
+//     registers. bf16 runs `mma.sync` m16n8k16 in the swapped form z^T =
+//     W^T [x|h]^T, so that B pads to 8 rows: W^T's fragments by
+//     `ldmatrix.trans` from W's rows (a gate's 8 k-rows are 128 contiguous
+//     bytes: no bank conflict), [x|h]'s by `ldmatrix` from its 128-byte
+//     swizzled tile. fp32 runs `fmaf` on the CUDA cores, W as it is (no
+//     split, no W^T): lane l owns column l, [x|h] is read as broadcasts.
+//   - The warps' partials meet in shared memory in warp order, then the
+//     gate math; h' and c' are written once, ragged B and H masked.
+//   - Its pace is set by the stream of W's 16-byte (bf16) and 32-byte
+//     (fp32) pieces per gate, ~1.5 TB/s on the H100, not by the products;
+//     past 32 rows the fp32 FMAs also wait on the reads of [x|h] (PERF.md).
 //
 // `sat_lstm_cell_sm90` (bf16, I and H multiples of 8, 16-byte aligned
 // operands: the serving and training shapes) is built for Hopper:
@@ -855,6 +888,309 @@ cudaError_t launch_tf32x3(const void* x, const void* h, const void* wt, const fl
 
 }  // namespace t3
 
+// --- skinny: the cell at small batch, a matrix-vector product ---------------
+
+namespace sk {
+
+constexpr int BN = 8;              // hidden columns per gate per block: 32 columns of z
+constexpr int NW = 8;              // consumer warps: warp w takes k-tiles w, w + NW, ...
+constexpr int NT = NW * 32 + 32;   // the consumers, then one producer warp
+constexpr int ROW = 128;           // bytes of one k-tile's row of [x|h]: 64 bf16 or 32 fp32
+
+template <typename T, int BT>  // BT: batch rows per block, 8, 16, 32 or 64
+struct Cfg {
+  static constexpr int BK = ROW / (int)sizeof(T);                 // depth of one k-tile
+  static constexpr int X_BYTES = BT * ROW;                        // [x|h]: BT rows of one k-tile
+  static constexpr int W_GATE = BK * BN * (int)sizeof(T);         // one gate's slice of W: 1 KB
+  static constexpr int STAGE = X_BYTES + 4 * W_GATE;
+  // one block per SM up to 32 rows (H / 8 blocks fill the card); two at 64,
+  // where B > 64 gives a second row block
+  static constexpr int STAGES = BT == 64 ? 8 : 16;
+  static constexpr int RED_BYTES = NW * BT * 4 * BN * 4;           // the warps' partial z, fp32
+  static constexpr int REGION = STAGES * STAGE > RED_BYTES ? STAGES * STAGE : RED_BYTES;
+  static constexpr int SMEM = 1024 + REGION + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A (16x16, row) * B (16x8, col), bf16 in, fp32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's products of one k-tile, fp32 on the FMA pipe. Lane l is column
+// l of the block's z (gate l / 8, hidden n0 + l % 8); acc[r] is batch row r.
+// xs: [BT][32] fp32; ws: [32 k][4 gates][8] fp32, so a k-row is 32 lanes'
+// consecutive words. k runs in order, one fmaf per (k, row).
+template <int BT>
+__device__ __forceinline__ void tile_fma(float (&acc)[BT], const unsigned char* stage, int lane) {
+  const float* xs = reinterpret_cast<const float*>(stage);
+  const float* ws = reinterpret_cast<const float*>(stage + BT * ROW);
+#pragma unroll
+  for (int k4 = 0; k4 < 8; ++k4) {
+    float wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wv[q] = ws[(4 * k4 + q) * 32 + lane];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {
+      const float4 xv = *reinterpret_cast<const float4*>(xs + r * 32 + 4 * k4);  // one address: a broadcast
+      acc[r] = fmaf(xv.x, wv[0], acc[r]);
+      acc[r] = fmaf(xv.y, wv[1], acc[r]);
+      acc[r] = fmaf(xv.z, wv[2], acc[r]);
+      acc[r] = fmaf(xv.w, wv[3], acc[r]);
+    }
+  }
+}
+
+// One warp's products of one k-tile, bf16 on the tensor cores by mma.sync
+// m16n8k16 in the swapped form z^T = W^T [x|h]^T, so that B <= 8 pads to 8
+// rows, not 16: A is W^T, 16 columns of z (two gates' 8) by 16 k, read by
+// ldmatrix.trans from W's rows; B is [x|h]^T, 16 k by 8 batch rows, read by
+// ldmatrix from [x|h]'s rows. acc[t][j] is m-tile t (gates 2t, 2t + 1) by
+// n-tile j (batch rows 8j..8j+7): d[0], d[1] z of gate 2t at hidden lane / 4,
+// rows 8j + 2 (lane % 4) + {0, 1}; d[2], d[3] the same of gate 2t + 1.
+// xs: [BT][64] bf16, 128-byte swizzle (chunk c of row r at c ^ (r % 8));
+// ws: [4 gates][64 k][8] bf16, unswizzled (8 k-rows of a gate are 128
+// contiguous bytes: no bank conflict).
+template <int BT>
+__device__ __forceinline__ void tile_mma(float (&acc)[2][BT / 8][4], uint32_t stage, int lane) {
+  const uint32_t xs = stage, ws = stage + BT * ROW;
+  const int q = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)  // matrices: (gate 2t, k lo), (2t + 1, k lo), (2t, k hi), (2t + 1, k hi)
+      ldsm_x4_trans(a[t], ws + ((2 * t + (q & 1)) * 64 + 16 * kk + 8 * (q >> 1) + r8) * 16);
+    if constexpr (BT == 8) {
+      uint32_t bq[2];  // matrices (rows 0-7, k lo), (rows 0-7, k hi); lanes 16-31 repeat 0-15
+      const int chunk = 2 * kk + (q & 1);
+      ldsm_x2(bq, xs + r8 * ROW + ((chunk ^ r8) << 4));
+#pragma unroll
+      for (int t = 0; t < 2; ++t) mma_bf16(acc[t][0], a[t], bq[0], bq[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < BT / 8; j += 2) {
+        uint32_t bq[4];  // matrices (n-tile j, k lo), (j, k hi), (j + 1, k lo), (j + 1, k hi)
+        const int row = 8 * j + 8 * (q >> 1) + r8, chunk = 2 * kk + (q & 1);
+        ldsm_x4(bq, xs + row * ROW + ((chunk ^ (row & 7)) << 4));
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma_bf16(acc[t][j], a[t], bq[0], bq[1]);
+          mma_bf16(acc[t][j + 1], a[t], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int BT>
+__global__ void __launch_bounds__(NT, BT == 64 ? 2 : 1)
+lstm_cell_skinny_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th,
+                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ b,
+                        const float* __restrict__ c, T* __restrict__ h_out, float* __restrict__ c_out,
+                        int B, int I, int H) {
+  using C = Cfg<T, BT>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzled [x|h] tiles want 1 KB alignment
+  unsigned char* const ring_p = smem_raw + (ring - raw);
+  const uint32_t full = ring + C::REGION;
+  const uint32_t empty = full + C::STAGES * 8;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BT;
+  const int KX = (I + C::BK - 1) / C::BK, KT = KX + (H + C::BK - 1) / C::BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(empty + 8 * s, 1);  // the one warp that consumes the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NW) {
+    // producer: one thread issues every copy. A stage is one k-tile of
+    // [x|h] (a tile never straddles x and h: W's row coordinate is offset
+    // by I for h's) and the same k rows of the block's 8 columns of each
+    // gate. TMA zero-fills past B, I, H and I + H; the stores mask B and H.
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % C::STAGES;
+        if (kt >= C::STAGES) mbar_wait(empty + 8 * s, ((kt / C::STAGES) - 1) & 1);
+        const uint32_t xs = ring + s * C::STAGE, ws = xs + C::X_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, C::STAGE);
+        int k;
+        if (kt < KX) {
+          tma_load(xs, &tx, kt * C::BK, m0, bar);
+          k = kt * C::BK;
+        } else {
+          tma_load(xs, &th, (kt - KX) * C::BK, m0, bar);
+          k = I + (kt - KX) * C::BK;
+        }
+        if constexpr (kF32) {
+          tma_load3(ws, &tw, n0, 0, k, bar);  // W as [K][4][H]: one box of [BK][4][8]
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) tma_load(ws + g * C::W_GATE, &tw, g * H + n0, k, bar);
+        }
+      }
+    }
+  } else {
+    // consumers: each warp sums its k-tiles into a partial z of the block's
+    // BT rows by 32 columns, in registers
+    float* const red = reinterpret_cast<float*>(ring_p);  // [NW][BT][4 gates][8], after the loop
+    if constexpr (kF32) {
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+      for (int kt = warp; kt < KT; kt += NW) {
+        const int s = kt % C::STAGES;
+        mbar_wait(full + 8 * s, (kt / C::STAGES) & 1);
+        tile_fma<BT>(acc, ring_p + s * C::STAGE, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");  // every stage read: the ring is free
+#pragma unroll
+      for (int r = 0; r < BT; ++r) red[(warp * BT + r) * 32 + lane] = acc[r];
+    } else {
+      float acc[2][BT / 8][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+      for (int kt = warp; kt < KT; kt += NW) {
+        const int s = kt % C::STAGES;
+        mbar_wait(full + 8 * s, (kt / C::STAGES) & 1);
+        tile_mma<BT>(acc, ring + s * C::STAGE, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
+      const int hid = lane >> 2, col = 2 * (lane & 3);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * j + col + (e & 1), g = 2 * t + (e >> 1);
+            red[(warp * BT + r) * 32 + g * BN + hid] = acc[t][j][e];
+          }
+    }
+  }
+  __syncthreads();
+
+  // the gates: z = the warps' partials summed in warp order, then the bias
+  const float* red = reinterpret_cast<const float*>(ring_p);
+  for (int idx = tid; idx < BT * BN; idx += NT) {
+    const int r = idx / BN, j = idx % BN;
+    const int m = m0 + r, n = n0 + j;
+    if (m >= B || n >= H) continue;
+    float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[g] += red[(w * BT + r) * 32 + g * BN + j];
+    const float gi = sigmoid(z[0] + b[0 * H + n]);
+    const float gf = sigmoid(z[1] + b[1 * H + n]);
+    const float gg = tanhf(z[2] + b[2 * H + n]);
+    const float go = sigmoid(z[3] + b[3 * H + n]);
+    const size_t o = (size_t)m * H + n;
+    const float cn = gf * c[o] + gi * gg;
+    c_out[o] = cn;
+    h_out[o] = from_f<T>(go * tanhf(cn));
+  }
+}
+
+// W [K, 4H] fp32 as a 3-D tensor [K][4][H], so that one box of [BK][4][BN]
+// holds the block's columns of all four gates, k-row by k-row.
+bool encode_w3(CUtensorMap* map, const void* w, uint64_t K, uint64_t H, uint32_t bk) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {H, 4, K};
+  const cuuint64_t strides[2] = {H * sizeof(float), 4 * H * sizeof(float)};
+  const cuuint32_t box[3] = {BN, 4, bk};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(w), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int BT>
+cudaError_t launch(const void* x, const void* h, const void* w, const float* b, const float* c, void* h_out,
+                   float* c_out, int B, int I, int H, cudaStream_t stream) {
+  using C = Cfg<T, BT>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  // fp32 rows of [x|h] are read as broadcasts (every lane one address): no swizzle
+  const auto sw = kF32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+  const auto promo = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+  CUtensorMap tx, th, tw;
+  if (!encode(&tx, x, B, I, BT, C::BK, sw, promo, kF32) || !encode(&th, h, B, H, BT, C::BK, sw, promo, kF32))
+    return cudaErrorInvalidValue;
+  const bool w_ok = kF32 ? encode_w3(&tw, w, (uint64_t)I + H, H, C::BK)
+                         : encode(&tw, w, (uint64_t)I + H, 4 * (uint64_t)H, C::BK, BN, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+  if (!w_ok) return cudaErrorInvalidValue;
+  auto kern = lstm_cell_skinny_kernel<T, BT>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((H + BN - 1) / BN, (B + BT - 1) / BT);
+  kern<<<grid, NT, C::SMEM, stream>>>(tx, th, tw, b, c, static_cast<T*>(h_out), c_out, B, I, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* x, const void* h, const void* w, const float* b, const float* c,
+                        void* h_out, float* c_out, int B, int I, int H, int bt, cudaStream_t s) {
+  switch (bt) {
+    case 8: return launch<T, 8>(x, h, w, b, c, h_out, c_out, B, I, H, s);
+    case 16: return launch<T, 16>(x, h, w, b, c, h_out, c_out, B, I, H, s);
+    case 32: return launch<T, 32>(x, h, w, b, c, h_out, c_out, B, I, H, s);
+    case 64: return launch<T, 64>(x, h, w, b, c, h_out, c_out, B, I, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace sk
+
 }  // namespace sm90
 
 // The Hopper design, bf16 only. I and H multiples of 8; x, h, w, b, c, h_out
@@ -882,6 +1218,22 @@ extern "C" int sat_lstm_cell_tf32x3(const void* x, const void* h, const void* wt
                                     void* stream) {
   if (B <= 0 || I <= 0 || H <= 0 || I % 4 || H % 4) return (int)cudaErrorInvalidValue;
   return (int)sm90::t3::launch_tf32x3(x, h, wt, b, c, h_out, c_out, B, I, H, static_cast<cudaStream_t>(stream));
+}
+
+// The small-batch design, fp32 (dtype 0: FMAs) or bf16 (dtype 1: mma.sync).
+// W is [I+H, 4H] as it is. I and H multiples of 4 (fp32) or 8 (bf16); x, h,
+// w 16-byte aligned; bt (batch rows per block) 8, 16, 32 or 64. Returns a
+// cudaError_t.
+extern "C" int sat_lstm_cell_skinny(const void* x, const void* h, const void* w, const float* b,
+                                    const float* c, void* h_out, float* c_out, int B, int I, int H,
+                                    int bt, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int align = dtype == 0 ? 4 : 8;
+  if (B <= 0 || I <= 0 || H <= 0 || I % align || H % align) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)sm90::sk::launch_rows<float>(x, h, w, b, c, h_out, c_out, B, I, H, bt, s);
+  if (dtype == 1)
+    return (int)sm90::sk::launch_rows<__nv_bfloat16>(x, h, w, b, c, h_out, c_out, B, I, H, bt, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, h, w and h_out). vec: 1 when I and H

@@ -52,6 +52,7 @@ _SIGNATURES = {
         "sat_lstm_cell": (_vp,) * 7 + (_i,) * 5 + (_vp,),
         "sat_lstm_cell_sm90": (_vp,) * 7 + (_i,) * 4 + (_vp,),
         "sat_lstm_cell_tf32x3": (_vp,) * 7 + (_i,) * 3 + (_vp,),
+        "sat_lstm_cell_skinny": (_vp,) * 7 + (_i,) * 5 + (_vp,),
     },
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),

@@ -9,10 +9,11 @@ Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
 ``lstm_cell`` launches a kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
 and runs ``lstm_cell_reference`` for CPU tensors. ``cell_design`` picks the
 kernel from the shape, the type and the alignment before the launch: the
-Hopper designs fed by TMA for the shapes TMA can take (``wgmma`` for bf16,
-``tf32x3`` for fp32: three TF32 products on the tensor cores, at fp32
-accuracy), the shared-memory tiled GEMM for the rest. On a CUDA tensor it
-never falls back: the launch succeeds or it raises.
+Hopper designs fed by TMA for the shapes TMA can take (``skinny``, a
+matrix-vector form, up to a batch of ``SKINNY_MAX_B`` rows; above it
+``wgmma`` for bf16 and ``tf32x3`` for fp32: three TF32 products on the
+tensor cores, at fp32 accuracy), the shared-memory tiled GEMM for the rest.
+On a CUDA tensor it never falls back: the launch succeeds or it raises.
 
 ``tf32x3`` reads W^T split into TF32 parts (``tf32x3_weight``), made once
 per weight version by ``prepared_weight`` and kept beside the weight, out
@@ -39,13 +40,26 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
 
-CELL_DESIGNS = ("wgmma", "tf32x3", "tiled")
+CELL_DESIGNS = ("skinny", "wgmma", "tf32x3", "tiled")
 H100_SMS = 132
 _WGMMA_BM = (64, 128, 192)  # batch rows per block: one to three consumer warpgroups
 _WGMMA_BN = 32  # hidden columns per gate per block
 # tf32x3: one consumer warpgroup of 64 rows, whose two partial sums and total
 # take the registers a second would need
 _TF32X3_BM = 64
+# skinny: 8 hidden columns of each gate per block (H / 8 blocks, 128 at
+# H=1024) and the smallest of these batch tiles that holds B, the largest
+# giving B / 64 row blocks above it
+_SKINNY_BN = 8
+_SKINNY_BT = (8, 16, 32, 64)
+# The largest batch that ``skinny`` runs, per type: the crossover of phase 4's
+# sweep in chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W; ms by name, skinny
+# against the design above it, I=1024 and 512, H=1024). bf16: B=64 0.0216
+# against wgmma 0.0250 and 0.0189 against 0.0220; B=80 0.0304 against 0.0256
+# and 0.0258 against 0.0223. fp32: B=32 0.0313 against tf32x3 0.0586 and
+# 0.0254 against 0.0490; B=48 0.0849 against 0.0588 and 0.0665 against 0.0492
+# (past 32 rows the FMA path waits on its shared-memory reads of [x|h]).
+SKINNY_MAX_B = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def cell_design(
@@ -53,27 +67,41 @@ def cell_design(
 ) -> Tuple[str, int]:
     """Which kernel of ``csrc/lstm_cell.cu`` runs a cell of this shape, and its
     batch rows per block, for operands that are 16-byte ``aligned`` (what TMA
-    takes): ``("wgmma", BM)`` for bf16 with I and H multiples of 8,
-    ``("tf32x3", 64)`` for fp32 with I and H multiples of 4, else
-    ``("tiled", 64)``.
-
-    The wgmma BM is the one of 64, 128 and 192 whose blocks fill ``sms`` SMs
-    in the fewest rows of work per SM (waves x BM), the larger on a tie: the
-    larger the tile, the fewer times W is read. B=768: 192 (128 blocks, one
-    wave); B=256: 64 (128 blocks)."""
+    takes): for bf16 with I and H multiples of 8 and fp32 with I and H
+    multiples of 4, ``("skinny", BT)`` up to ``SKINNY_MAX_B[dtype]`` rows,
+    above it ``("wgmma", BM)`` (bf16) or ``("tf32x3", 64)`` (fp32); else
+    ``("tiled", 64)``."""
     if I <= 0 or not aligned:
         return "tiled", 64
     if dtype == torch.float32 and I % 4 == 0 and H % 4 == 0:
+        if B <= SKINNY_MAX_B[dtype]:
+            return "skinny", skinny_rows(B)
         return "tf32x3", _TF32X3_BM
     if dtype != torch.bfloat16 or I % 8 or H % 8:
         return "tiled", 64
+    if B <= SKINNY_MAX_B[dtype]:
+        return "skinny", skinny_rows(B)
+    return "wgmma", wgmma_rows(B, H, sms)
+
+
+def skinny_rows(B: int) -> int:
+    """The ``skinny`` batch tile: the smallest of 8, 16, 32 and 64 that
+    holds B, else 64 (B / 64 row blocks)."""
+    return next((t for t in _SKINNY_BT if B <= t), _SKINNY_BT[-1])
+
+
+def wgmma_rows(B: int, H: int, sms: int = H100_SMS) -> int:
+    """The ``wgmma`` BM: the one of 64, 128 and 192 whose blocks fill
+    ``sms`` SMs in the fewest rows of work per SM (waves x BM), the larger
+    on a tie: the larger the tile, the fewer times W is read. B=768: 192
+    (128 blocks, one wave); B=256: 64 (128 blocks)."""
     n_tiles = -(-H // _WGMMA_BN)
 
     def rows_per_sm(bm: int) -> int:
         blocks = -(-B // bm) * n_tiles
         return -(-blocks // sms) * bm
 
-    return "wgmma", min(_WGMMA_BM, key=lambda bm: (rows_per_sm(bm), -bm))
+    return min(_WGMMA_BM, key=lambda bm: (rows_per_sm(bm), -bm))
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -182,6 +210,13 @@ def _cell_shapes(params: Params, x, h, c) -> Tuple[int, int, int]:
     return B, I, H
 
 
+def _aligned(params: Params, x, h, c, I: int, H: int) -> bool:
+    """Whether TMA takes the operands: row lengths of 16-byte multiples and
+    every pointer on a 16-byte boundary."""
+    w, b = params["w"], params["b"]
+    return cuda_lib.vectorizable((I, H), x, h, w) and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+
+
 def lstm_cell_cuda(
     params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,20 +224,33 @@ def lstm_cell_cuda(
     share one dtype (float32 or bfloat16); b and c are float32. Returns (h'
     in h's dtype, c' float32)."""
     B, I, H = _cell_shapes(params, x, h, c)
-    w, b = params["w"], params["b"]
-    aligned = cuda_lib.vectorizable((I, H), x, h, w) and b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+    aligned = _aligned(params, x, h, c, I, H)
     design, bm = cell_design(B, I, H, x.dtype, aligned, _sm_count(x.device.index or 0))
     return _launch(design, bm, params, x, h, c, B, I, H)
 
 
-def lstm_cell_tiled(
-    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+def lstm_cell_by(
+    design: str, params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ``tiled`` kernel by name, whatever the plan says: for timing the
-    fp32 design that ``tf32x3`` replaced beside it. Nothing on the main path
-    calls it."""
+    """The kernel of ``design`` by name, whatever the plan says, with the
+    tile its own rule gives at this shape: for timing a design beside the
+    one the plan picks (``tiled`` beside ``tf32x3``, ``wgmma`` and
+    ``tf32x3`` beside ``skinny`` at small batches, ``skinny`` above its
+    crossover). Nothing on the main path calls it. Raises ValueError where
+    the design does not take the shape."""
     B, I, H = _cell_shapes(params, x, h, c)
-    return _launch("tiled", 64, params, x, h, c, B, I, H)
+    if design == "tiled":
+        return _launch("tiled", 64, params, x, h, c, B, I, H)
+    fp32 = x.dtype == torch.float32
+    align = 4 if fp32 else 8
+    takes = {"skinny": True, "wgmma": not fp32, "tf32x3": fp32}
+    if design not in takes:
+        raise ValueError(f"lstm_cell_by: no design {design!r}; designs {CELL_DESIGNS}")
+    if not (takes[design] and I % align == 0 and H % align == 0 and _aligned(params, x, h, c, I, H)):
+        raise ValueError(f"lstm_cell_by: {design} does not take B={B} I={I} H={H} {x.dtype}")
+    sms = _sm_count(x.device.index or 0)
+    bm = {"skinny": skinny_rows(B), "wgmma": wgmma_rows(B, H, sms), "tf32x3": _TF32X3_BM}[design]
+    return _launch(design, bm, params, x, h, c, B, I, H)
 
 
 def _launch(design, bm, params, x, h, c, B, I, H):
@@ -219,7 +267,9 @@ def _launch(design, bm, params, x, h, c, B, I, H):
         cuda_lib.ptr(x), cuda_lib.ptr(h), cuda_lib.ptr(w), cuda_lib.ptr(b),
         cuda_lib.ptr(c), cuda_lib.ptr(h_out), cuda_lib.ptr(c_out), B, I, H,
     )
-    if design == "wgmma":
+    if design == "skinny":
+        err = lib.sat_lstm_cell_skinny(*operands, bm, cuda_lib.dtype_code(x), stream)
+    elif design == "wgmma":
         err = lib.sat_lstm_cell_sm90(*operands, bm, stream)
     elif design == "tf32x3":
         err = lib.sat_lstm_cell_tf32x3(*operands, stream)

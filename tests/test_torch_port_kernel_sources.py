@@ -82,10 +82,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (768, 1024, 1024, BF16, True, ("wgmma", 192)),  # beam-3 serving: 256 images x 3
     (256, 1024, 1024, BF16, True, ("wgmma", 64)),  # greedy serving and training
     (300, 1024, 1024, BF16, True, ("wgmma", 128)),  # ragged B
-    (1, 1024, 1024, BF16, True, ("wgmma", 64)),
-    (4, 1000, 1000, BF16, True, ("wgmma", 64)),  # ragged H and k-tiles on TMA
-    (13, 40, 24, BF16, True, ("wgmma", 64)),
-    (9, 48, 40, BF16, True, ("wgmma", 64)),
+    (1, 1024, 1024, BF16, True, ("skinny", 8)),  # a batch-1 client: the small-batch form
+    (4, 1000, 1000, BF16, True, ("skinny", 8)),  # ragged H and k-tiles on TMA
+    (13, 40, 24, BF16, True, ("skinny", 16)),
+    (9, 48, 40, BF16, True, ("skinny", 16)),
     (5, 17, 20, BF16, True, ("tiled", 64)),  # I not a multiple of 8
     (256, 1024, 1024, BF16, False, ("tiled", 64)),  # a misaligned operand
     # fp32, the Config default: the 3xTF32 design wherever TMA takes the shape
@@ -94,29 +94,54 @@ BF16, F32 = torch.bfloat16, torch.float32
     (768, 512, 1024, F32, True, ("tf32x3", 64)),  # Show-and-Tell's layer 0
     (256, 512, 1024, F32, True, ("tf32x3", 64)),
     (300, 1024, 1024, F32, True, ("tf32x3", 64)),
-    (1, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (1, 1024, 1024, F32, True, ("skinny", 8)),
     (64, 1000, 1000, F32, True, ("tf32x3", 64)),  # ragged H and k-tiles on TMA
-    (13, 40, 24, F32, True, ("tf32x3", 64)),
+    (13, 40, 24, F32, True, ("skinny", 16)),
     (5, 17, 20, F32, True, ("tiled", 64)),  # I not a multiple of 4
     (9, 48, 42, F32, True, ("tiled", 64)),  # H not a multiple of 4
     (256, 1024, 1024, F32, False, ("tiled", 64)),  # a misaligned operand
     (4, 0, 8, F32, True, ("tiled", 64)),
+    # the serving front door's batches (the Captioner's buckets 1, 8, 32,
+    # 128; B=1 above)
+    (8, 1024, 1024, BF16, True, ("skinny", 8)),
+    (32, 1024, 1024, BF16, True, ("skinny", 32)),
+    (128, 1024, 1024, BF16, True, ("wgmma", 64)),
+    (8, 1024, 1024, F32, True, ("skinny", 8)),
+    (32, 1024, 1024, F32, True, ("skinny", 32)),
+    (128, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (64, 1024, 1024, BF16, True, ("skinny", 64)),  # the crossovers and one above
+    (65, 1024, 1024, BF16, True, ("wgmma", 64)),
+    (32, 512, 1024, F32, True, ("skinny", 32)),
+    (33, 512, 1024, F32, True, ("tf32x3", 64)),
+    (24, 512, 1024, F32, True, ("skinny", 32)),  # Show-and-Tell's layer 0, beam at bucket 8
+    (8, 1024, 1024, F32, False, ("tiled", 64)),  # a misaligned operand
 ])
 def test_cell_design(B, I, H, dtype, aligned, want):
     assert tlstm.cell_design(B, I, H, dtype, aligned) == want
 
 
 def test_cell_tile_fills_the_card():
-    """The wgmma tile takes the fewest rows of work per SM over the three
-    tiles, for batches up to 1024, and every design is a known name."""
+    """Up to the crossover the small-batch form, with the smallest batch
+    tile that holds B (64 past it); above it the wgmma tile, which takes
+    the fewest rows of work per SM over the three tiles, for batches up to
+    1024; every design is a known name."""
+    crossover = tlstm.SKINNY_MAX_B[BF16]
     for B in range(1, 1025, 7):
         design, bm = tlstm.cell_design(B, 1024, 1024, BF16, True)
         assert design in tlstm.CELL_DESIGNS
+        if B <= crossover:
+            assert design == "skinny" and bm == min([t for t in (8, 16, 32, 64) if t >= B] or [64]), B
+            continue
+        assert design == "wgmma", B
 
         def rows_per_sm(t):
             return math.ceil(math.ceil(B / t) * 32 / tlstm.H100_SMS) * t
 
         assert rows_per_sm(bm) == min(rows_per_sm(t) for t in (64, 128, 192)), B
+    for dtype in (BF16, F32):
+        X = tlstm.SKINNY_MAX_B[dtype]
+        assert tlstm.cell_design(X, 1024, 1024, dtype, True)[0] == "skinny"
+        assert tlstm.cell_design(X + 1, 1024, 1024, dtype, True)[0] == ("wgmma" if dtype == BF16 else "tf32x3")
 
 
 def test_tf32x3_entry_matches_the_wrapper():
@@ -134,6 +159,27 @@ def test_tf32x3_entry_matches_the_wrapper():
     assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in t3
     assert "cvt.rna.tf32.f32" in t3
     assert "tf32x3" in tlstm.CELL_DESIGNS
+
+
+def test_skinny_entry_matches_the_wrapper():
+    """The small-batch entry point is bound with the wrapper's arguments
+    (seven pointers, B, I, H, the batch tile, the type, the stream), and
+    the source's tile is the planner's (8 hidden columns of each gate, the
+    batch tiles 8-64) and the emulation's (eight warps taking the 128-byte
+    k-tiles in turn; bf16 on mma.sync m16n8k16, fp32 on fmaf)."""
+    src = _source("lstm_cell.cu")
+    params = dict(_EXTERN.findall(src))["sat_lstm_cell_skinny"].split(",")
+    assert len(params) == 13 and "bt" in params[10] and "dtype" in params[11]
+    assert cuda_lib._SIGNATURES["lstm_cell.cu"]["sat_lstm_cell_skinny"] == (
+        (cuda_lib.ctypes.c_void_p,) * 7 + (cuda_lib.ctypes.c_int,) * 5 + (cuda_lib.ctypes.c_void_p,))
+    sk = src[src.index("namespace sk {"):src.index("}  // namespace sk")]
+    assert f"constexpr int BN = {tlstm._SKINNY_BN};" in sk
+    assert f"constexpr int NW = {SKINNY_NW};" in sk
+    assert f"constexpr int ROW = {4 * SKINNY_BK[F32]};" in sk and 2 * SKINNY_BK[BF16] == 4 * SKINNY_BK[F32]
+    cases = [int(n) for n in re.findall(r"case (\d+): return launch<T, \1>", sk)]
+    assert tuple(cases) == tlstm._SKINNY_BT
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in sk and "fmaf" in sk
+    assert "skinny" in tlstm.CELL_DESIGNS
 
 
 # --- the beam attention: cluster size and load mode ---------------------------
@@ -450,9 +496,12 @@ def test_st_split_matches_the_plain_softmax(L, D, K, C):
         hp = rng.standard_normal((K, D)).astype(np.float32)
         w = (rng.standard_normal(D) * scale).astype(np.float32)
         ctx, alpha = st_split(ce, f, hp, w, C)
-        e = torch.einsum("lkd,d->kl", torch.tanh(torch.from_numpy(ce)[:, None] + torch.from_numpy(hp)[None]),
-                         torch.from_numpy(w))
-        ra = torch.softmax(e.double(), dim=-1)
+        # the reference in float64 throughout: an fp32 reference's own
+        # rounding of the scores (in a reduction order that torch picks by
+        # thread count and kernel path) takes up to a quarter of the limit
+        ce64, hp64, w64 = (torch.from_numpy(a).double() for a in (ce, hp, w))
+        e = torch.einsum("lkd,d->kl", torch.tanh(ce64[:, None] + hp64[None]), w64)
+        ra = torch.softmax(e, dim=-1)
         rc = (ra @ torch.from_numpy(f).double()) / L
         for got, want in ((ctx, rc.numpy()), (alpha, ra.numpy())):
             assert np.isfinite(got).all()
@@ -867,3 +916,80 @@ def test_tf32x3_split_covers_fp32():
     assert rel(big, _rna(a - big)) <= 2.0 ** -23
     assert rel(big, _container(a - big)) <= 2.0 ** -23
     assert 2.0 ** -11 < rel(_container(a), _rna(a - big)) <= 2.0 ** -10
+
+
+# --- the small-batch form, emulated ------------------------------------------
+#
+# The skinny kernel's arithmetic in numpy: [x|h] in k-tiles of 128 bytes (64
+# bf16 or 32 fp32; x's tiles, then h's), tile kt summed by warp kt % 8 into
+# its own partial z; fp32 by one fmaf per (k, row) in k order, bf16 by one
+# mma.sync per 16 k, an exact 16-term dot added to the warp's partial with
+# the result rounded toward zero to fp32 (the tensor cores' accumulation,
+# as the tf32x3 emulation models it); then the eight partials added in warp
+# order, the bias, the gates in fp32.
+
+SKINNY_NW = 8
+SKINNY_BK = {F32: 32, BF16: 64}
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def emulate_skinny_z(x, h, w, dtype):
+    """z = [x, h] @ W as the skinny kernel forms it: x [B, I], h [B, H], W
+    [I + H, N] (columns of z) fp32 arrays holding values of ``dtype``."""
+    B, I = x.shape
+    bk = SKINNY_BK[dtype]
+    tiles = [(x[:, k:k + bk], w[k:min(k + bk, I)]) for k in range(0, I, bk)]
+    tiles += [(h[:, k:k + bk], w[I + k:I + k + bk]) for k in range(0, h.shape[1], bk)]
+    parts = np.zeros((SKINNY_NW, B, w.shape[1]), np.float32)
+    for kt, (a, wt) in enumerate(tiles):
+        a64, w64 = a.astype(np.float64), wt.astype(np.float64)
+        p = parts[kt % SKINNY_NW]
+        if dtype == BF16:
+            for j in range(0, a.shape[1], 16):
+                p = _toward_zero(p + a64[:, j:j + 16] @ w64[j:j + 16])
+        else:
+            for j in range(a.shape[1]):  # fmaf: the exact product, one rounding of the sum
+                p = (p + a64[:, j:j + 1] * w64[j]).astype(np.float32)
+        parts[kt % SKINNY_NW] = p
+    z = np.zeros((B, w.shape[1]), np.float32)
+    for p in parts:
+        z = (z + p).astype(np.float32)
+    return z
+
+
+def emulate_skinny_cell(w, b, x, h, c, dtype, hidden=None):
+    """The skinny kernel's (h' before its rounding to h's type, c') at the
+    hidden columns ``hidden`` (all by default), fp32."""
+    H = h.shape[1]
+    hidden = np.arange(H) if hidden is None else hidden
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    z = emulate_skinny_z(x, h, w[:, zc], dtype)
+    return gates(z, b[zc], c[:, hidden], np.float32)
+
+
+# the serving front door's batches at I=1024 and Show-and-Tell's I=512, every
+# 32nd hidden column of each gate (the kernel's blocks are independent)
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("I", [1024, 512])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_skinny_emulation_meets_the_cell_tolerance(B, I, dtype):
+    """The small-batch form's sums (fmaf in k order in fp32, mma.sync's
+    truncated accumulation in bf16, eight warps' partials in order) meet
+    phase 3's fp32 limit, 1e-5 absolute and of scale, against the float64
+    cell on the same inputs (bf16 inputs rounded first): in bf16 only the
+    final rounding of h' to bf16 is left, which the card's 2e-2 holds."""
+    H = 1024
+    w, b, x, h, c = _draw_cell(B, I, H, 1)
+    if dtype == BF16:
+        w, x, h = _bf16(w), _bf16(x), _bf16(h)
+    hidden = np.arange(0, H, 32)
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    a = np.concatenate([x, h], 1).astype(np.float64)
+    h64, c64 = gates(a @ w[:, zc].astype(np.float64), b[zc], c[:, hidden], np.float64)
+    hk, ck = emulate_skinny_cell(w, b, x, h, c, dtype, hidden)
+    err = max(np.abs(hk - h64).max(), np.abs(ck - c64).max())
+    scale = max(np.abs(h64).max(), np.abs(c64).max())
+    assert err <= 1e-5 and err / scale <= 1e-5, err

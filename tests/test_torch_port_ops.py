@@ -26,7 +26,7 @@ from show_and_tell_tpu_torch.ops import fused_attention as tfa
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda
 from show_and_tell_tpu_torch.ops import lstm as tlstm
 from show_and_tell_tpu_torch.ops import tanh_probe as tprobe
-from test_torch_port_kernel_sources import emulate_tf32x3_cell
+from test_torch_port_kernel_sources import _bf16, emulate_skinny_cell, emulate_tf32x3_cell
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_and_tell_tpu_torch")
@@ -528,9 +528,43 @@ def test_tf32x3_weight_copy_follows_the_weight():
     assert len(tlstm._PREPARED) == n - 1
 
 
+# --- the small-batch cell (skinny) -----------------------------------------------
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,I", [(1, 1024), (8, 512), (32, 1024), (5, 40)])
+def test_skinny_emulation_matches_jax_pallas_interpret(B, I, dt):
+    """The small-batch form's arithmetic (numpy emulation) against the JAX
+    cell's Pallas kernel in interpret mode on the same inputs: c' (fp32)
+    within 1e-5, and h' within 1e-5 in fp32; in bf16 the JAX kernel hands h'
+    back rounded to bf16, so the emulation's h' rounded the same way sits at
+    most one bf16 step (2^-8 of |h'| <= 1) from it, where the two fp32
+    values straddle a rounding boundary."""
+    jdt, tdt, _ = dt
+    jin, _ = _cell_inputs(B, I, 128, jdt, tdt, seed=3)
+    jlstm.set_pallas_enabled(True, interpret=True)
+    jh, jc = jlstm.lstm_cell(*jin)
+    jp, jx, jhid, jcell = jin
+    eh, ec = emulate_skinny_cell(*(np.asarray(a, np.float32) for a in (jp["w"], jp["b"], jx, jhid, jcell)), tdt)
+    np.testing.assert_allclose(ec, np.asarray(jc), atol=1e-5, rtol=0)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(eh, np.asarray(jh), atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(_bf16(eh), np.asarray(jh, np.float32), atol=2.0 ** -8, rtol=0)
+
+
+@pytest.mark.parametrize("design", ["skinny", "wgmma", "tf32x3"])
+def test_cell_by_name_refuses_cpu_tensors(design):
+    """The timing entry that launches a design by name is a kernel launcher:
+    no plain path on CPU tensors, whichever design it names."""
+    _, (p, x, h, c) = _cell_inputs(3, 8, 16, None, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tlstm.lstm_cell_by(design, p, x, h, c)
+
+
 def test_tiled_by_name_refuses_cpu_tensors():
     """The timing entry that launches the tiled kernel by name is a kernel
     launcher: no plain path on CPU tensors."""
     _, (p, x, h, c) = _cell_inputs(3, 8, 16, None, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tlstm.lstm_cell_tiled(p, x, h, c)
+        tlstm.lstm_cell_by("tiled", p, x, h, c)
