@@ -23,12 +23,14 @@ Phases, each printing its own lines:
    I=H=1000, B=1; the attentions and the scores: K=1, 2, 4 and 8, B=1, L=1,
    13, 64 and 197, D=36, 1000 and 1024, unaligned views, and the first
    kernels of rows 2 and 4-6 by name), in fp32 and bf16, each line naming the
-   design that ran (the cell's ``skinny`` up to its crossover, above it
-   ``wgmma`` (bf16) or ``tf32x3`` (fp32), or ``tiled``: asserted at every
-   shape by the plan's rule, ``tiled`` by name at the fp32 serving shapes;
-   at the serving front door's batches, B=2, the crossover and one above it
-   and a ragged edge, both dtypes, I=1024 and 512, also ``skinny`` and the
-   design it replaces by name), the beam
+   design that ran (the cell's ``skinny`` up to its crossover, above it in
+   bf16 ``mcast`` up to its own and then ``wgmma``, in fp32 ``tf32x3``, or
+   ``tiled``: asserted at every shape by the plan's rule, ``tiled`` by name
+   at the fp32 serving shapes; at the serving front door's batches, B=2,
+   the crossover and one above it and a ragged edge, both dtypes, I=1024
+   and 512, also ``skinny`` and the design it replaces by name; in bf16 also
+   B = 65, 80, 160, 192, ``mcast``'s crossover and one above it and the
+   ragged B=70, I=H=40, with ``mcast`` by name), the beam
    attention's cluster size and loads, the per-row attention's and the
    (image, beam) grid's ``onepass<C>`` or ``direct``, the transposed form's
    ``cluster<C>`` or ``direct``, the scores' ``stream<S>`` or ``direct``, the
@@ -70,9 +72,13 @@ Phases, each printing its own lines:
    cell at the serving front door's batches (B = 1, 3, 8, 24, 32, 96, 128,
    384: the buckets 1, 8, 32, 128 and 3x those for beam), I=1024 and 512,
    bf16 and fp32: the plan's design beside its bound, ``torch.lstm_cell``
-   and the plain cell, the small-batch form (``skinny``) and the design it
-   replaces (``wgmma``, ``tf32x3``) by name, and the sweep of those two
-   that sets ``ops/lstm.SKINNY_MAX_B``; and then
+   and the plain cell, the small-batch form (``skinny``), in bf16 the
+   middle form (``mcast``), and the design above them (``wgmma``,
+   ``tf32x3``) by name; the middle block, bf16 at B = 64, 80, 96, 128, 160,
+   192, 256: the same, and ``mcast``'s loads alone (its consumers wait and
+   hand back without a product); and the sweep of those designs by name
+   and ``torch.lstm_cell`` at every B, in both dtypes, that sets
+   ``ops/lstm.SKINNY_MAX_B`` and ``MCAST_MAX_B``; and then
    runs the JAX benchmark's probe loop (20 steps,
    each feeding the next step's hp), its launches counted and all of them
    by the default form;
@@ -184,7 +190,8 @@ Phases, each printing its own lines:
    ``caption_images`` and the handlers' decode seconds, batches per bucket, decode
    steps and launches per batch by design: the cell and the mode's attention
    once per step, nothing else, the cell by the plan's designs at the
-   bucket's batch, and every cell of buckets 1 and 8 by ``skinny``, asserted);
+   bucket's batch, every cell of buckets 1 and 8 by ``skinny``, and
+   ``mcast`` launches at bucket 32 (beam, B=96) and 128 (greedy), asserted);
    one ``/caption_batch`` of 256; every HTTP
    caption equal to the direct ``caption_images`` caption of the same image
    at the same bucket, and the HTTP img/s against the direct one; ``?nbest=1``
@@ -199,8 +206,9 @@ Phases, each printing its own lines:
    ``model="show_tell"`` (ResNet-152, crop 224, E=512, H=1024, one layer,
    V=10,000, bf16) served by the ``Captioner`` over phase 5's 256 images,
    beam-3 and greedy (img/s, the cell's launches per batch: a layer per
-   decode step, by ``wgmma``, and no attention kernel; at buckets 1 and 8
-   the layer-0 launches by design, by ``skinny``; greedy's launches
+   decode step, by ``wgmma``, and no attention kernel; at buckets 1, 8, 32
+   and 128 the layer-0 launches by design, by ``skinny`` and ``mcast``;
+   greedy's launches
    against the steps its ids show; trunk and decode apart, the trunk's
    device time beside its bound, a traced decode), the decode-step logits
    against the same weights on the CPU (bf16 and fp32, at B and 3B), fp32
@@ -263,7 +271,10 @@ serving and training runs of phases 5 and 7, its phase 3 error and phase 4
 times at B=768, I=H=1024) and one per type for the small-batch form
 (``lstm_cell_skinny`` fp32: its launches at phase 5's buckets 1 and 8;
 ``lstm_cell_skinny_bf16``: phase 11's HTTP batches and phase 12's small
-buckets; each with its phase 3 error and phase 4 times at B=1, I=1024); the last
+buckets; each with its phase 3 error and phase 4 times at B=1, I=1024) and
+one for the bf16 form between the regimes (``lstm_cell_mcast``: its launches
+in phases 11 and 12, its phase 3 error, its phase 4 times at B=128,
+I=1024); the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero. Without CUDA it exits non-zero before any result.
 """
@@ -364,9 +375,15 @@ SMALL_B = (1, 3, 8, 24, 32, 96, 128, 384)
 # phase 4's sweep of the small-batch form against the design above its
 # crossover, by name, which sets ops/lstm.SKINNY_MAX_B
 SWEEP_B = (1, 2, 3, 4, 8, 16, 24, 32, 48, 64, 80, 96, 128, 160, 192, 256, 384)
-REPLACED = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # what the small-batch form replaces
+# the design above the small-batch form (fp32) and above the middle form
+# (bf16): what each of those replaced where it runs
+REPLACED = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 # the kernels line's entries of the small-batch form, by type
 SKINNY_ENTRY = {torch.float32: "lstm_cell_skinny", torch.bfloat16: "lstm_cell_skinny_bf16"}
+# the bf16 cell between the regimes (mcast): phase 4's middle block, and its
+# entry in the kernels line
+MID_B = (64, 80, 96, 128, 160, 192, 256)
+MCAST_ENTRY = "lstm_cell_mcast"
 
 REPLACES = {
     "lstm_cell": "show_and_tell_tpu/ops/lstm.py:109",
@@ -745,13 +762,19 @@ def probe_machine_code() -> list:
 
 def planned_cell(B, I, H, dtype):
     """The cell design expected at a shape of 16-byte aligned operands: the
-    rule of ``ops/lstm.cell_design`` written out."""
+    rule of ``ops/lstm.cell_design`` written out, three regimes in bf16
+    (``skinny``, ``mcast``, ``wgmma``) and two in fp32 (``skinny``,
+    ``tf32x3``)."""
     from show_and_tell_tpu_torch.ops import lstm
 
     align = 4 if dtype == torch.float32 else 8
     if I % align or H % align:
         return "tiled"
-    return "skinny" if B <= lstm.SKINNY_MAX_B[dtype] else REPLACED[dtype]
+    if B <= lstm.SKINNY_MAX_B[dtype]:
+        return "skinny"
+    if dtype == torch.bfloat16 and B <= lstm.MCAST_MAX_B:
+        return "mcast"
+    return REPLACED[dtype]
 
 
 def cell_designs_per_batch(mode, B, steps, layers, dtype, first_per_image=False, I=1024, H=1024):
@@ -807,6 +830,8 @@ def phase_check():
         if name == "lstm_cell" and design.startswith("skinny"):  # the small-batch form's lines
             key = SKINNY_ENTRY[dtype]
             errs[key] = max(errs.get(key, 0.0), worst)
+        if name == "lstm_cell" and design.startswith("mcast"):  # the middle form's lines
+            errs[MCAST_ENTRY] = max(errs.get(MCAST_ENTRY, 0.0), worst)
 
     for dtype in (torch.float32, torch.bfloat16):
         # the serving shapes, phase 9's (the eval driver's 64 images: B=64
@@ -841,10 +866,18 @@ def phase_check():
         # those for beam), B=2, the crossover and one above it, at I=1024 and
         # Show-and-Tell's I=512, and a ragged edge: the plan's design,
         # asserted, then the small-batch form and the design it replaces, each
-        # by name where the plan did not run it
+        # by name where the plan did not run it; in bf16 also the middle form
+        # between them at B = 65-192, its crossover and one above, and a
+        # ragged edge of its own (B=70, I=H=40: one cluster, 40 of its 64
+        # columns real)
         old = REPLACED[dtype]
         X = lstm.SKINNY_MAX_B[dtype]
-        shapes = [(B, I, 1024) for B in sorted({*SMALL_B, 2, X, X + 1}) for I in (1024, 512)] + [(5, 40, 40)]
+        batches, named, edges = {*SMALL_B, 2, X, X + 1}, ("skinny", old), [(5, 40, 40)]
+        if dtype == torch.bfloat16:
+            M = lstm.MCAST_MAX_B
+            batches |= {65, 80, 160, 192, M, M + 1}
+            named, edges = ("skinny", "mcast", old), edges + [(70, 40, 40)]
+        shapes = [(B, I, 1024) for B in sorted(batches) for I in (1024, 512)] + edges
         for B, I, H in shapes:
             p, x, h, c = cell_inputs(B, I, H, dtype, SEED)
             hr, cr = lstm.lstm_cell_reference(p, x, h, c)
@@ -854,7 +887,7 @@ def phase_check():
             assert design == planned_cell(B, I, H, dtype), (B, I, H, dtype, design)
             report("lstm_cell", f"B={B} I={I} H={H}", dtype,
                    {"h": (hk, hr), "c": (ck, cr)}, TOL[dtype]["lstm_cell"], False, design)
-            for by in ("skinny", old):
+            for by in named:
                 if by == design:
                     continue
                 cuda_lib.LAUNCHES.clear()
@@ -1443,22 +1476,32 @@ def phase_times_fp32():
 
 
 def phase_times_small():
-    """Phase 4's small-batch block: the cell at the serving front door's
-    batches (``SMALL_B``) for I=1024 and Show-and-Tell's I=512, H=1024, in
-    bf16 and in fp32 (TF32 off). At each: the plan's design beside
+    """Phase 4's small-batch and middle blocks: the cell at the serving front
+    door's batches (``SMALL_B``) for I=1024 and Show-and-Tell's I=512,
+    H=1024, in bf16 and in fp32 (TF32 off), and in bf16 also at the batches
+    between the two regimes (``MID_B``). At each: the plan's design beside
     ``cell_bound`` (its bytes rule there), the plain cell and
-    ``torch.lstm_cell`` (``show``), then the small-batch form and the design
-    it replaces by name. Then the sweep over ``SWEEP_B`` of those two by
-    name, which sets ``ops/lstm.SKINNY_MAX_B``. Returns {(dtype name, I, B):
-    row}, each row with ``skinny_ms`` and ``replaced_ms``."""
+    ``torch.lstm_cell`` (``show``), then each design that takes the type by
+    name (bf16 ``skinny``, ``mcast``, ``wgmma``; fp32 ``skinny``,
+    ``tf32x3``), and at ``MID_B`` the middle form's loads alone
+    (``mcast_stream``), after the count of its clusters that run at once
+    (``lstm.mcast_clusters``). Then the sweep over ``SWEEP_B`` of those designs by
+    name and ``torch.lstm_cell``, which sets ``ops/lstm.SKINNY_MAX_B`` and
+    ``MCAST_MAX_B``. Returns {(dtype name, I, B): row}, each row with
+    ``by_name`` {design: ms} and ``library_ms``."""
     from show_and_tell_tpu_torch.ops import lstm
 
-    print("== 4. the cell at the serving front door's batches (median ms, as above; "
+    print("== 4. the cell at the serving front door's batches and between the regimes (median ms, as above; "
           f"TF32 off: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    at_two, at_one = lstm.mcast_clusters()
+    need = {B: -(-B // lstm._MCAST_BM) * -(-1024 // lstm._MCAST_BN) for B in (128, lstm.MCAST_MAX_B, 256)}
+    print(f"    mcast's clusters of {lstm._MCAST_GATES} at once on this card (cudaOccupancyMaxActiveClusters): "
+          f"{at_two} at two blocks per SM (its shared memory), {at_one} at one; H=1024 needs {need} by B")
     rows = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
         old = REPLACED[dt]
+        named = ("skinny", "mcast", old) if dt == torch.bfloat16 else ("skinny", old)
         for I in (1024, 512):
             H = 1024
             sweep = []
@@ -1466,37 +1509,58 @@ def phase_times_small():
                 p, x, h, c = cell_inputs(B, I, H, dt, SEED)
                 shape = f"B={B} I={I} H={H}"
                 bound = cell_bound(B, I, H, dt)
+                w_ih = p["w"][:I].t().contiguous()
+                w_hh = p["w"][I:].t().contiguous()
+                b_ih = p["b"].to(dt)
+                b_hh = torch.zeros_like(b_ih)
+                c_lib = c.to(dt)
+
+                def library():
+                    return torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh)
+
+                mid = dt == torch.bfloat16 and B in MID_B
                 row = {}
-                if B in SMALL_B:
-                    w_ih = p["w"][:I].t().contiguous()
-                    w_hh = p["w"][I:].t().contiguous()
-                    b_ih = p["b"].to(dt)
-                    b_hh = torch.zeros_like(b_ih)
-                    c_lib = c.to(dt)
+                if B in SMALL_B or mid:
                     row = show(
                         "lstm_cell", shape,
                         lambda: lstm.lstm_cell_cuda(p, x, h, c),
                         lambda: lstm.lstm_cell_reference(p, x, h, c),
-                        bound,
-                        lambda: torch.lstm_cell(x, (h, c_lib), w_ih, w_hh, b_ih, b_hh),
+                        bound, library,
                     )
                     row["design"] = planned_cell(B, I, H, dt)
-                new_ms = time_cold(lambda: lstm.lstm_cell_by("skinny", p, x, h, c))
-                old_ms = time_cold(lambda: lstm.lstm_cell_by(old, p, x, h, c))
-                row.update(skinny_ms=new_ms, replaced_ms=old_ms, bound_ms=bound[0])
-                sweep.append((B, new_ms, old_ms))
-                if B in SMALL_B:
+                    assert _design("lstm_cell") == row["design"], (shape, dname, _design("lstm_cell"))
+                else:
+                    row["library_ms"] = time_cold(library)
+                by = {d: time_cold(lambda d=d: lstm.lstm_cell_by(d, p, x, h, c)) for d in named}
+                row.update(by_name=by, bound_ms=bound[0])
+                sweep.append((B, by, row["library_ms"]))
+                shares = ", ".join(f"{d} {ms:.4f} ({bound[0] / ms:.1%})" for d, ms in by.items())
+                if B in SMALL_B and not mid:
                     print(f"    {dname} {shape}: plan {row['design']} {row['ms']:.4f} ms ({bound[0] / row['ms']:.1%} "
-                          f"of the bound); by name skinny {new_ms:.4f} ({bound[0] / new_ms:.1%}), {old} {old_ms:.4f} "
-                          f"({bound[0] / old_ms:.1%}); torch.lstm_cell {row['library_ms']:.4f}, plain "
-                          f"{row['plain_ms']:.4f}; skinny / {old} {new_ms / old_ms:.3f}, skinny / torch.lstm_cell "
-                          f"{new_ms / row['library_ms']:.3f}")
+                          f"of the bound); by name {shares}; torch.lstm_cell {row['library_ms']:.4f}, plain "
+                          f"{row['plain_ms']:.4f}; skinny / {old} {by['skinny'] / by[old]:.3f}, skinny / "
+                          f"torch.lstm_cell {by['skinny'] / row['library_ms']:.3f}")
+                if mid:
+                    row["stream_ms"] = time_cold(lambda: lstm.mcast_stream(p, x, h, c))
+                    row["stream_clean_ms"] = time_cold(lambda: lstm.mcast_stream(p, x, h, c), flush_by="read")
+                    print(f"    middle {dname} {shape}: plan {row['design']} {row['ms']:.4f} ms "
+                          f"({bound[0] / row['ms']:.1%} of the bound {bound[0]:.4f}); by name {shares}; mcast's loads "
+                          f"alone {row['stream_ms']:.4f} (after a read flush {row['stream_clean_ms']:.4f}); "
+                          f"torch.lstm_cell {row['library_ms']:.4f}, plain {row['plain_ms']:.4f}; mcast / wgmma "
+                          f"{by['mcast'] / by['wgmma']:.3f}, mcast / torch.lstm_cell "
+                          f"{by['mcast'] / row['library_ms']:.3f}, the plan / torch.lstm_cell "
+                          f"{row['ms'] / row['library_ms']:.3f}")
                 rows[dname, I, B] = row
-            print(f"    sweep {dname} I={I} H={H}, by name, skinny against {old} (ms; the ratio): " + ", ".join(
-                f"B={B} {a:.4f}/{b:.4f} {a / b:.2f}" for B, a, b in sweep))
-            faster = [B for B, a, b in sweep if a < b]
-            print(f"    sweep {dname} I={I}: skinny the faster at B in {faster}; the plan sends B <= "
-                  f"{lstm.SKINNY_MAX_B[dt]} to it")
+            print(f"    sweep {dname} I={I} H={H}, by name {'/'.join(named)}/torch.lstm_cell (ms): " + ", ".join(
+                f"B={B} " + "/".join(f"{by[d]:.4f}" for d in named) + f"/{lib:.4f}" for B, by, lib in sweep))
+            # each form against the design the plan puts above it
+            for form, above in (("skinny", named[1]), ("mcast", old)) if dt == torch.bfloat16 else (("skinny", old),):
+                faster = [B for B, by, _ in sweep if by[form] < by[above]]
+                limit = lstm.SKINNY_MAX_B[dt] if form == "skinny" else lstm.MCAST_MAX_B
+                print(f"    sweep {dname} I={I}: {form} faster than {above} at B in {faster}; the plan sends B <= "
+                      f"{limit} to {form}")
+            slower = [B for B, by, lib in sweep if by[planned_cell(B, I, H, dt)] > lib]
+            print(f"    sweep {dname} I={I}: the plan's design by name slower than torch.lstm_cell at B in {slower}")
     return rows
 
 
@@ -3277,6 +3341,7 @@ def phase_http(smi, trained, tmp, direct_img_s):
         # same Captioner, so that the batcher's stats are that run's
         out["levels"] = {}
         small = {m: collections.Counter() for m in ("beam", "greedy")}  # skinny launches by bucket
+        middle = {m: collections.Counter() for m in ("beam", "greedy")}  # mcast launches by bucket
         cell_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         for mode in ("beam", "greedy"):
             for c in HTTP_LEVELS:
@@ -3318,12 +3383,20 @@ def phase_http(smi, trained, tmp, direct_img_s):
                     "steps_per_batch": {b: s for b, s in steps.items()}, "designs": designs}
                 for bucket, d in designs.items():
                     small[mode][bucket] += d.get("lstm_cell/skinny", 0)
+                    middle[mode][bucket] += d.get("lstm_cell/mcast", 0)
             # the small-batch form served the batch-1 clients' buckets: every
             # cell launch of buckets 1 and 8 (greedy B = 1, 8; beam 3, 24)
             seen = {bk: n for bk, n in small[mode].items() if bk in (1, 8)}
             print(f"  {mode:6s} the cell by skinny at buckets 1 and 8 over the levels: {seen} launches")
             assert all(seen.get(bk, 0) > 0 for bk in (1, 8)), (mode, dict(small[mode]))
             out["skinny_launches"] = out.get("skinny_launches", 0) + sum(small[mode].values())
+            # the middle form served the batches between the regimes: beam-3
+            # at bucket 32 (B=96, every step), greedy at bucket 128 (B=128);
+            # per_batch has held every launch of those buckets to the plan
+            at = (32,) if mode == "beam" else (128,)
+            print(f"  {mode:6s} the cell by mcast over the levels, by bucket: {dict(middle[mode])} launches")
+            assert all(middle[mode].get(bk, 0) > 0 for bk in at), (mode, dict(middle[mode]))
+            out["mcast_launches"] = out.get("mcast_launches", 0) + sum(middle[mode].values())
 
         # 3. one /caption_batch of 256, the health and metrics endpoints, n-best
         with _serving(srv0) as port:
@@ -3520,11 +3593,14 @@ def _st_serving(cap, images, label, layers):
     return captions, img_s, cell
 
 
-def _st_small_buckets(cfg, model, vocab, images, buckets=(1, 8)):
+def _st_small_buckets(cfg, model, vocab, images, buckets=(1, 8, 32, 128)):
     """Show-and-Tell's cell (one layer: layer 0, I = E = 512) at the serving
-    front door's small buckets: the ``Captioner`` at buckets 1 and 8, beam-3
-    and greedy, the launches by design per batch printed and held to the
-    plan's. Returns the launches {design: n}."""
+    front door's buckets: the ``Captioner`` at buckets 1, 8, 32 and 128,
+    beam-3 and greedy, the launches by design per batch printed and held to
+    the plan's (``skinny`` at B <= 64, ``mcast`` up to 192, ``wgmma`` above:
+    greedy at 128 and beam's first step there by ``mcast``, beam's later
+    steps at bucket 32, B=96, by ``mcast`` and at 128, B=384, by
+    ``wgmma``). Returns the launches {design: n}."""
     from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.serve import Captioner
 
@@ -3781,9 +3857,10 @@ def phase_show_tell(tmp, images):
     out["launches"] += sum(cell.values())
     out.update(serve_img_s=img_s)
     small = _st_small_buckets(cfg, model, vocab, images)
-    assert small.get("skinny", 0) > 0, small
+    assert small.get("skinny", 0) > 0 and small.get("mcast", 0) > 0, small
     out["launches"] += sum(small.values())
     out["skinny_launches"] = small["skinny"]
+    out["mcast_launches"] = small["mcast"]
 
     # trunk and decode apart, a traced decode, and the greedy launches
     # against the steps its ids show
@@ -4682,6 +4759,18 @@ def main() -> int:
             "launches": skinny_launches[dt], "max_abs_err": errs[key],
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_operations", "library_ms")},
         })
+    # the middle form (bf16): its launches on the HTTP batches of buckets 32
+    # and 128 (phase 11) and Show-and-Tell's (phase 12), its phase 3 error
+    # over the shapes it ran, its phase 4 times at B=128, I=1024 (greedy at
+    # bucket 128, the training batch)
+    row = small_rows["bfloat16", 1024, 128]
+    mcast_launches = http["mcast_launches"] + show_tell["mcast_launches"]
+    assert row["design"] == "mcast" and mcast_launches > 0, (row["design"], mcast_launches)
+    kernels.append({
+        "name": MCAST_ENTRY, "route": "cuda", "source": SOURCES["lstm_cell"], "replaces": REPLACES["lstm_cell"],
+        "launches": mcast_launches, "max_abs_err": errs[MCAST_ENTRY],
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_operations", "library_ms")},
+    })
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

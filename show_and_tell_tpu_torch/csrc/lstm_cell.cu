@@ -17,12 +17,13 @@
 // on the tensor cores three TF32 products (below) need 3 x 12.9 GFLOP at
 // 495 TFLOP/s = 78 us (B=256: 26 us), against ~15 us of bytes (W is 33.6 MB).
 //
-// Four designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
-// shape, the type and the alignment before the launch. Each gives one block
-// BM batch rows and the same BN hidden columns of all four gates (W column
-// offsets 0, H, 2H, 3H), so the gate math runs on the block's own z tile
-// and z never reaches device memory; x and h are read apart, so no
-// concatenated [x, h] is materialised.
+// Five designs, chosen by the wrapper (ops/lstm.py `cell_design`) from the
+// shape, the type and the alignment before the launch. Each but `mcast`
+// gives one block BM batch rows and the same BN hidden columns of all four
+// gates (W column offsets 0, H, 2H, 3H), so the gate math runs on the
+// block's own z tile; `mcast` gives each gate a block of a cluster, whose
+// z tiles meet in distributed shared memory. z never reaches device memory;
+// x and h are read apart, so no concatenated [x, h] is materialised.
 //
 // `sat_lstm_cell_skinny` (bf16 and fp32, I and H multiples of 8 and 4,
 // 16-byte aligned operands, B up to ops/lstm.py `SKINNY_MAX_B`: the serving
@@ -56,6 +57,49 @@
 //   - Its pace is set by the stream of W's 16-byte (bf16) and 32-byte
 //     (fp32) pieces per gate, ~1.5 TB/s on the H100, not by the products;
 //     past 32 rows the fp32 FMAs also wait on the reads of [x|h] (PERF.md).
+//
+// `sat_lstm_cell_mcast` (bf16, I and H multiples of 8, 16-byte aligned
+// operands, `SKINNY_MAX_B` < B <= `MCAST_MAX_B`, 65-192: beam-3 at the
+// serving bucket 32, B=96; greedy at bucket 128 and the training batch,
+// B=128; the eval driver's beam, B=192) is the cell between the two
+// regimes. There it replaces `wgmma`, whose 64-row tiles give 2 x 32 = 64
+// blocks at B = 65-128 and lost to torch.lstm_cell.
+// Its bound is the bytes, almost all of them W: 0.0054 ms at B=96, 0.0056
+// at 128, 0.0058 at 192 (I=H=1024, 3.35 TB/s).
+//   - Tile: a cluster of four blocks, one per gate, over the same 64 batch
+//     rows and 64 hidden columns: block g forms z_g = [x|h] W[:, gH + n0 ..
+//     + 64) by one `wgmma` m64n64k16 per k16 (W's box N-major, read
+//     transposed, 128-byte swizzle). 4 x H / 64 blocks per row block: 128
+//     at B = 65-128, H=1024, and 192 at B = 129-192.
+//   - Loads: one producer warp per block keeps a ring of 6 stages on
+//     mbarriers. A stage is one 64-deep k-tile of [x|h] (64 rows of 128
+//     bytes) and the block's box of W (64 k-rows of 128 bytes: a gate's 64
+//     columns, where `wgmma` reads 32 columns of each gate, 64-byte rows).
+//     The four blocks share the [x|h] tile: each issues 16 of its rows by
+//     one TMA multicast to all four and arms its own barrier for the whole
+//     stage. A stage is refilled only when all four have read it: each
+//     consumer warp hands it back to the barrier of every block of the
+//     cluster (lane q arrives at block q through mapa, with the default
+//     release at CTA scope: one at cluster scope, one lane arriving after
+//     another, made a first development build several times slower).
+//   - Gates: after the k-loop each block writes its z tile over its ring,
+//     and after a cluster barrier block g finishes hidden columns 16 g ..
+//     16 g + 15 of the 64 from the four tiles (float4 reads through
+//     distributed shared memory); h' and c' are written once. TMA's fill
+//     zeroes the ragged edges in B, K and H, and the stores mask them.
+//   - Occupancy: with one block per SM, 30 clusters of four run at once on
+//     the H100 (cudaOccupancyMaxActiveClusters) and B = 65-128 needs 32, a
+//     second wave; with a 97 KB ring two blocks fit per SM (62 clusters, so
+//     three row blocks, 48, still run in one wave and four, 64, do not).
+//   - L2 traffic at B=128: W once per row block (2 x 16.8 MB), [x|h] once
+//     per cluster (32 x 0.25 MB), ~42 MB, against `wgmma`'s ~50 MB (W twice,
+//     [x|h] once per column block, 32 x 0.5 MB). W still leaves L2 twice: a
+//     first development build that shared W between the row blocks by
+//     multicast too (16 columns of each gate per block, 32-byte rows of W)
+//     ran no faster than `wgmma`. The pace follows the box rows that land in
+//     each SM's shared memory per stage, 128 here against `wgmma`'s 320 and
+//     that build's 320, more than the bytes read from L2 (PERF.md). Its
+//     loads alone (`stream_only`) take most of its time.
 //
 // `sat_lstm_cell_sm90` (bf16, I and H multiples of 8, 16-byte aligned
 // operands: the serving and training shapes) is built for Hopper:
@@ -478,9 +522,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous wgmma instructions.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <int WG>
@@ -1191,6 +1236,281 @@ cudaError_t launch_rows(const void* x, const void* h, const void* w, const float
 
 }  // namespace sk
 
+// --- mcast: the cell between the two regimes, a cluster of the four gates --
+
+namespace mc {
+
+constexpr int BM = 64;               // batch rows per block: one consumer warpgroup
+constexpr int BN = 64;               // hidden columns of one gate per block: one 128-byte row of W
+constexpr int BK = 64;               // k per stage: 128 bytes of bf16, one swizzle row
+constexpr int ROW = BK * 2;          // bytes of one row of an [x|h] tile or of the W box
+constexpr int A_BYTES = BM * ROW;    // [x|h]: BM rows of one k-tile
+constexpr int W_BYTES = BK * BN * 2; // the block's W box: 64 k-rows of 128 bytes
+constexpr int STAGE = A_BYTES + W_BYTES;
+constexpr int GATES = 4;             // blocks per cluster: one per gate
+constexpr int AROWS = BM / GATES;    // [x|h] rows each block of the cluster issues
+// two blocks per SM: with one, 30 clusters of four fit at once
+// (cudaOccupancyMaxActiveClusters on the H100) and B = 65-128 needs 32; with
+// two, 62. So the ring takes ~97 KB
+constexpr int STAGES = 6;
+constexpr int NT = 128 + 32;         // the consumer warpgroup, then one producer warp
+constexpr int ZLD = BN + 4;          // floats per row of the z tile (padded)
+constexpr int Z_BYTES = BM * ZLD * 4;
+static_assert(Z_BYTES <= STAGES * STAGE, "the z tile lies over the ring once it is read");
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; release and acquire order the
+// shared memory (and the barriers' initialisation) across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one 2-D box into the shared memory of every block of `mask` (cluster
+// ranks), at the same offset in each, completing on each one's barrier at
+// the offset of `bar`
+__device__ __forceinline__ void tma_load_mcast(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                               uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// arrive on the barrier at the offset of `bar` in the block of cluster rank
+// `rank` (the default release, at CTA scope: see the header)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n"
+      " mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// the generic address of `p` (this block's shared memory) in the block of cluster rank `rank`
+__device__ __forceinline__ const float* map_rank(const float* p, uint32_t rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(r);
+}
+
+// d += A (64x16, K-major) * B (16x64, N-major: transposed), bf16 in, fp32 sum
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Block g of a cluster of four computes z_g = [x|h] W_g for BM batch rows and
+// the cluster's 64 hidden columns. Its stage is [x|h]'s BM rows, BM / 4 of
+// them issued by each block of the cluster and multicast to all four, and
+// its own W box. So a stage is filled by all four blocks, and may be refilled
+// only when all four have read it: each consumer warp hands it back to the
+// barrier of every block. Then the four z tiles meet through distributed
+// shared memory: block g finishes hidden columns 16 g .. 16 g + 15 of the
+// 64. STREAM: the consumers wait and hand back without a product (the loads
+// alone, for timing).
+template <bool STREAM>
+__global__ void __launch_bounds__(NT, 2)
+lstm_cell_mcast_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th,
+                       const __grid_constant__ CUtensorMap tw, const float* __restrict__ b,
+                       const float* __restrict__ c, __nv_bfloat16* __restrict__ h_out,
+                       float* __restrict__ c_out, int B, int I, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  // the same offset in every block of the cluster: multicast writes there
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  float* const z = reinterpret_cast<float*>(smem_raw + (ring - raw));  // [BM][ZLD], after the k-loop
+  const uint32_t full = ring + STAGES * STAGE;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = blockIdx.x % GATES;          // this block's gate, and its rank in the cluster
+  const int n0 = (blockIdx.x / GATES) * BN;  // the cluster's hidden columns
+  const int m0 = blockIdx.y * BM;
+  const int KX = (I + BK - 1) / BK, KT = KX + (H + BK - 1) / BK;
+
+  if (tid == 0) {
+    if (cluster_rank() != (uint32_t)g) __trap();  // the gate is the rank the multicast masks name
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);          // the producer's arrival, plus the bytes
+      mbar_init(empty + 8 * s, GATES * 4);  // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // no copy or arrival reaches a block before its barriers exist
+
+  if (warp == 4) {
+    // producer: one thread issues this block's quarter of [x|h] and its W box
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + 8 * s, ((kt / STAGES) - 1) & 1);
+        const uint32_t a = ring + s * STAGE, wt = a + A_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, STAGE);  // what lands here, whoever issued it
+        const uint32_t a_dst = a + g * AROWS * ROW;
+        int wrow;
+        if (kt < KX) {
+          tma_load_mcast(a_dst, &tx, kt * BK, m0 + g * AROWS, bar, (1u << GATES) - 1);
+          wrow = kt * BK;
+        } else {
+          tma_load_mcast(a_dst, &th, (kt - KX) * BK, m0 + g * AROWS, bar, (1u << GATES) - 1);
+          wrow = I + (kt - KX) * BK;
+        }
+        tma_load(wt, &tw, g * H + n0, wrow, bar);
+      }
+    }
+  } else {
+    // the consumer warpgroup: rows m0 .. m0 + 64 of z_g
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+      if constexpr (STREAM) {
+        if (lane < GATES) mbar_arrive_remote(empty + 8 * s, lane);  // lane q tells block q
+      } else {
+        const uint32_t a = ring + s * STAGE, wt = a + A_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // A: 128-byte rows, 8-row groups 1 KB apart; a k16 slice is 32 bytes on
+          // B: 128-byte k-rows of 64 columns (one swizzle atom wide), 8-row
+          //    groups 1 KB apart; a k16 slice is 16 rows on
+          wgmma_m64n64k16(acc, desc(a + kk * 32, 16, 1024, 1), desc(wt + kk * 16 * ROW, W_BYTES, 1024, 1));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        fence_acc(acc);
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(acc);
+        if (kt > 0 && lane < GATES) mbar_arrive_remote(empty + 8 * ((kt - 1) % STAGES), lane);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    // every stage has landed (each was waited for) and been read by every
+    // warp: the ring is free for the z tile
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    // acc[4 j + 2 r + e] is z_g at row 16 warp + lane / 4 + 8 r, column 8 j + 2 (lane % 4) + e
+    const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(z + (r0 + 8 * r) * ZLD + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+  __syncwarp();
+  cluster_sync();  // every block's z tile is written
+
+  // the gates of hidden columns n0 + 16 g .. + 16, four at a time: z_q from block q
+  const float* zq[GATES];
+#pragma unroll
+  for (int q = 0; q < GATES; ++q) zq[q] = map_rank(z, q);
+  for (int idx = tid; idx < BM * 4; idx += NT) {
+    const int r = idx >> 2, j = 16 * g + 4 * (idx & 3);
+    const int m = m0 + r, n = n0 + j;
+    if (m >= B || n >= H) continue;  // H % 8 == 0: n < H covers n + 3
+    float4 zv[GATES], bv[GATES];
+#pragma unroll
+    for (int q = 0; q < GATES; ++q) {
+      zv[q] = *reinterpret_cast<const float4*>(zq[q] + r * ZLD + j);
+      bv[q] = *reinterpret_cast<const float4*>(b + q * H + n);
+    }
+    const size_t o = (size_t)m * H + n;
+    const float4 cv = *reinterpret_cast<const float4*>(c + o);
+    const float zi[4] = {zv[0].x + bv[0].x, zv[0].y + bv[0].y, zv[0].z + bv[0].z, zv[0].w + bv[0].w};
+    const float zf[4] = {zv[1].x + bv[1].x, zv[1].y + bv[1].y, zv[1].z + bv[1].z, zv[1].w + bv[1].w};
+    const float zg[4] = {zv[2].x + bv[2].x, zv[2].y + bv[2].y, zv[2].z + bv[2].z, zv[2].w + bv[2].w};
+    const float zo[4] = {zv[3].x + bv[3].x, zv[3].y + bv[3].y, zv[3].z + bv[3].z, zv[3].w + bv[3].w};
+    const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
+    float cn[4], hn[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cn[e] = sigmoid(zf[e]) * cc[e] + sigmoid(zi[e]) * tanhf(zg[e]);
+      hn[e] = sigmoid(zo[e]) * tanhf(cn[e]);
+    }
+    *reinterpret_cast<float4*>(c_out + o) = make_float4(cn[0], cn[1], cn[2], cn[3]);
+    __nv_bfloat162 hv[2] = {__floats2bfloat162_rn(hn[0], hn[1]), __floats2bfloat162_rn(hn[2], hn[3])};
+    *reinterpret_cast<uint2*>(h_out + o) = *reinterpret_cast<const uint2*>(hv);
+  }
+  __syncwarp();
+  cluster_sync();  // no block leaves while another still reads its z tile
+}
+
+// The launch's cluster attribute and shape, for the launch and for the
+// occupancy query.
+cudaLaunchConfig_t config(cudaLaunchAttribute* attr, dim3 grid, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = GATES;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many of the kernel's clusters run at once on this card: with its own
+// shared memory (two blocks per SM) and with one block per SM's worth.
+cudaError_t clusters(int* at_two, int* at_one) {
+  auto kern = lstm_cell_mcast_kernel<false>;
+  constexpr int ONE_PER_SM = 120 * 1024;  // more than half of an SM's shared memory
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, ONE_PER_SM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(attr, dim3(GATES * 32), SMEM, nullptr);
+  e = cudaOccupancyMaxActiveClusters(at_two, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  cfg.dynamicSmemBytes = ONE_PER_SM;
+  return cudaOccupancyMaxActiveClusters(at_one, kern, &cfg);
+}
+
+template <bool STREAM>
+cudaError_t launch(const void* x, const void* h, const void* w, const float* b, const float* c, void* h_out,
+                   float* c_out, int B, int I, int H, cudaStream_t stream) {
+  CUtensorMap tx, th, tw;
+  const auto promo = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode(&tx, x, B, I, AROWS, BK, sw, promo) || !encode(&th, h, B, H, AROWS, BK, sw, promo) ||
+      !encode(&tw, w, (uint64_t)I + H, 4 * (uint64_t)H, BK, BN, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+    return cudaErrorInvalidValue;
+  auto kern = lstm_cell_mcast_kernel<STREAM>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(attr, dim3(GATES * ((H + BN - 1) / BN), (B + BM - 1) / BM), SMEM, stream);
+  e = cudaLaunchKernelEx(&cfg, kern, tx, th, tw, b, c, static_cast<__nv_bfloat16*>(h_out), c_out, B, I, H);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace mc
+
 }  // namespace sm90
 
 // The Hopper design, bf16 only. I and H multiples of 8; x, h, w, b, c, h_out
@@ -1234,6 +1554,28 @@ extern "C" int sat_lstm_cell_skinny(const void* x, const void* h, const void* w,
   if (dtype == 1)
     return (int)sm90::sk::launch_rows<__nv_bfloat16>(x, h, w, b, c, h_out, c_out, B, I, H, bt, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The design between the two regimes, bf16 only: clusters of four blocks,
+// one per gate, over 64 hidden columns and 64 batch rows, sharing [x|h]'s
+// tiles by TMA multicast. I and H multiples of 8; x, h, w, b, c, h_out and
+// c_out 16-byte aligned. stream_only = 1 times the loads alone: the consumers
+// wait and hand each stage back without a product, and h' and c' are not the
+// cell's. Returns a cudaError_t.
+extern "C" int sat_lstm_cell_mcast(const void* x, const void* h, const void* w, const float* b,
+                                   const float* c, void* h_out, float* c_out, int B, int I, int H,
+                                   int stream_only, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || I <= 0 || H <= 0 || I % 8 || H % 8) return (int)cudaErrorInvalidValue;
+  return stream_only ? (int)sm90::mc::launch<true>(x, h, w, b, c, h_out, c_out, B, I, H, s)
+                     : (int)sm90::mc::launch<false>(x, h, w, b, c, h_out, c_out, B, I, H, s);
+}
+
+// The clusters of `sat_lstm_cell_mcast` that run at once on the current
+// card (cudaOccupancyMaxActiveClusters): at_two with its own shared memory,
+// at_one with one block per SM's worth. Returns a cudaError_t.
+extern "C" int sat_lstm_cell_mcast_clusters(int* at_two, int* at_one) {
+  return (int)sm90::mc::clusters(at_two, at_one);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, h, w and h_out). vec: 1 when I and H

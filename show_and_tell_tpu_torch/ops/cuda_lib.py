@@ -53,6 +53,8 @@ _SIGNATURES = {
         "sat_lstm_cell_sm90": (_vp,) * 7 + (_i,) * 4 + (_vp,),
         "sat_lstm_cell_tf32x3": (_vp,) * 7 + (_i,) * 3 + (_vp,),
         "sat_lstm_cell_skinny": (_vp,) * 7 + (_i,) * 5 + (_vp,),
+        "sat_lstm_cell_mcast": (_vp,) * 7 + (_i,) * 4 + (_vp,),
+        "sat_lstm_cell_mcast_clusters": (_vp, _vp),
     },
     "additive_attention.cu": {
         "sat_additive_attention": (_vp,) * 6 + (_i,) * 6 + (_vp,),

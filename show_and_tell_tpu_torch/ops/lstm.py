@@ -9,11 +9,19 @@ Math (torch gate order i, f, g, o; one fused bias b = b_ih + b_hh):
 ``lstm_cell`` launches a kernel of ``csrc/lstm_cell.cu`` for CUDA tensors
 and runs ``lstm_cell_reference`` for CPU tensors. ``cell_design`` picks the
 kernel from the shape, the type and the alignment before the launch: the
-Hopper designs fed by TMA for the shapes TMA can take (``skinny``, a
-matrix-vector form, up to a batch of ``SKINNY_MAX_B`` rows; above it
-``wgmma`` for bf16 and ``tf32x3`` for fp32: three TF32 products on the
-tensor cores, at fp32 accuracy), the shared-memory tiled GEMM for the rest.
-On a CUDA tensor it never falls back: the launch succeeds or it raises.
+Hopper designs fed by TMA for the shapes TMA can take, by batch regime:
+
+- up to ``SKINNY_MAX_B`` rows, ``skinny``, a matrix-vector form that reads
+  W once over H / 8 blocks (bf16 and fp32);
+- bf16 between the two, up to ``MCAST_MAX_B`` rows, ``mcast``: a cluster
+  of four blocks, one per gate, over 64 hidden columns and 64 batch rows,
+  that read W's rows 128 bytes at a time and share [x|h]'s tiles by TMA
+  multicast, then meet through distributed shared memory for the gates;
+- above, ``wgmma`` for bf16 (a GEMM) and ``tf32x3`` for fp32 (three TF32
+  products on the tensor cores, at fp32 accuracy; fp32 has no middle form);
+
+and the shared-memory tiled GEMM for the rest. On a CUDA tensor it never
+falls back: the launch succeeds or it raises.
 
 ``tf32x3`` reads W^T split into TF32 parts (``tf32x3_weight``), made once
 per weight version by ``prepared_weight`` and kept beside the weight, out
@@ -29,6 +37,7 @@ fallback.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 import weakref
@@ -40,7 +49,7 @@ from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
 
-CELL_DESIGNS = ("skinny", "wgmma", "tf32x3", "tiled")
+CELL_DESIGNS = ("skinny", "mcast", "wgmma", "tf32x3", "tiled")
 H100_SMS = 132
 _WGMMA_BM = (64, 128, 192)  # batch rows per block: one to three consumer warpgroups
 _WGMMA_BN = 32  # hidden columns per gate per block
@@ -60,6 +69,22 @@ _SKINNY_BT = (8, 16, 32, 64)
 # 0.0254 against 0.0490; B=48 0.0849 against 0.0588 and 0.0665 against 0.0492
 # (past 32 rows the FMA path waits on its shared-memory reads of [x|h]).
 SKINNY_MAX_B = {torch.bfloat16: 64, torch.float32: 32}
+# mcast: 64 batch rows by 64 hidden columns of one gate per block (W's rows
+# read 128 bytes at a time), a cluster of the four gates' blocks sharing
+# [x|h]'s tiles: 4 x H / 64 blocks per row block, 128 at B = 65-128 and 192
+# at B = 129-192 (two blocks per SM fit)
+_MCAST_BM = 64
+_MCAST_BN = 64
+_MCAST_GATES = 4
+# The largest bf16 batch that ``mcast`` runs: the crossover to ``wgmma`` of
+# phase 4's sweep in chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W; ms by
+# name, mcast against wgmma and torch.lstm_cell, I=1024 and 512, H=1024).
+# B=192 (three row blocks, 48 clusters) 0.0235 against 0.0260 and 0.0267,
+# 0.0203 against 0.0225 and 0.0241; B=256 (four: 64 clusters, past the 62
+# that fit at once) 0.0359 against 0.0272 and 0.0288, 0.0307 against 0.0234
+# and 0.0271. skinny keeps B <= 64, though mcast ran 3-4 % faster at B=48
+# and 64 (0.0209 against 0.0217, 0.0213 against 0.0219 at I=1024).
+MCAST_MAX_B = 192
 
 
 def cell_design(
@@ -69,8 +94,9 @@ def cell_design(
     batch rows per block, for operands that are 16-byte ``aligned`` (what TMA
     takes): for bf16 with I and H multiples of 8 and fp32 with I and H
     multiples of 4, ``("skinny", BT)`` up to ``SKINNY_MAX_B[dtype]`` rows,
-    above it ``("wgmma", BM)`` (bf16) or ``("tf32x3", 64)`` (fp32); else
-    ``("tiled", 64)``."""
+    bf16 above it ``("mcast", 64)`` up to ``MCAST_MAX_B`` rows and
+    ``("wgmma", BM)`` past that, fp32 ``("tf32x3", 64)``; else ``("tiled",
+    64)``."""
     if I <= 0 or not aligned:
         return "tiled", 64
     if dtype == torch.float32 and I % 4 == 0 and H % 4 == 0:
@@ -81,6 +107,8 @@ def cell_design(
         return "tiled", 64
     if B <= SKINNY_MAX_B[dtype]:
         return "skinny", skinny_rows(B)
+    if B <= MCAST_MAX_B:
+        return "mcast", _MCAST_BM
     return "wgmma", wgmma_rows(B, H, sms)
 
 
@@ -235,22 +263,54 @@ def lstm_cell_by(
     """The kernel of ``design`` by name, whatever the plan says, with the
     tile its own rule gives at this shape: for timing a design beside the
     one the plan picks (``tiled`` beside ``tf32x3``, ``wgmma`` and
-    ``tf32x3`` beside ``skinny`` at small batches, ``skinny`` above its
-    crossover). Nothing on the main path calls it. Raises ValueError where
-    the design does not take the shape."""
+    ``tf32x3`` beside ``skinny`` at small batches, ``skinny`` and ``wgmma``
+    beside ``mcast``, each past its crossover). Nothing on the main path
+    calls it. Raises ValueError where the design does not take the
+    shape."""
     B, I, H = _cell_shapes(params, x, h, c)
     if design == "tiled":
         return _launch("tiled", 64, params, x, h, c, B, I, H)
     fp32 = x.dtype == torch.float32
     align = 4 if fp32 else 8
-    takes = {"skinny": True, "wgmma": not fp32, "tf32x3": fp32}
+    takes = {"skinny": True, "mcast": not fp32, "wgmma": not fp32, "tf32x3": fp32}
     if design not in takes:
         raise ValueError(f"lstm_cell_by: no design {design!r}; designs {CELL_DESIGNS}")
     if not (takes[design] and I % align == 0 and H % align == 0 and _aligned(params, x, h, c, I, H)):
         raise ValueError(f"lstm_cell_by: {design} does not take B={B} I={I} H={H} {x.dtype}")
     sms = _sm_count(x.device.index or 0)
-    bm = {"skinny": skinny_rows(B), "wgmma": wgmma_rows(B, H, sms), "tf32x3": _TF32X3_BM}[design]
+    bm = {
+        "skinny": skinny_rows(B), "mcast": _MCAST_BM, "wgmma": wgmma_rows(B, H, sms),
+        "tf32x3": _TF32X3_BM,
+    }[design]
     return _launch(design, bm, params, x, h, c, B, I, H)
+
+
+def mcast_stream(
+    params: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``mcast`` kernel's loads alone, for timing its parts: the same
+    grid, clusters and TMA ring, with consumers that wait for each stage and
+    hand it back without a product. h' and c' are not the cell's. Counted as
+    design ``mcast_stream``; nothing on the main path calls it. bf16, the
+    shapes ``mcast`` takes; raises on CPU tensors."""
+    B, I, H = _cell_shapes(params, x, h, c)
+    if x.dtype != torch.bfloat16 or I % 8 or H % 8 or not _aligned(params, x, h, c, I, H):
+        raise ValueError(f"mcast_stream: mcast does not take B={B} I={I} H={H} {x.dtype}")
+    return _launch("mcast_stream", _MCAST_BM, params, x, h, c, B, I, H)
+
+
+def mcast_clusters() -> Tuple[int, int]:
+    """How many ``mcast`` clusters of four run at once on the current card
+    (``cudaOccupancyMaxActiveClusters``): with the kernel's own shared
+    memory, two blocks per SM, and with one block per SM's worth. A query,
+    not a launch; needs the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("mcast_clusters: the query needs a CUDA card")
+    at_two, at_one = ctypes.c_int(0), ctypes.c_int(0)
+    err = cuda_lib.library("lstm_cell.cu").sat_lstm_cell_mcast_clusters(
+        ctypes.addressof(at_two), ctypes.addressof(at_one))
+    cuda_lib.check(err, "mcast_clusters")
+    return at_two.value, at_one.value
 
 
 def _launch(design, bm, params, x, h, c, B, I, H):
@@ -269,6 +329,8 @@ def _launch(design, bm, params, x, h, c, B, I, H):
     )
     if design == "skinny":
         err = lib.sat_lstm_cell_skinny(*operands, bm, cuda_lib.dtype_code(x), stream)
+    elif design in ("mcast", "mcast_stream"):
+        err = lib.sat_lstm_cell_mcast(*operands, int(design == "mcast_stream"), stream)
     elif design == "wgmma":
         err = lib.sat_lstm_cell_sm90(*operands, bm, stream)
     elif design == "tf32x3":

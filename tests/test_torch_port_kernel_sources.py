@@ -105,12 +105,26 @@ BF16, F32 = torch.bfloat16, torch.float32
     # 128; B=1 above)
     (8, 1024, 1024, BF16, True, ("skinny", 8)),
     (32, 1024, 1024, BF16, True, ("skinny", 32)),
-    (128, 1024, 1024, BF16, True, ("wgmma", 64)),
+    (128, 1024, 1024, BF16, True, ("mcast", 64)),  # between the regimes: the cluster form
     (8, 1024, 1024, F32, True, ("skinny", 8)),
     (32, 1024, 1024, F32, True, ("skinny", 32)),
     (128, 1024, 1024, F32, True, ("tf32x3", 64)),
     (64, 1024, 1024, BF16, True, ("skinny", 64)),  # the crossovers and one above
-    (65, 1024, 1024, BF16, True, ("wgmma", 64)),
+    (65, 1024, 1024, BF16, True, ("mcast", 64)),
+    (96, 1024, 1024, BF16, True, ("mcast", 64)),  # beam-3 at bucket 32
+    (96, 512, 1024, BF16, True, ("mcast", 64)),  # Show-and-Tell's layer 0
+    (127, 1024, 1024, BF16, True, ("mcast", 64)),
+    (192, 1024, 1024, BF16, True, ("mcast", 64)),  # the eval driver's beam: 3 x 64
+    (193, 1024, 1024, BF16, True, ("wgmma", 64)),
+    (128, 1000, 1000, BF16, True, ("mcast", 64)),  # ragged H and k-tiles on TMA
+    (70, 40, 40, BF16, True, ("mcast", 64)),
+    (96, 1024, 1024, BF16, False, ("tiled", 64)),  # a misaligned operand
+    (96, 17, 24, BF16, True, ("tiled", 64)),  # I not a multiple of 8
+    (64, 1024, 1024, F32, True, ("tf32x3", 64)),  # fp32 has no middle form
+    (65, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (96, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (127, 1024, 1024, F32, True, ("tf32x3", 64)),
+    (192, 1024, 1024, F32, True, ("tf32x3", 64)),
     (32, 512, 1024, F32, True, ("skinny", 32)),
     (33, 512, 1024, F32, True, ("tf32x3", 64)),
     (24, 512, 1024, F32, True, ("skinny", 32)),  # Show-and-Tell's layer 0, beam at bucket 8
@@ -121,16 +135,22 @@ def test_cell_design(B, I, H, dtype, aligned, want):
 
 
 def test_cell_tile_fills_the_card():
-    """Up to the crossover the small-batch form, with the smallest batch
-    tile that holds B (64 past it); above it the wgmma tile, which takes
-    the fewest rows of work per SM over the three tiles, for batches up to
-    1024; every design is a known name."""
-    crossover = tlstm.SKINNY_MAX_B[BF16]
+    """Three bf16 regimes by batch: up to ``SKINNY_MAX_B`` the small-batch
+    form, with the smallest batch tile that holds B (64 past it); up to
+    ``MCAST_MAX_B`` the cluster form, 64 rows; above it the wgmma tile,
+    which takes the fewest rows of work per SM over the three tiles, for
+    batches up to 1024; every design is a known name. fp32 has two: the
+    small-batch form, then tf32x3."""
+    crossover, middle = tlstm.SKINNY_MAX_B[BF16], tlstm.MCAST_MAX_B
+    assert crossover < middle
     for B in range(1, 1025, 7):
         design, bm = tlstm.cell_design(B, 1024, 1024, BF16, True)
         assert design in tlstm.CELL_DESIGNS
         if B <= crossover:
             assert design == "skinny" and bm == min([t for t in (8, 16, 32, 64) if t >= B] or [64]), B
+            continue
+        if B <= middle:
+            assert (design, bm) == ("mcast", tlstm._MCAST_BM), B
             continue
         assert design == "wgmma", B
 
@@ -138,10 +158,15 @@ def test_cell_tile_fills_the_card():
             return math.ceil(math.ceil(B / t) * 32 / tlstm.H100_SMS) * t
 
         assert rows_per_sm(bm) == min(rows_per_sm(t) for t in (64, 128, 192)), B
+    for B in range(1, 1025, 7):
+        design = tlstm.cell_design(B, 1024, 1024, F32, True)[0]
+        assert design == ("skinny" if B <= tlstm.SKINNY_MAX_B[F32] else "tf32x3"), B
     for dtype in (BF16, F32):
         X = tlstm.SKINNY_MAX_B[dtype]
         assert tlstm.cell_design(X, 1024, 1024, dtype, True)[0] == "skinny"
-        assert tlstm.cell_design(X + 1, 1024, 1024, dtype, True)[0] == ("wgmma" if dtype == BF16 else "tf32x3")
+        assert tlstm.cell_design(X + 1, 1024, 1024, dtype, True)[0] == ("mcast" if dtype == BF16 else "tf32x3")
+    assert tlstm.cell_design(middle, 1024, 1024, BF16, True)[0] == "mcast"
+    assert tlstm.cell_design(middle + 1, 1024, 1024, BF16, True)[0] == "wgmma"
 
 
 def test_tf32x3_entry_matches_the_wrapper():
@@ -180,6 +205,51 @@ def test_skinny_entry_matches_the_wrapper():
     assert tuple(cases) == tlstm._SKINNY_BT
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in sk and "fmaf" in sk
     assert "skinny" in tlstm.CELL_DESIGNS
+
+
+def test_mcast_entry_matches_the_wrapper():
+    """The entry point between the regimes is bound with the wrapper's
+    arguments (seven pointers, B, I, H, the stream-only flag, the stream),
+    and the source's tile is the planner's: 64 batch rows by 64 hidden
+    columns of one gate per block (one wgmma m64n64k16 per k16), a cluster
+    of the four gates' blocks whose [x|h] tiles arrive by TMA multicast, a
+    quarter issued by each, whose stages are handed back to every block of
+    the cluster, and whose z tiles meet through distributed shared memory."""
+    src = _source("lstm_cell.cu")
+    params = dict(_EXTERN.findall(src))["sat_lstm_cell_mcast"].split(",")
+    assert len(params) == 12 and params[10].split()[-1] == "stream_only"
+    assert cuda_lib._SIGNATURES["lstm_cell.cu"]["sat_lstm_cell_mcast"] == (
+        (cuda_lib.ctypes.c_void_p,) * 7 + (cuda_lib.ctypes.c_int,) * 4 + (cuda_lib.ctypes.c_void_p,))
+    mc = src[src.index("namespace mc {"):src.index("}  // namespace mc")]
+    assert f"constexpr int BM = {tlstm._MCAST_BM};" in mc
+    assert f"constexpr int BN = {tlstm._MCAST_BN};" in mc
+    assert f"constexpr int BK = {MCAST_BK};" in mc
+    assert f"constexpr int GATES = {tlstm._MCAST_GATES};" in mc
+    assert "constexpr int AROWS = BM / GATES;" in mc
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in mc
+    assert ".multicast::cluster" in mc and "mbarrier.arrive.shared::cluster" in mc
+    assert "attr[0].val.clusterDim.x = GATES;" in mc and "mapa.u64" in mc
+    assert "mcast" in tlstm.CELL_DESIGNS
+
+
+@pytest.mark.parametrize("B,H,blocks", [
+    (65, 1024, 128),  # one row past the small-batch form: two row blocks
+    (96, 1024, 128),  # beam-3 at bucket 32
+    (128, 1024, 128),  # greedy at bucket 128, the training batch
+    (128, 512, 64),
+    (192, 1024, 192),  # the eval driver's beam: three row blocks
+    (tlstm.MCAST_MAX_B, 1024, 192),
+    (70, 40, 8),  # one cluster of 64 columns, H=40 of them real
+])
+def test_mcast_grid_fills_the_card_in_one_wave(B, H, blocks):
+    """The mcast grid: 4 x H / 64 blocks per row block of 64, clusters of
+    four; up to the crossover the clusters of H=1024 (32 at B = 65-128, 48
+    at 129-192) fit the 62 that two blocks per SM allow at once (30 with
+    one: the reason for two)."""
+    per_row = tlstm._MCAST_GATES * -(-H // tlstm._MCAST_BN)
+    assert per_row % tlstm._MCAST_GATES == 0  # the cluster divides the grid
+    assert -(-B // tlstm._MCAST_BM) * per_row == blocks
+    assert blocks <= 2 * tlstm.H100_SMS and blocks // tlstm._MCAST_GATES <= 62
 
 
 # --- the beam attention: cluster size and load mode ---------------------------
@@ -993,3 +1063,73 @@ def test_skinny_emulation_meets_the_cell_tolerance(B, I, dtype):
     err = max(np.abs(hk - h64).max(), np.abs(ck - c64).max())
     scale = max(np.abs(h64).max(), np.abs(c64).max())
     assert err <= 1e-5 and err / scale <= 1e-5, err
+
+
+# --- the form between the regimes (mcast), emulated ----------------------------
+#
+# The mcast kernel's arithmetic in numpy: [x|h] in k-tiles of 64 bf16 (x's
+# tiles, then h's, zero-filled past I and H), each tile's four k16 slices in
+# order, one wgmma m64n64k16 each into the block's one fp32 accumulator: an
+# exact 16-term dot added to the running sum with the result rounded toward
+# zero (the tensor cores' accumulation, as the skinny and tf32x3 emulations
+# model it); then the bias and the gates in fp32.
+
+MCAST_BK = 64
+
+
+def emulate_mcast_z(x, h, w):
+    """z = [x, h] @ W as the mcast kernel forms it: x [B, I], h [B, H], W
+    [I + H, N] (columns of z) fp32 arrays holding bf16 values."""
+    B, I = x.shape
+    tiles = [(x[:, k:k + MCAST_BK], w[k:min(k + MCAST_BK, I)]) for k in range(0, I, MCAST_BK)]
+    tiles += [(h[:, k:k + MCAST_BK], w[I + k:I + k + MCAST_BK]) for k in range(0, h.shape[1], MCAST_BK)]
+    z = np.zeros((B, w.shape[1]), np.float32)
+    for a, wt in tiles:
+        a64, w64 = a.astype(np.float64), wt.astype(np.float64)
+        for j in range(0, a.shape[1], 16):
+            z = _toward_zero(z + a64[:, j:j + 16] @ w64[j:j + 16])
+    return z
+
+
+def emulate_mcast_cell(w, b, x, h, c, hidden=None):
+    """The mcast kernel's (h' before its rounding to bf16, c') at the hidden
+    columns ``hidden`` (all by default), fp32."""
+    H = h.shape[1]
+    hidden = np.arange(H) if hidden is None else hidden
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    return gates(emulate_mcast_z(x, h, w[:, zc]), b[zc], c[:, hidden], np.float32)
+
+
+# the middle regime's batches (beam-3 at bucket 32, greedy at bucket 128 and
+# the training batch, 3 x 64 for the eval driver's beam) at I=1024 and
+# Show-and-Tell's I=512, every 64th hidden column of each gate
+@pytest.mark.parametrize("I", [1024, 512])
+@pytest.mark.parametrize("B", [96, 128, 192])
+def test_mcast_emulation_meets_the_cell_tolerance(B, I):
+    """The mcast form's sums (one accumulator over 16-deep products, each
+    rounded toward zero) meet phase 3's fp32 limit, 1e-5 absolute and of
+    scale, against the float64 cell on the same bf16-rounded inputs: only
+    the final rounding of h' to bf16 is left, which the card's 2e-2 holds."""
+    H = 1024
+    w, b, x, h, c = _draw_cell(B, I, H, 2)
+    w, x, h = _bf16(w), _bf16(x), _bf16(h)
+    hidden = np.arange(0, H, 64)
+    zc = np.concatenate([g * H + hidden for g in range(4)])
+    a = np.concatenate([x, h], 1).astype(np.float64)
+    h64, c64 = gates(a @ w[:, zc].astype(np.float64), b[zc], c[:, hidden], np.float64)
+    hk, ck = emulate_mcast_cell(w, b, x, h, c, hidden)
+    err = max(np.abs(hk - h64).max(), np.abs(ck - c64).max())
+    scale = max(np.abs(h64).max(), np.abs(c64).max())
+    assert err <= 1e-5 and err / scale <= 1e-5, err
+
+
+def test_mcast_emulation_zero_fills_the_ragged_tile():
+    """I not a multiple of the 64-deep k-tile: x's last tile is short, and
+    the emulation's sums equal the same cell with x and W's rows padded by
+    zeros to the tile (TMA's fill), bit for bit."""
+    B, I, H = 7, 40, 16
+    w, b, x, h, c = _draw_cell(B, I, H, 4)
+    w, x, h = _bf16(w), _bf16(x), _bf16(h)
+    xp = np.concatenate([x, np.zeros((B, MCAST_BK - I), np.float32)], 1)
+    wp = np.concatenate([w[:I], np.zeros((MCAST_BK - I, 4 * H), np.float32), w[I:]], 0)
+    np.testing.assert_array_equal(emulate_mcast_z(x, h, w), emulate_mcast_z(xp, h, wp))

@@ -26,7 +26,7 @@ from show_and_tell_tpu_torch.ops import fused_attention as tfa
 from show_and_tell_tpu_torch.ops import fused_decode_attention as tfda
 from show_and_tell_tpu_torch.ops import lstm as tlstm
 from show_and_tell_tpu_torch.ops import tanh_probe as tprobe
-from test_torch_port_kernel_sources import _bf16, emulate_skinny_cell, emulate_tf32x3_cell
+from test_torch_port_kernel_sources import _bf16, emulate_mcast_cell, emulate_skinny_cell, emulate_tf32x3_cell
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_and_tell_tpu_torch")
@@ -553,13 +553,52 @@ def test_skinny_emulation_matches_jax_pallas_interpret(B, I, dt):
         np.testing.assert_allclose(_bf16(eh), np.asarray(jh, np.float32), atol=2.0 ** -8, rtol=0)
 
 
-@pytest.mark.parametrize("design", ["skinny", "wgmma", "tf32x3"])
+@pytest.mark.parametrize("design", ["skinny", "mcast", "wgmma", "tf32x3"])
 def test_cell_by_name_refuses_cpu_tensors(design):
     """The timing entry that launches a design by name is a kernel launcher:
     no plain path on CPU tensors, whichever design it names."""
     _, (p, x, h, c) = _cell_inputs(3, 8, 16, None, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tlstm.lstm_cell_by(design, p, x, h, c)
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_mcast_stream_refuses_cpu_tensors(tdt):
+    """The cluster form's loads alone, for timing, launch a kernel or raise:
+    no plain path on CPU tensors, in either type."""
+    _, (p, x, h, c) = _cell_inputs(96, 8, 16, None, tdt)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tlstm.mcast_stream(p, x, h, c)
+
+
+def test_mcast_clusters_needs_the_card():
+    """The query of how many mcast clusters run at once asks the CUDA
+    runtime; without a card it raises rather than guess."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py phase 4 prints the query")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        tlstm.mcast_clusters()
+
+
+# --- the cell between the regimes (mcast) ----------------------------------------
+
+
+@pytest.mark.parametrize("B,I", [(80, 40), (80, 512), (96, 40), (96, 512)])
+def test_mcast_emulation_matches_jax_pallas_interpret(B, I):
+    """The cluster form's arithmetic (numpy emulation: 64-deep k-tiles of x,
+    then of h, each in four 16-deep products into one fp32 accumulator)
+    against the JAX cell's Pallas kernel in interpret mode on the same bf16
+    inputs, H=128: c' (fp32) within 1e-5; h', which the JAX kernel hands
+    back rounded to bf16, within one bf16 step (2^-8 of |h'| <= 1) of the
+    emulation's rounded the same way, where the two fp32 values straddle a
+    rounding boundary."""
+    jin, _ = _cell_inputs(B, I, 128, jnp.bfloat16, torch.bfloat16, seed=5)
+    jlstm.set_pallas_enabled(True, interpret=True)
+    jh, jc = jlstm.lstm_cell(*jin)
+    jp, jx, jhid, jcell = jin
+    eh, ec = emulate_mcast_cell(*(np.asarray(a, np.float32) for a in (jp["w"], jp["b"], jx, jhid, jcell)))
+    np.testing.assert_allclose(ec, np.asarray(jc), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_bf16(eh), np.asarray(jh, np.float32), atol=2.0 ** -8, rtol=0)
 
 
 def test_tiled_by_name_refuses_cpu_tensors():
