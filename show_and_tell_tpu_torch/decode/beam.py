@@ -18,7 +18,9 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from show_and_tell_tpu_torch.decode.greedy import carry_device
+from show_and_tell_tpu_torch.decode.greedy import carry_device, count_step
+from show_and_tell_tpu_torch.obs import profiler
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.utils.vocab import END_ID, PAD_ID, START_ID
 
 NEG_INF = -1.0e9
@@ -51,6 +53,10 @@ def _gather_beams(tree: Any, parent: torch.Tensor, B: int, k: int) -> Any:
         return x
 
     return _map(tree, gather)
+
+
+def _unfinished(finished: torch.Tensor) -> torch.Tensor:
+    return (~finished).sum()
 
 
 def _length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -87,46 +93,58 @@ def beam_search(
         logits0 = first_logits.repeat_interleave(k, dim=0)  # [B*k, V]
     else:
         start = torch.full((B * k,), START_ID, dtype=torch.long, device=dev)
-        carry, logits0 = step_fn(carry, start)
+        if profiler.active is not None:
+            count_step(B * k)
+        with span("decode.step"):
+            carry, logits0 = step_fn(carry, start)
 
     V = logits0.shape[-1]
-    logp0 = torch.log_softmax(logits0.float(), dim=-1).reshape(B, k, V)
-    beam_mask = torch.full((1, k, 1), NEG_INF, device=dev)
-    beam_mask[:, 0] = 0.0
-    scores, flat = torch.topk((logp0 + beam_mask).reshape(B, k * V), k, dim=-1)
-    parent = torch.div(flat, V, rounding_mode="floor")
-    tok = flat % V
-    carry = _gather_beams(carry, parent, B, k)
-    finished = tok == END_ID
-    tokens = torch.full((B, k, max_len), PAD_ID, dtype=torch.long, device=dev)
-    tokens[:, :, 0] = tok
-    pad_only = torch.full((V,), NEG_INF, device=dev)
-    pad_only[PAD_ID] = 0.0
-
-    for t in range(1, max_len):
-        if early_stop and bool(finished.all()):
-            break
-        carry, logits = step_fn(carry, tok.reshape(B * k))
-        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
-        logp = torch.where(finished[:, :, None], pad_only, logp)
-        scores, flat = torch.topk((scores[:, :, None] + logp).reshape(B, k * V), k, dim=-1)
+    with span("decode.select"):
+        logp0 = torch.log_softmax(logits0.float(), dim=-1).reshape(B, k, V)
+        beam_mask = torch.full((1, k, 1), NEG_INF, device=dev)
+        beam_mask[:, 0] = 0.0
+        scores, flat = torch.topk((logp0 + beam_mask).reshape(B, k * V), k, dim=-1)
         parent = torch.div(flat, V, rounding_mode="floor")
         tok = flat % V
         carry = _gather_beams(carry, parent, B, k)
-        # histories follow their parents, then take the new column
-        tokens = torch.gather(tokens, 1, parent[:, :, None].expand(B, k, max_len))
-        finished = torch.gather(finished, 1, parent)
-        tokens[:, :, t] = torch.where(finished, PAD_ID, tok)
-        finished = finished | (tok == END_ID)
+        finished = tok == END_ID
+        tokens = torch.full((B, k, max_len), PAD_ID, dtype=torch.long, device=dev)
+        tokens[:, :, 0] = tok
+        pad_only = torch.full((V,), NEG_INF, device=dev)
+        pad_only[PAD_ID] = 0.0
+
+    for t in range(1, max_len):
+        if early_stop:
+            with span("decode.sync"):
+                done = bool(finished.all())
+            if done:
+                break
+        if profiler.active is not None:
+            count_step(B * k, _unfinished, finished)  # a new tensor every step
+        with span("decode.step"):
+            carry, logits = step_fn(carry, tok.reshape(B * k))
+        with span("decode.select"):
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
+            logp = torch.where(finished[:, :, None], pad_only, logp)
+            scores, flat = torch.topk((scores[:, :, None] + logp).reshape(B, k * V), k, dim=-1)
+            parent = torch.div(flat, V, rounding_mode="floor")
+            tok = flat % V
+            carry = _gather_beams(carry, parent, B, k)
+            # histories follow their parents, then take the new column
+            tokens = torch.gather(tokens, 1, parent[:, :, None].expand(B, k, max_len))
+            finished = torch.gather(finished, 1, parent)
+            tokens[:, :, t] = torch.where(finished, PAD_ID, tok)
+            finished = finished | (tok == END_ID)
 
     # Rank by length-normalised score. Lengths count every non-pad token:
     # <end> for finished beams, the full budget for unfinished ones.
-    lengths = (tokens != PAD_ID).sum(dim=-1)
-    norm = scores / _length_penalty(lengths, length_penalty)
-    if return_all:
-        order = torch.argsort(-norm, dim=-1, stable=True)
-        all_ids = torch.gather(tokens, 1, order[:, :, None].expand(B, k, max_len))
-        return all_ids, torch.gather(norm, 1, order)
-    best = norm.argmax(dim=-1)
-    best_ids = tokens[torch.arange(B, device=dev), best]
-    return best_ids, norm[torch.arange(B, device=dev), best]
+    with span("decode.select"):
+        lengths = (tokens != PAD_ID).sum(dim=-1)
+        norm = scores / _length_penalty(lengths, length_penalty)
+        if return_all:
+            order = torch.argsort(-norm, dim=-1, stable=True)
+            all_ids = torch.gather(tokens, 1, order[:, :, None].expand(B, k, max_len))
+            return all_ids, torch.gather(norm, 1, order)
+        best = norm.argmax(dim=-1)
+        best_ids = tokens[torch.arange(B, device=dev), best]
+        return best_ids, norm[torch.arange(B, device=dev), best]

@@ -11,6 +11,7 @@ import torch
 from show_and_tell_tpu_torch.decode.beam import beam_search
 from show_and_tell_tpu_torch.decode.greedy import greedy_decode
 from show_and_tell_tpu_torch.decode.sample import sample_decode
+from show_and_tell_tpu_torch.obs.profiler import span
 
 
 def decode_ids(
@@ -34,16 +35,18 @@ def decode_ids(
         raise ValueError("mode 'sample' needs a torch.Generator on the features' device")
     B = features.shape[0]
     k = cfg.beam_size if mode == "beam" else 1
-    step_fn, carry, first, tile = model.decode_state(features, beam_size=k)
-    if mode == "beam":
-        ids, _ = beam_search(
-            step_fn, carry, B, beam_size=k, max_len=cfg.max_decode_len,
-            length_penalty=cfg.length_penalty, first_logits=first, tile=tile,
-        )
-        return ids
-    if mode == "sample":
-        return sample_decode(
-            step_fn, carry, B, generator, cfg.max_decode_len,
-            temperature=temperature, top_k=top_k, top_p=top_p, first_logits=first, mesh=mesh,
-        )
-    return greedy_decode(step_fn, carry, B, cfg.max_decode_len, first_logits=first)
+    with span("decode"):
+        with span("decode.prepare"):
+            step_fn, carry, first, tile = model.decode_state(features, beam_size=k)
+        if mode == "beam":
+            ids, _ = beam_search(
+                step_fn, carry, B, beam_size=k, max_len=cfg.max_decode_len,
+                length_penalty=cfg.length_penalty, first_logits=first, tile=tile,
+            )
+            return ids
+        if mode == "sample":
+            return sample_decode(
+                step_fn, carry, B, generator, cfg.max_decode_len,
+                temperature=temperature, top_k=top_k, top_p=top_p, first_logits=first, mesh=mesh,
+            )
+        return greedy_decode(step_fn, carry, B, cfg.max_decode_len, first_logits=first)

@@ -15,6 +15,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from show_and_tell_tpu_torch.obs import profiler
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.utils.vocab import END_ID, PAD_ID, START_ID
 
 
@@ -29,6 +31,25 @@ def carry_device(carry: Any) -> torch.device:
         except ValueError:
             continue
     raise ValueError("carry holds no tensor")
+
+
+def count_step(rows: int, live: Optional[Callable] = None, arg: Any = None) -> None:
+    """Count one call of a decode's step function over ``rows`` rows in the
+    open recording (``obs.profiler``): ``decode.row_steps``, and
+    ``decode.live_row_steps``, the rows that had not emitted ``<end>``
+    before the call, as ``live(arg)`` when the recording closes (all
+    ``rows`` without ``live``)."""
+    rec = profiler.active
+    rec.counters["decode.row_steps"] += rows
+    if live is None:
+        rec.counters["decode.live_row_steps"] += rows
+    else:
+        rec.count_later("decode.live_row_steps", live, arg)
+
+
+def unended(emitted: torch.Tensor) -> torch.Tensor:
+    """How many rows of the tokens ``emitted`` [rows, t] hold no ``<end>``."""
+    return (~(emitted == END_ID).any(dim=1)).sum()
 
 
 def greedy_decode(
@@ -54,13 +75,20 @@ def greedy_decode(
     )
 
     for t in range(start_pos, max_len):
-        if early_stop and bool(finished.all()):
-            break
-        carry, logits = step_fn(carry, prev)
-        tok = logits.argmax(dim=-1)
         if early_stop:
-            tok = torch.where(finished, PAD_ID, tok)
-            finished = finished | (tok == END_ID)
-        out[:, t] = tok
+            with span("decode.sync"):
+                done = bool(finished.all())
+            if done:
+                break
+        if profiler.active is not None:
+            count_step(batch, unended, out[:, :t])  # columns before t are final
+        with span("decode.step"):
+            carry, logits = step_fn(carry, prev)
+        with span("decode.select"):
+            tok = logits.argmax(dim=-1)
+            if early_stop:
+                tok = torch.where(finished, PAD_ID, tok)
+                finished = finished | (tok == END_ID)
+            out[:, t] = tok
         prev = tok
     return out

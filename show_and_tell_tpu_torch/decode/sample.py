@@ -23,7 +23,9 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from show_and_tell_tpu_torch.decode.greedy import carry_device
+from show_and_tell_tpu_torch.decode.greedy import carry_device, count_step, unended
+from show_and_tell_tpu_torch.obs import profiler
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 from show_and_tell_tpu_torch.utils.vocab import START_ID
 
@@ -60,6 +62,10 @@ def _sample_from_logits(
     return (logits + gumbel).argmax(dim=-1)
 
 
+def _unended_rows(toks) -> torch.Tensor:
+    return unended(torch.stack(toks, dim=1))
+
+
 def sample_decode(
     step_fn: Callable[[Any, torch.Tensor], Tuple[Any, torch.Tensor]],
     carry: Any,
@@ -83,8 +89,12 @@ def sample_decode(
     else:
         prev = torch.full((batch,), START_ID, dtype=torch.long, device=carry_device(carry))
     while len(toks) < max_len:
-        carry, logits = step_fn(carry, prev)
-        prev = _sample_from_logits(generator, logits, temperature, top_k, top_p, mesh)
+        if profiler.active is not None:
+            count_step(batch, _unended_rows if toks else None, tuple(toks))
+        with span("decode.step"):
+            carry, logits = step_fn(carry, prev)
+        with span("decode.select"):
+            prev = _sample_from_logits(generator, logits, temperature, top_k, top_p, mesh)
         toks.append(prev)
     if not toks:
         return torch.zeros((batch, 0), dtype=torch.long, device=carry_device(carry))

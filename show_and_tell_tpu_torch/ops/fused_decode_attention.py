@@ -52,6 +52,7 @@ from typing import Tuple
 
 import torch
 
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.ops import cuda_lib
 from show_and_tell_tpu_torch.ops.fused_attention import (
     SMEM_LIMIT, attention_plan, attention_shapes, launch_attention, launch_onepass, row_vectors,
@@ -322,13 +323,14 @@ def attention_beam(
     """(context [B, K, D], alpha [B, K, L]) by the kernel ``variant`` names
     for CUDA tensors, the plain version for CPU tensors."""
     _check_variant(variant, VARIANTS)
-    if not ce.is_cuda:
-        return attention_beam_reference(ce, f, hp, watt)
-    if variant == "grid2":
-        return attention_beam_grid2(ce, f, hp, watt)
-    if variant.startswith("st_"):
-        return attention_beam_st(ce.transpose(1, 2).contiguous(), f, hp, watt)
-    return attention_beam_cluster(ce, f, hp, watt)
+    with span("op.attention_beam"):
+        if not ce.is_cuda:
+            return attention_beam_reference(ce, f, hp, watt)
+        if variant == "grid2":
+            return attention_beam_grid2(ce, f, hp, watt)
+        if variant.startswith("st_"):
+            return attention_beam_st(ce.transpose(1, 2).contiguous(), f, hp, watt)
+        return attention_beam_cluster(ce, f, hp, watt)
 
 
 def _scores_shapes(ce, hp, watt) -> Tuple[int, int, int, int]:

@@ -45,6 +45,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.ops import cuda_lib
 
 Params = Dict[str, torch.Tensor]
@@ -406,6 +407,7 @@ def lstm_cell(
     for CPU tensors; through ``LSTMCellFunction`` when an input requires
     grad."""
     w, b = params["w"], params["b"]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (w, b, x, h, c)):
-        return LSTMCellFunction.apply(w, b, x, h, c)
-    return _cell_forward(params, x, h, c)
+    with span("op.lstm_cell"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (w, b, x, h, c)):
+            return LSTMCellFunction.apply(w, b, x, h, c)
+        return _cell_forward(params, x, h, c)

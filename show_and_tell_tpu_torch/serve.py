@@ -37,6 +37,7 @@ from show_and_tell_tpu_torch.decode.beam import beam_search
 from show_and_tell_tpu_torch.decode.dispatch import decode_ids
 from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.models.registry import build_model
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.parallel import collectives
 from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
 from show_and_tell_tpu_torch.utils.device import resolve_device
@@ -189,9 +190,14 @@ class Captioner:
     def _features(self, chunk: np.ndarray) -> torch.Tensor:
         """The trunk's features of this rank's rows of a bucket chunk (all of
         them without a mesh)."""
-        chunk = chunk[mesh_lib.batch_rows(self.mesh, chunk.shape[0])]
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-        return self.model.backbone_features(eval_transform(x, self.cfg.crop_size))
+        with span("trunk"):
+            chunk = chunk[mesh_lib.batch_rows(self.mesh, chunk.shape[0])]
+            with span("trunk.copy"):
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            with span("trunk.transform"):
+                x = eval_transform(x, self.cfg.crop_size)
+            with span("trunk.backbone"):
+                return self.model.backbone_features(x)
 
     def _gathered(self, t: torch.Tensor) -> torch.Tensor:
         """A chunk's result from this rank's rows: every rank's, in order."""
@@ -221,10 +227,12 @@ class Captioner:
 
     def _decode_pending(self, pending) -> List[str]:
         host, done, live = pending
-        if done is not None:
-            done.synchronize()
-        # cut to the live rows before the string decode
-        return self.vocab.decode_batch(host.numpy()[:live])
+        with span("strings"):
+            with span("strings.wait"):
+                if done is not None:
+                    done.synchronize()
+            # cut to the live rows before the string decode
+            return self.vocab.decode_batch(host.numpy()[:live])
 
     # ------------------------------------------------------------------
 
@@ -306,7 +314,7 @@ class Captioner:
 
         Chunk i is dispatched before chunk i-1's ids are read back and turned
         into strings, so that the host's work overlaps the device's."""
-        with self._lock:
+        with self._lock, span("serve.call"):
             self._ensure_quantized(images_u8)
             n = images_u8.shape[0]
             base = self._sample_count
@@ -315,12 +323,13 @@ class Captioner:
             out: List[str] = []
             pending = None
             for i, chunk, live in self._chunks(images_u8):
-                gen = None
-                if mode == "sample":
-                    gen = self._keys.generator("sample", base + rng_offset + i, device=self.device)
-                host, done = self._to_host(self._ids(chunk, mode, gen))
-                if pending is not None:
-                    out.extend(self._decode_pending(pending))
+                with span("serve.chunk"):
+                    gen = None
+                    if mode == "sample":
+                        gen = self._keys.generator("sample", base + rng_offset + i, device=self.device)
+                    host, done = self._to_host(self._ids(chunk, mode, gen))
+                    if pending is not None:
+                        out.extend(self._decode_pending(pending))
                 pending = (host, done, live)
             if pending is not None:
                 out.extend(self._decode_pending(pending))
@@ -330,25 +339,29 @@ class Captioner:
         """Per image, the ``beam_size`` (caption, score) pairs of the beam,
         best first; the score is the length-normalised log-probability that
         ranks the beams."""
-        with self._lock:
+        with self._lock, span("serve.call"):
             self._ensure_quantized(images_u8)
             model, cfg = self.model, self.cfg
             out: List[List[Tuple[str, float]]] = []
             for _, chunk, live in self._chunks(images_u8):
-                with torch.inference_mode():
-                    feats = self._features(chunk)
-                    step_fn, carry, first, tile = model.decode_state(feats, beam_size=cfg.beam_size)
-                    ids, scores = beam_search(
-                        step_fn, carry, feats.shape[0], beam_size=cfg.beam_size,
-                        max_len=cfg.max_decode_len, length_penalty=cfg.length_penalty,
-                        first_logits=first, tile=tile, return_all=True,
-                    )
-                    ids, scores = self._gathered(ids), self._gathered(scores)
-                ids = ids[:live].cpu().numpy()  # [live, k, T]
-                scores = scores[:live].float().cpu().numpy()  # [live, k]
-                for r in range(live):
-                    caps = self.vocab.decode_batch(ids[r])
-                    out.append([(c, float(s)) for c, s in zip(caps, scores[r])])
+                with span("serve.chunk"):
+                    with torch.inference_mode():
+                        feats = self._features(chunk)
+                        with span("decode"):
+                            with span("decode.prepare"):
+                                step_fn, carry, first, tile = model.decode_state(feats, beam_size=cfg.beam_size)
+                            ids, scores = beam_search(
+                                step_fn, carry, feats.shape[0], beam_size=cfg.beam_size,
+                                max_len=cfg.max_decode_len, length_penalty=cfg.length_penalty,
+                                first_logits=first, tile=tile, return_all=True,
+                            )
+                        ids, scores = self._gathered(ids), self._gathered(scores)
+                    with span("strings"):
+                        ids = ids[:live].cpu().numpy()  # [live, k, T]
+                        scores = scores[:live].float().cpu().numpy()  # [live, k]
+                        for r in range(live):
+                            caps = self.vocab.decode_batch(ids[r])
+                            out.append([(c, float(s)) for c, s in zip(caps, scores[r])])
             return out
 
     def caption_with_attention(self, images_u8: np.ndarray) -> Tuple[List[str], np.ndarray]:
@@ -356,7 +369,7 @@ class Captioner:
         [N, H, W, 3] -> (captions, alphas [N, T, L] fp32) with T =
         ``max_decode_len`` and L the patch grid (196 at 224 px). Raises
         ``ValueError`` for a model without attention."""
-        with self._lock:
+        with self._lock, span("serve.call"):
             model, cfg = self.model, self.cfg
             if not hasattr(model, "greedy_with_attention"):
                 raise ValueError(f"model {cfg.model!r} exposes no attention maps (only show_attend_tell does)")
@@ -367,11 +380,15 @@ class Captioner:
             caps: List[str] = []
             alphas: List[np.ndarray] = []
             for _, chunk, live in self._chunks(images_u8):
-                with torch.inference_mode():
-                    ids, alpha = model.greedy_with_attention(self._features(chunk), max_len=cfg.max_decode_len)
-                    ids, alpha = self._gathered(ids), self._gathered(alpha)
-                caps.extend(self.vocab.decode_batch(ids[:live].cpu().numpy()))
-                alphas.append(alpha[:live].float().cpu().numpy())
+                with span("serve.chunk"):
+                    with torch.inference_mode():
+                        feats = self._features(chunk)
+                        with span("decode"):
+                            ids, alpha = model.greedy_with_attention(feats, max_len=cfg.max_decode_len)
+                        ids, alpha = self._gathered(ids), self._gathered(alpha)
+                    with span("strings"):
+                        caps.extend(self.vocab.decode_batch(ids[:live].cpu().numpy()))
+                        alphas.append(alpha[:live].float().cpu().numpy())
             return caps, np.concatenate(alphas, axis=0)
 
     def caption_paths(self, paths: Sequence[str], mode: str = "beam") -> List[str]:

@@ -50,6 +50,7 @@ import torch
 from show_and_tell_tpu_torch.ckpt.checkpoint import trainable_state_dict
 from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.data.transforms import eval_transform, train_transform
+from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
 from show_and_tell_tpu_torch.parallel.collectives import all_reduce
 from show_and_tell_tpu_torch.train.losses import masked_cross_entropy
@@ -176,7 +177,8 @@ class TrainStep:
 
     The phases are methods, so that a caller can time them apart:
     ``features`` (the trunk), ``forward``, ``backward`` and ``apply`` (the
-    optimizer).
+    optimizer). Each runs inside its span (``obs.profiler``), ``train.step``
+    around them all, and the finite read inside ``train.apply.sync``.
 
     On a mesh (``model.mesh``) the batch is this rank's rows of the global
     batch and ``generator`` draws the global batch's numbers on every rank;
@@ -193,13 +195,14 @@ class TrainStep:
         self.new_stats: Optional[Tensors] = None
 
     def features(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
-        if "features" in batch:
-            return batch["features"].to(self.device)
-        images = batch["images"].to(self.device)
-        with torch.no_grad():
-            if images.dtype == torch.uint8:
-                images = train_transform(generator or self.generator, images, self.cfg.crop_size, mesh=self.mesh)
-            return self.model.backbone_features(images)
+        with span("train.features"):
+            if "features" in batch:
+                return batch["features"].to(self.device)
+            images = batch["images"].to(self.device)
+            with torch.no_grad():
+                if images.dtype == torch.uint8:
+                    images = train_transform(generator or self.generator, images, self.cfg.crop_size, mesh=self.mesh)
+                return self.model.backbone_features(images)
 
     def forward(
         self, features: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -213,7 +216,7 @@ class TrainStep:
         if self.cfg.scheduled_sampling_start < 0:
             ss_prob = 0.0
         generator = generator or self.generator
-        with torch.enable_grad():
+        with span("train.forward"), torch.enable_grad():
             if hasattr(self.model, "encode"):  # Show-and-Tell: projection + BatchNorm
                 feat_embed, self.new_stats = self.model.encode(features, train=True)
                 logits, mask = self.model.decode_train(feat_embed, captions, lengths, generator, ss_prob)
@@ -224,12 +227,13 @@ class TrainStep:
     def backward(self, state: TrainState, loss: torch.Tensor) -> Tensors:
         """The gradients of ``loss`` by parameter name, over a mesh summed
         over the data group: the global batch's."""
-        names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[n] for n in names], allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, grads)}
-        if self.mesh is not None and self.mesh.distributed:
-            grads = _sum_over_data(grads, self.mesh)
-        return grads
+        with span("train.backward"):
+            names = list(state.params)
+            grads = torch.autograd.grad(loss, [state.params[n] for n in names], allow_unused=True)
+            grads = {n: torch.zeros_like(state.params[n]) if g is None else g for n, g in zip(names, grads)}
+            if self.mesh is not None and self.mesh.distributed:
+                grads = _sum_over_data(grads, self.mesh)
+            return grads
 
     def _grad_norm(self, grads: Tensors) -> torch.Tensor:
         """The global norm: the squares of the vocabulary slices summed over
@@ -244,48 +248,51 @@ class TrainStep:
     def apply(self, state: TrainState, grads: Tensors, lr: float) -> Tuple[TrainState, torch.Tensor]:
         """The update for one step's gradients, and the running statistics
         of the forward before it. Returns (state, grad_norm)."""
-        cfg = self.cfg
-        grad_norm = self._grad_norm(grads)
-        finite = bool(torch.isfinite(grad_norm))
-        opt = state.opt_state
-        new_stats, self.new_stats = self.new_stats, None
-        applied = True
-        if finite or not cfg.skip_nonfinite:
-            if new_stats is not None:
-                for name, v in state.batch_stats.items():
-                    v.copy_(new_stats[name])
-            k = cfg.grad_accum_steps
-            if k > 1:
-                n = opt["mini_step"]
-                for name, acc in opt["acc_grads"].items():
-                    acc.copy_(acc + (grads[name] - acc) / (n + 1))
-                applied = n == k - 1
-                if applied:
-                    _adam_update(cfg, opt, state.params, opt["acc_grads"], lr)
-                    for acc in opt["acc_grads"].values():
-                        acc.zero_()
-                opt["mini_step"] = (n + 1) % k
-            else:
-                _adam_update(cfg, opt, state.params, grads, lr)
-            if state.ema_params is not None and cfg.ema_decay > 0 and applied:
-                d = cfg.ema_decay
-                for name, e in state.ema_params.items():
-                    e.copy_(e * d + state.params[name] * (1.0 - d))
-        state.step += 1
-        return state, grad_norm
+        with span("train.apply"):
+            cfg = self.cfg
+            grad_norm = self._grad_norm(grads)
+            with span("train.apply.sync"):
+                finite = bool(torch.isfinite(grad_norm))
+            opt = state.opt_state
+            new_stats, self.new_stats = self.new_stats, None
+            applied = True
+            if finite or not cfg.skip_nonfinite:
+                if new_stats is not None:
+                    for name, v in state.batch_stats.items():
+                        v.copy_(new_stats[name])
+                k = cfg.grad_accum_steps
+                if k > 1:
+                    n = opt["mini_step"]
+                    for name, acc in opt["acc_grads"].items():
+                        acc.copy_(acc + (grads[name] - acc) / (n + 1))
+                    applied = n == k - 1
+                    if applied:
+                        _adam_update(cfg, opt, state.params, opt["acc_grads"], lr)
+                        for acc in opt["acc_grads"].values():
+                            acc.zero_()
+                    opt["mini_step"] = (n + 1) % k
+                else:
+                    _adam_update(cfg, opt, state.params, grads, lr)
+                if state.ema_params is not None and cfg.ema_decay > 0 and applied:
+                    d = cfg.ema_decay
+                    for name, e in state.ema_params.items():
+                        e.copy_(e * d + state.params[name] * (1.0 - d))
+            state.step += 1
+            return state, grad_norm
 
     def __call__(
         self, state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
         ss_prob: Union[float, torch.Tensor] = 0.0, generator: Optional[torch.Generator] = None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        features = self.features(batch, generator)
-        loss, count = self.forward(features, batch, ss_prob, generator)
-        grads = self.backward(state, loss)
-        state, grad_norm = self.apply(state, grads, lr)
-        loss = loss.detach()
-        if self.mesh is not None and self.mesh.distributed:
-            loss = all_reduce(loss, self.mesh.data_group)
-        metrics = {"loss": loss, "perplexity": torch.exp(loss), "tokens": count, "grad_norm": grad_norm}
+        with span("train.step"):
+            features = self.features(batch, generator)
+            loss, count = self.forward(features, batch, ss_prob, generator)
+            grads = self.backward(state, loss)
+            state, grad_norm = self.apply(state, grads, lr)
+            loss = loss.detach()
+            if self.mesh is not None and self.mesh.distributed:
+                loss = all_reduce(loss, self.mesh.data_group)
+            metrics = {"loss": loss, "perplexity": torch.exp(loss), "tokens": count, "grad_norm": grad_norm}
         return state, metrics
 
 

@@ -497,7 +497,7 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     (name,) = os.listdir(d)
     with open(os.path.join(d, name)) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "region" for e in events)
+    assert any(e.get("name") == "show_and_tell.region" for e in events)
 
 
 def test_trainer_profiles_the_asked_step(tiny, tmp_path):
