@@ -13,7 +13,9 @@ Trees and names are the JAX package's (``models/encoders.py``); conv
 weights are [out, in, kh, kw]. The convolutions run NCHW through cuDNN; the
 input arrives NHWC, so its NCHW view is channels-last in memory, and the
 ResNet and Inception convolutions take their frozen BatchNorm folded in
-(``layers.conv_bn``). Each trunk has one wiring definition; Inception's
+(``layers.folded_conv_bn``). Each convolution followed by a bias, a ReLU
+or a residual add is one ``layers.conv_relu`` call, which on the card puts
+them into cuDNN's epilogue. Each trunk has one wiring definition; Inception's
 takes a ``basic=`` hook, how each BasicConv2d node is applied, which the
 int8 trunk's calibration replay and forward (``models/quantize.py``) fill.
 
@@ -27,12 +29,15 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from show_and_tell_tpu_torch.models.layers import (
     avg_pool,
-    conv2d,
-    conv_bn,
+    conv_bn_relu,
+    conv_relu,
+    folded_conv_bn,
+    fuses_epilogue,
     global_avg_pool,
     init_bn,
     init_conv,
@@ -90,7 +95,8 @@ def vgg16_features(params: Params, images: torch.Tensor) -> torch.Tensor:
         if ch == "M":
             x = max_pool(x, 2, 2)
         else:
-            x = torch.relu(conv2d(params["convs"][ci], x, stride=1, padding=1))
+            p = params["convs"][ci]
+            x = conv_relu(x, p["w"].to(x.dtype), p["b"].to(x.dtype), padding=1)
             ci += 1
     b, c, h, w = x.shape
     return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
@@ -192,18 +198,27 @@ def init_resnet152(generator: Gen = None, dtype: torch.dtype = torch.float32) ->
 
 
 def _bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
-    y = torch.relu_(conv_bn(p["conv1"], p["bn1"], x))
-    y = torch.relu_(conv_bn(p["conv2"], p["bn2"], y, stride=stride, padding=1))
-    y = conv_bn(p["conv3"], p["bn3"], y)
+    """``relu(bn3(conv3(y)) + shortcut)``, conv3 and the residual add one
+    ``conv_relu`` call. Where that call fuses, the shortcut's convolution
+    runs without bias and its BatchNorm shift joins conv3's bias in fp32
+    before the one cast, so no pass of its own is left in the block."""
+    y = conv_bn_relu(p["conv1"], p["bn1"], x)
+    y = conv_bn_relu(p["conv2"], p["bn2"], y, stride=stride, padding=1)
+    w, shift = folded_conv_bn(p["conv3"], p["bn3"], y)
     if "down_conv" in p:
-        x = conv_bn(p["down_conv"], p["down_bn"], x, stride=stride)
-    return torch.relu_(y.add_(x))
+        wd, dshift = folded_conv_bn(p["down_conv"], p["down_bn"], x)
+        if fuses_epilogue(y, w, wd):
+            x = F.conv2d(x, wd, None, stride=stride)
+            shift = shift + dshift
+        else:
+            x = F.conv2d(x, wd, dshift.to(x.dtype), stride=stride)
+    return conv_relu(y, w, shift.to(y.dtype), z=x)
 
 
 def resnet152_features(params: Params, images: torch.Tensor) -> torch.Tensor:
     """images [B, H, W, 3] (NHWC, 224 px) -> pooled [B, 2048]."""
     x = images.permute(0, 3, 1, 2)
-    x = torch.relu_(conv_bn(params["stem_conv"], params["stem_bn"], x, stride=2, padding=3))
+    x = conv_bn_relu(params["stem_conv"], params["stem_bn"], x, stride=2, padding=3)
     x = max_pool(x, 3, 2, padding=1)
     for li, blocks in enumerate(params["layers"]):
         for bi, blk in enumerate(blocks):
@@ -323,7 +338,7 @@ def init_inception_v3(generator: Gen = None, dtype: torch.dtype = torch.float32)
 
 def _basic(p: Params, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     """torchvision BasicConv2d: conv (no bias) -> BatchNorm (eps 1e-3) -> ReLU."""
-    return torch.relu_(conv_bn(p["conv"], p["bn"], x, stride, padding, eps=1e-3))
+    return conv_bn_relu(p["conv"], p["bn"], x, stride, padding, eps=1e-3)
 
 
 def _branch_pool(p: Params, x: torch.Tensor, basic=_basic) -> torch.Tensor:

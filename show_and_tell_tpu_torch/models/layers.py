@@ -3,10 +3,10 @@
 Parameters keep the JAX package's layouts where a public function sees them:
 dense weights are [in, out] (``y = x @ w + b``). Convolution weights are in
 PyTorch's [out, in, kh, kw] layout and activations are NCHW inside the
-trunk (``conv2d``, ``conv_bn``, the pools); ``ckpt/convert.py`` moves the
-JAX package's HWIO weights across. BatchNorm parameters are ``{scale, bias,
-mean, var}``; ``batch_norm_inference`` and ``batch_norm_train`` normalise
-the last axis, as the JAX package's do.
+trunk (``conv2d``, ``conv_bn``, ``conv_relu``, the pools);
+``ckpt/convert.py`` moves the JAX package's HWIO weights across. BatchNorm
+parameters are ``{scale, bias, mean, var}``; ``batch_norm_inference`` and
+``batch_norm_train`` normalise the last axis, as the JAX package's do.
 
 Under a mesh (``parallel/mesh.py``) the embedding and the output head may
 hold this rank's slice of the vocabulary (``embedding_lookup``,
@@ -17,11 +17,13 @@ global batch, and dropout draws its mask for the global batch.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from show_and_tell_tpu_torch.obs import profiler
 from show_and_tell_tpu_torch.parallel import collectives
 from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 
@@ -127,18 +129,92 @@ def batch_norm_train(
     return y, new_stats
 
 
-def conv_bn(conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5) -> torch.Tensor:
-    """``batch_norm_inference(bn, conv2d(conv, x))`` on NCHW for a conv
-    without bias (the ResNet and Inception trunks), with the
-    frozen BatchNorm folded into the convolution: weights scaled per output
-    channel in fp32, then cast to x's dtype in x's memory format, and the
-    BatchNorm's shift as the bias. One cuDNN call instead of a convolution
-    and two passes over its output; the same function up to rounding."""
-    scale, bias = _bn_affine(bn, eps)
+def folded_conv_bn(conv: Params, bn: Params, x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frozen BatchNorm folded into a convolution without bias: ``(w,
+    shift)``, the weight scaled per output channel in fp32, then cast to x's
+    dtype in x's memory format, and the BatchNorm's shift, still in fp32."""
+    scale, shift = _bn_affine(bn, eps)
     w = (conv["w"].float() * scale[:, None, None, None]).to(x.dtype)
     if x.is_contiguous(memory_format=torch.channels_last):
         w = w.contiguous(memory_format=torch.channels_last)
-    return F.conv2d(x, w, bias.to(x.dtype), stride=stride, padding=padding)
+    return w, shift
+
+
+def conv_bn(conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5) -> torch.Tensor:
+    """``batch_norm_inference(bn, conv2d(conv, x))`` on NCHW for a conv
+    without bias (the ResNet and Inception trunks), with the
+    frozen BatchNorm folded into the convolution (``folded_conv_bn``) and
+    its shift as the bias. One cuDNN call instead of a convolution and two
+    passes over its output; the same function up to rounding."""
+    w, shift = folded_conv_bn(conv, bn, x, eps)
+    return F.conv2d(x, w, shift.to(x.dtype), stride=stride, padding=padding)
+
+
+def fuses_epilogue(x: torch.Tensor, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether ``conv_relu`` on these tensors takes cuDNN's fused call: x
+    lies on a CUDA card and autograd does not need the call (the fused ops
+    have no derivative)."""
+    if not x.is_cuda:
+        return False
+    return not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *tensors)))
+
+
+#: what cuDNN's errors say where it has no fused engine for a call: the
+#: frontend's "unable to find an engine" and the legacy API's status
+_NO_ENGINE = ("unable to find an engine", "CUDNN_STATUS_NOT_SUPPORTED")
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def conv_relu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=1, padding=0, z: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``relu(conv2d(x, w, b) + z)`` on NCHW (``z``, the residual, optional),
+    with w, b and z in x's dtype.
+
+    Where ``fuses_epilogue`` holds, one cuDNN call applies the bias, the
+    residual add and the ReLU in the convolution's epilogue, while the
+    output is still in registers (``torch.cudnn_convolution_relu``,
+    ``torch.cudnn_convolution_add_relu``; both read cuDNN's TF32 setting as
+    ``F.conv2d`` does). Elsewhere, and for a call for which cuDNN has no
+    fused engine (a ``RuntimeWarning`` names its shapes; any other error
+    propagates), the convolution with its bias, then the add and the ReLU
+    as passes of their own. Inside a recording (``obs.profiler``) each call
+    counts ``trunk.convs``, and ``trunk.fused_convs`` when it fused."""
+    fused = fuses_epilogue(x, w, b, z)
+    if fused:
+        try:
+            if z is None:
+                y = torch.cudnn_convolution_relu(x, w, b, _pair(stride), _pair(padding), (1, 1), 1)
+            else:
+                y = torch.cudnn_convolution_add_relu(x, w, z, 1.0, b, _pair(stride), _pair(padding), (1, 1), 1)
+        except RuntimeError as e:
+            if not any(m in str(e) for m in _NO_ENGINE):
+                raise
+            warnings.warn(
+                f"cuDNN has no fused engine for conv_relu on {x.dtype} {tuple(x.shape)} by {tuple(w.shape)}, "
+                f"stride {stride}, padding {padding}, residual {z is not None}: it runs as separate passes",
+                RuntimeWarning,
+            )
+            fused = False
+    rec = profiler.active
+    if rec is not None:
+        rec.counters["trunk.convs"] += 1
+        rec.counters["trunk.fused_convs"] += int(fused)
+    if fused:
+        return y
+    y = F.conv2d(x, w, b, stride=stride, padding=padding)
+    if z is not None:
+        y = y.add_(z)
+    return torch.relu_(y)
+
+
+def conv_bn_relu(conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5) -> torch.Tensor:
+    """``relu(conv_bn(conv, bn, x))`` through ``conv_relu``."""
+    w, shift = folded_conv_bn(conv, bn, x, eps)
+    return conv_relu(x, w, shift.to(x.dtype), stride, padding)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -348,7 +348,7 @@ def quantize_inception_v3(frozen: Params, calib_images: torch.Tensor, headroom: 
     def tracking(node, x, stride=1, padding=0):
         order.append(node)
         tracked.append(x.abs().amax())
-        return encoders._basic(node, x, stride, padding)
+        return _float_basic(node, x, stride, padding)
 
     encoders.inception_v3_features(frozen, calib_images.float(), basic=tracking)
     absmax = _absmax(tracked)
@@ -366,11 +366,17 @@ def quantize_inception_v3(frozen: Params, calib_images: torch.Tensor, headroom: 
     return {"qinception": qmap(frozen)}
 
 
+def _float_basic(node: Params, x: torch.Tensor, stride: int = 1, padding=0) -> torch.Tensor:
+    """A float BasicConv2d as separate passes (``conv_bn``, then ReLU): the
+    int8 trunk keeps them out of cuDNN's fused epilogue."""
+    return torch.relu_(conv_bn(node["conv"], node["bn"], x, stride, padding, eps=_INCEPTION_BN_EPS))
+
+
 def _qbasic(node: Params, x: torch.Tensor, stride: int = 1, padding=0) -> torch.Tensor:
     """An int8 BasicConv2d: the folded int8 conv, the rescale, ReLU. The
-    float stem falls through to ``encoders._basic``."""
+    float stem falls through to ``_float_basic``."""
     if "wq" not in node:
-        return encoders._basic(node, x, stride, padding)
+        return _float_basic(node, x, stride, padding)
     return torch.relu_(_qconv_s(node, x, stride=stride, padding=padding))
 
 

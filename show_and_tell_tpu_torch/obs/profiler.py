@@ -27,6 +27,10 @@ call of a decode's step function computed, and ``decode.live_row_steps``,
 those among them that had not emitted ``<end>`` before the call. The second
 is reduced when the recording closes, from references to the decode's own
 tensors, so that counting adds no device work and no synchronisation.
+``trunk.convs`` counts the trunk's convolutions that carry an epilogue (a
+bias, a ReLU, a residual add: each ``models.layers.conv_relu`` call), and
+``trunk.fused_convs`` those among them that ran it inside cuDNN's fused
+call.
 
 Usage::
 
