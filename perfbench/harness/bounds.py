@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: published H100 peaks, the least time of a
-kernel call from its shapes, and the model FLOPs of the work a window did.
+"""The yardstick's arithmetic: published H100 peaks and the least time of a
+kernel call from its shapes. A model's FLOPs are its plug-in's
+(``perfbench/models``).
 
 ``cell_bound``, ``attention_bound`` and ``_bound`` are frozen copies of
 ``chip_smoke.py``'s (the kernel table of ``PERF.md`` uses them): each input
@@ -61,71 +62,17 @@ def attention_bound(B, K, L, D, dtype) -> float:
     return _bound(ops, nbytes, torch.float32, sfu)
 
 
-# --- model FLOPs (multiply-adds count 2) ----------------------------------------
-
-_VGG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512]
+# --- one call of a kernel's entry point, from its arguments -------------------
 
 
-def vgg16_conv5_2_flops(crop: int) -> float:
-    """One image through VGG16 to conv5_2."""
-    total, cin, side = 0.0, 3, crop
-    for ch in _VGG:
-        if ch == "M":
-            side //= 2
-            continue
-        total += 2.0 * side * side * ch * cin * 9
-        cin = ch
-    return total
+def lstm_cell_call(params, x, h, c) -> float:
+    """``cell_bound`` of one ``ops.lstm.lstm_cell(params, x, h, c)`` call."""
+    B, I = x.shape
+    return cell_bound(B, I, h.shape[1], x.dtype)
 
 
-def resnet152_flops(crop: int) -> float:
-    """One image through ResNet-152 (v1, stride on the 3x3) to the pool."""
-    side = (crop + 2 * 3 - 7) // 2 + 1
-    total = 2.0 * side * side * 64 * 3 * 49
-    side = (side + 2 - 3) // 2 + 1
-    cin = 64
-    for li, (n, width) in enumerate(zip((3, 8, 36, 3), (64, 128, 256, 512))):
-        for bi in range(n):
-            stride = 2 if (li > 0 and bi == 0) else 1
-            out_side = (side - 1) // stride + 1
-            total += 2.0 * side * side * cin * width  # conv1 1x1
-            total += 2.0 * out_side * out_side * width * width * 9  # conv2 3x3
-            total += 2.0 * out_side * out_side * width * width * 4  # conv3 1x1
-            if stride != 1 or cin != width * 4:
-                total += 2.0 * out_side * out_side * cin * width * 4
-            cin, side = width * 4, out_side
-    return total
-
-
-def trunk_flops(cfg) -> float:
-    if cfg.model == "show_attend_tell":
-        return vgg16_conv5_2_flops(cfg.crop_size)
-    return resnet152_flops(cfg.crop_size)
-
-
-def grid(cfg) -> int:
-    return (cfg.crop_size // 16) ** 2
-
-
-def image_flops(cfg, vocab: int) -> float:
-    """Once per image before the first word: SAT's ctx_enc and h0, c0;
-    Show-and-Tell's projection."""
-    E, H = cfg.embed_size, cfg.hidden_size
-    if cfg.model == "show_attend_tell":
-        L, D = grid(cfg), 512
-        return 2.0 * L * D * D + 2 * 2.0 * D * H
-    return 2.0 * 2048 * E
-
-
-def step_flops(cfg, vocab: int) -> float:
-    """One decoder step of one row (one word): attention, the cells, the
-    head."""
-    E, H, V = cfg.embed_size, cfg.hidden_size, vocab
-    if cfg.model == "show_attend_tell":
-        L, D = grid(cfg), 512
-        attention = 2.0 * H * D + 5.0 * L * D
-        cell = 2.0 * (E + D + H) * 4 * H
-        head = 2.0 * D * E + 2.0 * H * E + 2.0 * E * V
-        return attention + cell + head
-    cells = sum(2.0 * ((E if i == 0 else H) + H) * 4 * H for i in range(cfg.num_layers))
-    return cells + 2.0 * H * V
+def attention_beam_call(ce, f, hp, w_att, *args, **kw) -> float:
+    """``attention_bound`` of one ``ops.fused_decode_attention.attention_beam``
+    call: ce, f [B, L, D], hp [B, K, D]."""
+    B, L, D = ce.shape
+    return attention_bound(B, hp.shape[1], L, D, ce.dtype)

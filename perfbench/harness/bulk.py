@@ -17,7 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from harness import bounds, cell as cell_lib, instrument, served, traffic
+from harness import cell as cell_lib, instrument, plugins, served, traffic
 from harness.trace import Run, profile_window
 
 
@@ -33,6 +33,7 @@ class Driver:
         from show_and_tell_tpu_torch.serve import Captioner
 
         cfg = self.cfg = self.cell.port_config()
+        self.wraps = plugins.of(cfg)[0].WRAPS
         self.model, self.weights = cell_lib.build_model(self.cell, self.seed, self.device)
         self.cap = Captioner(cfg, self.model, None, self.cell.vocabulary(), device=self.device)
         n, px = self.cell.mix_value("images_per_call"), self.cell.mix_value("image_px")
@@ -68,24 +69,22 @@ class Driver:
         trunk's CUDA events); with the decode timed to a synchronise
         (``decode_ms``); and under the profiler (the device timeline and the
         kernels' calls)."""
-        run, n = self.run, self.cell.mix_value("traced_calls")
-        cfg, V = self.cfg, self.cell.vocab_size
-        with instrument.serving(run, decode_timer=False):
+        run, n, wraps = self.run, self.cell.mix_value("traced_calls"), self.wraps
+        with instrument.serving(run, wraps, decode_timer=False):
             t0 = time.perf_counter()
             for _ in range(n):
                 self._call()
             run.unprofiled_s = time.perf_counter() - t0
         run.settle()
-        flops = (run.counters["trunk_images"] * (bounds.trunk_flops(cfg) + bounds.image_flops(cfg, V))
-                 + run.counters["decode_row_cells"] * bounds.step_flops(cfg, V) / cfg.num_layers)
-        with instrument.serving(run):
+        flops = plugins.model_flops(self.cfg, self.cell.vocab_size, run.counters)
+        with instrument.serving(run, wraps):
             for _ in range(n):
                 self._call()
         run.settle()
         timers = dict(run.timers)
         # the profiled calls' own counts, for the rooflines
         run.counters = type(run.counters)(float, model_flops=flops)
-        with instrument.serving(run, decode_timer=False):
+        with instrument.serving(run, wraps, decode_timer=False):
             run.profile = profile_window(lambda: [self._call() for _ in range(n)])
         run.settle()
         run.timers.clear()

@@ -89,13 +89,18 @@ def driver(cell: Cell, seed: int, device, run):
 
 def build_model(cell: Cell, seed: int, device):
     """The program's model with the benchmark's weights for ``seed``:
-    ``(model, weights)``, the weights a dict the reference reads too."""
+    ``(model, weights)``, the weights what the reference reads: a dict, or
+    where the configuration asks for its tensors one by one
+    (``per_tensor``), a mapping that draws each again when read."""
     from show_and_tell_tpu_torch.models.registry import build_model as port_build
 
     cfg = cell.port_config()
     model = port_build(cfg, cell.vocab_size, device=device)
-    w = weights.make(weights.shapes_of(model.state_dict()), traffic.substream(seed, traffic.WEIGHTS), device,
-                     **{**cell.config.get("weights", {}), **cell.overrides.get("weights", {})})
+    opts = {**cell.config.get("weights", {}), **cell.overrides.get("weights", {})}
+    wseed = traffic.substream(seed, traffic.WEIGHTS)
+    if opts.pop("per_tensor", False):
+        return model, weights.fill(model.state_dict(), wseed, device, **opts)
+    w = weights.make(weights.shapes_of(model.state_dict()), wseed, device, **opts)
     model.load_state_dict(w)
     return model, w
 

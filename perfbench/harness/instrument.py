@@ -3,9 +3,11 @@
 The benchmark wraps the program's entry points where its callers look them
 up, as ``chip_smoke.plain_ops`` does, and undoes it on exit:
 
-- ``ops.lstm.lstm_cell`` and ``ops.fused_decode_attention.attention_beam``
-  as the models call them: a ``record_function`` range each, and the least
-  time of the call from its shapes (``bounds``), whatever implements it;
+- the kernels' entry points that the model's plug-in lists (``WRAPS``, each
+  a ``plugins.Wrap``), as the model calls them: a ``record_function`` range
+  each, its calls, the least time of the call from its shapes, whatever
+  implements it, and the counters the plug-in adds (the LSTM cell's
+  ``decode_row_cells``, which its ``model_flops`` reads);
 - ``serve.Captioner._features`` (the transform and the trunk of a chunk):
   a range and CUDA events (``trunk_ms``), and the images it took;
 - ``serve.decode_ids`` (the decode of a chunk): a range and the host clock
@@ -19,11 +21,13 @@ The untraced runs that give the end-to-end metrics run without any of it.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import time
+from typing import Sequence
 
 import torch
 
-from harness import bounds
+from harness.plugins import Wrap
 from harness.trace import Run, span
 
 
@@ -37,27 +41,19 @@ def patched(obj, name: str, make):
         setattr(obj, name, orig)
 
 
-def _cell(run: Run, orig):
-    def lstm_cell(params, x, h, c):
-        with span("lstm_cell"):
-            B, I = x.shape
-            run.counters["lstm_cell_calls"] += 1
-            run.counters["lstm_cell_bound_s"] += bounds.cell_bound(B, I, h.shape[1], x.dtype) / 1e3
-            run.counters["decode_row_cells"] += B
-            return orig(params, x, h, c)
+def _kernel(run: Run, wrap: Wrap, orig):
+    calls, bound_s = wrap.span + "_calls", wrap.span + "_bound_s"
 
-    return lstm_cell
+    def kernel(*args, **kw):
+        with span(wrap.span):
+            run.counters[calls] += 1
+            run.counters[bound_s] += wrap.bound(*args, **kw) / 1e3
+            if wrap.adds is not None:
+                for name, n in wrap.adds(*args, **kw).items():
+                    run.counters[name] += n
+            return orig(*args, **kw)
 
-
-def _attention(run: Run, orig):
-    def attention_beam(ce, f, hp, watt, *args, **kw):
-        with span("attention_beam"):
-            B, L, D = ce.shape
-            run.counters["attention_beam_calls"] += 1
-            run.counters["attention_beam_bound_s"] += bounds.attention_bound(B, hp.shape[1], L, D, ce.dtype) / 1e3
-            return orig(ce, f, hp, watt, *args, **kw)
-
-    return attention_beam
+    return kernel
 
 
 def _features(run: Run, orig):
@@ -94,18 +90,18 @@ def _ranged(label: str):
 
 
 @contextlib.contextmanager
-def serving(run: Run, decode_timer: bool = True):
-    """Every wrap above, for the duration; ``decode_timer`` False leaves out
-    the decode's synchronise (and so its timer), the one wrap that changes
-    how the host and the device overlap."""
+def serving(run: Run, wraps: Sequence[Wrap], decode_timer: bool = True):
+    """Every wrap above, and each of the model's ``wraps``, for the duration;
+    ``decode_timer`` False leaves out the decode's synchronise (and so its
+    timer), the one wrap that changes how the host and the device
+    overlap."""
     from show_and_tell_tpu_torch import serve
-    from show_and_tell_tpu_torch.models import show_attend_tell as sat
-    from show_and_tell_tpu_torch.models import show_tell as st
 
     with contextlib.ExitStack() as stack:
-        for mod in (sat, st):
-            stack.enter_context(patched(mod, "lstm_cell", lambda o: _cell(run, o)))
-        stack.enter_context(patched(sat, "attention_beam", lambda o: _attention(run, o)))
+        for wrap in wraps:
+            module, name = wrap.target.split(":")
+            stack.enter_context(patched(importlib.import_module(module), name,
+                                        lambda o, w=wrap: _kernel(run, w, o)))
         stack.enter_context(patched(serve.Captioner, "_features", lambda o: _features(run, o)))
         stack.enter_context(patched(serve, "decode_ids", (lambda o: _decode(run, o)) if decode_timer
                                     else _ranged("decode")))

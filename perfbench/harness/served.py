@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from harness import cell as cell_lib
+from harness import cell as cell_lib, plugins
 from reference import models as ref
 
 PAD_ID, END_ID, UNK_ID = 0, 2, 3
@@ -171,7 +171,7 @@ def judge(cfg, weights, images: torch.Tensor, captions: List[str],
     final = torch.from_numpy(np.stack([records[i][1] for i in good]))
     prog = torch.from_numpy(np.stack([records[i][2] for i in good])).double()
     with cell_lib.full_fp32():
-        net = ref.build(cfg.model, weights, layers=cfg.num_layers)
+        net = plugins.reference(cfg, weights)
         g, ids, logp = ref.replay(net, ref.features_of(net, images[good], cfg.crop_size), par, tok)
     g, ids, logp = g.double().cpu(), ids.cpu(), logp.double().cpu()
     # the served caption is the best final beam; no other outscores it
@@ -187,7 +187,7 @@ def control(cfg, weights, images: torch.Tensor, q) -> Dict[str, float]:
     """The same numbers for the reference put in the program's place and
     computed under ``q``: its beam search's captions, choices and scores."""
     with cell_lib.full_fp32():
-        low = ref.build(cfg.model, weights, q=q, layers=cfg.num_layers)
+        low = plugins.reference(cfg, weights, q)
         ids, scores, par, tok = ref.beam_search(low, ref.features_of(low, images, cfg.crop_size), cfg.beam_size,
                                                 cfg.max_decode_len)
         del low

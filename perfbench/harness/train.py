@@ -27,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from harness import bounds, cell as cell_lib, traffic
+from harness import cell as cell_lib, plugins, traffic
 from harness.trace import Run, profile_window, span
 from reference import train as ref_train
 
@@ -78,6 +78,9 @@ class Driver:
 
         cfg = self.cfg = self.cell.port_config()
         mix = self.cell.mix_value
+        net, trunk = plugins.of(cfg)
+        self.train_step_flops = net.train_step_flops
+        self.trunk_flops = trunk.flops(cfg)
         self.model, self.weights = cell_lib.build_model(self.cell, self.seed, self.device)
         self.state = make_train_state(cfg, self.model)
         self.step = make_train_step(self.model, cfg)
@@ -171,8 +174,7 @@ class Driver:
             for _ in range(n):
                 with span("step"):
                     self._step()
-                flops += B * (bounds.trunk_flops(cfg) + 3 * bounds.image_flops(cfg, V)
-                              + 3 * (self.last_T - 1) * bounds.step_flops(cfg, V))
+                flops += self.train_step_flops(cfg, V, B, self.last_T, self.trunk_flops)
             return flops
 
         step.features, step.backward = timed_features, timed_backward
@@ -207,7 +209,8 @@ class Driver:
         batches = [tuple(self.host[j][k].to(self.device) for k in ("images", "captions", "lengths"))
                    for j in self.check_batches]
         with cell_lib.full_fp32():
-            return ref_train.train(self.weights, batches, g, cfg.crop_size, cfg.learning_rate, cfg.grad_clip, q=q)
+            return ref_train.train(lambda w, q: plugins.reference(cfg, w, q), self.weights, batches, g,
+                                   cfg.crop_size, cfg.learning_rate, cfg.grad_clip, q=q)
 
     def _compare(self, losses, first, after, ref) -> Dict[str, float]:
         """Each step's loss, and by the worst tensor the first gradient's

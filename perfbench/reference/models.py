@@ -1,24 +1,26 @@
-"""Plain reference of the two captioners the benchmark serves and trains.
+"""Plain reference pieces that every captioner of the benchmark shares.
 
-Written from the papers' equations (Xu et al. 2015, Vinyals et al. 2015)
-and the weight layout the benchmark hands to both sides (``harness/weights``):
-dense weights ``[in, out]`` (``y = x @ w + b``), conv weights
-``[out, in, kh, kw]``, the LSTM's one ``w [I + H, 4H]`` over ``[x, h]`` with
-the gates in the order i, f, g, o and one bias, BatchNorm as ``{scale,
-bias, mean, var}``. It imports torch only: nothing of the program under
-test, and nothing of JAX.
+Written from the papers' equations and the weight layout the benchmark hands
+to both sides (``harness/weights``): dense weights ``[in, out]`` (``y = x @ w
++ b``), conv weights ``[out, in, kh, kw]``, an LSTM's one ``w [I + H, 4H]``
+over ``[x, h]`` with the gates in the order i, f, g, o and one bias,
+BatchNorm as ``{scale, bias, mean, var}``. Each model's network and each
+trunk live in a plug-in of their own (``perfbench/models``, found by
+``harness.plugins``), built on ``Net``; the beam search, its replay and the
+trunk's features in blocks are here. It imports torch only: nothing of the
+program under test, and nothing of JAX.
 
-Every product and convolution goes through ``self.q``: its operands, and
-the tensor it produces, as a program computing in one precision stores
-them. ``q`` is the identity in the reference (float32; the caller turns TF32
-off) and rounds to float8 in the control (``lowp.fp8``), the precision below
-the configurations' bfloat16. The cell state c stays float32, as the
+Every product and convolution goes through ``Net.q``: its operands, and the
+tensor it produces, as a program computing in one precision stores them.
+``q`` is the identity in the reference (float32; the caller turns TF32 off)
+and rounds to float8 in the control (``lowp.fp8``), the precision below the
+configurations' bfloat16. A cell state c stays float32, as the
 configurations state.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +30,7 @@ STD = (0.229, 0.224, 0.225)
 PAD_ID, START_ID, END_ID = 0, 1, 2
 NEG_INF = -1.0e9
 
-Weights = Dict[str, torch.Tensor]
+Weights = Mapping[str, torch.Tensor]
 Quant = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -51,11 +53,21 @@ def center_crop(images_u8: torch.Tensor, crop: int) -> torch.Tensor:
 
 
 class Net:
-    """Shared pieces: the products under ``q``."""
+    """Shared pieces: the products under ``q``, and the trunk.
 
-    def __init__(self, w: Weights, q: Quant = _ident):
-        self.w = {k: v.float() for k, v in w.items()}
-        self.q = q
+    ``w`` is read as it stands, one tensor at a time: a dict of float32
+    tensors, or a mapping that makes each float32 tensor when it is read
+    (``harness.weights.Drawn``), so that a network holds no copy of its
+    weights. ``trunk(net, x_nchw)`` is the trunk plug-in's ``features``."""
+
+    def __init__(self, w: Weights, q: Optional[Quant] = None, trunk: Optional[Callable] = None):
+        self.w = w
+        self.q = _ident if q is None else q
+        self.trunk = trunk
+
+    def features(self, x_nchw: torch.Tensor) -> torch.Tensor:
+        """The trunk's features of normalised NCHW images."""
+        return self.trunk(self, x_nchw)
 
     def lin(self, x: torch.Tensor, name: str) -> torch.Tensor:
         y = self.q(x) @ self.q(self.w[name + ".w"])
@@ -78,133 +90,6 @@ class Net:
         i, f, g, o = z.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return self.q(torch.sigmoid(o) * torch.tanh(c)), c
-
-
-# --- trunks -------------------------------------------------------------------
-
-VGG_PLAN = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512]
-RESNET152_BLOCKS = (3, 8, 36, 3)
-
-
-def vgg16_conv5_2(net: Net, x: torch.Tensor) -> torch.Tensor:
-    """VGG16 (configuration D) up to conv5_2 and its ReLU: NCHW in, the
-    14 x 14 grid out as [B, 196, 512] in row-major order."""
-    ci = 0
-    for ch in VGG_PLAN:
-        if ch == "M":
-            x = F.max_pool2d(x, 2, 2)
-        else:
-            x = torch.relu(net.conv(x, f"encoder.convs.{ci}", padding=1))
-            ci += 1
-    b, c, h, w = x.shape
-    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-
-
-def resnet152_pool(net: Net, x: torch.Tensor) -> torch.Tensor:
-    """ResNet-152 (bottleneck v1, the stride on the 3x3), BatchNorm on its
-    running statistics, then the global average pool: [B, 2048]."""
-
-    def cbn(x, name, bn, stride=1, padding=0):
-        return net.bn(net.conv(x, name, stride, padding, bias=False), bn)
-
-    x = torch.relu(cbn(x, "encoder.stem_conv", "encoder.stem_bn", 2, 3))
-    x = F.max_pool2d(x, 3, 2, 1)
-    for li, n in enumerate(RESNET152_BLOCKS):
-        for bi in range(n):
-            p = f"encoder.layers.{li}.{bi}."
-            stride = 2 if (li > 0 and bi == 0) else 1
-            y = torch.relu(cbn(x, p + "conv1", p + "bn1"))
-            y = torch.relu(cbn(y, p + "conv2", p + "bn2", stride, 1))
-            y = cbn(y, p + "conv3", p + "bn3")
-            if p + "down_conv.w" in net.w:
-                x = cbn(x, p + "down_conv", p + "down_bn", stride)
-            x = torch.relu(y + x)
-    return x.mean(dim=(2, 3))
-
-
-# --- decoders -----------------------------------------------------------------
-
-
-class ShowAttendTell(Net):
-    """Soft attention over the conv5 grid, one LSTM, the deep output layer
-    ``classifier(c2o(context) + h2o(h))``. The context is the alpha-weighted
-    *mean* over the L patches, as the reference implementation divides by L."""
-
-    def features(self, x_nchw: torch.Tensor) -> torch.Tensor:
-        return vgg16_conv5_2(self, x_nchw)
-
-    def start(self, feats: torch.Tensor):
-        """(per-image context, per-row state) before the first word."""
-        mean = feats.mean(dim=1)
-        h, c = self.lin(mean, "init_h"), self.lin(mean, "init_c")
-        ctx_enc = self.q(self.q(feats) @ self.q(self.w["att.w_img"]))
-        return (feats, ctx_enc), (h, c)
-
-    def step(self, image, state, tok: torch.Tensor, rows_per_image: int):
-        """One word for every row: rows ``b * k + j`` belong to image b."""
-        feats, ctx_enc = image
-        h, c = state
-        B, L, D = feats.shape
-        k = rows_per_image
-        hp = self.q(self.q(h) @ self.q(self.w["att.w_hh"]) + self.w["att.b_hh"])
-        t = self.q(torch.tanh(ctx_enc[:, None] + hp.view(B, k, 1, D)))  # [B, k, L, D]
-        e = self.q(t) @ self.q(self.w["att.w_att"])  # [B, k, L]
-        alpha = torch.softmax(e, dim=-1)
-        ctx = self.q(torch.einsum("bkl,bld->bkd", self.q(alpha), self.q(feats)).reshape(B * k, D) / L)
-        emb = self.w["embed"][tok]
-        h, c = self.lstm("lstm", torch.cat([emb, ctx], dim=-1), h, c)
-        out = self.lin(ctx, "c2o") + self.lin(h, "h2o")
-        return (h, c), self.lin(out, "classifier")
-
-    def first(self, image, state, B: int, k: int):
-        """(state per row, logits of the first word per row)."""
-        h, c = state
-        state = (h.repeat_interleave(k, 0), c.repeat_interleave(k, 0))
-        tok = torch.full((B * k,), START_ID, dtype=torch.long, device=h.device)
-        return self.step(image, state, tok, k)
-
-
-class ShowTell(Net):
-    """Image embedding (projection, BatchNorm on its running statistics) as
-    the LSTM's first input; every later step reads the previous word."""
-
-    def __init__(self, w: Weights, q: Quant = _ident, layers: int = 1):
-        super().__init__(w, q)
-        self.layers = layers
-
-    def features(self, x_nchw: torch.Tensor) -> torch.Tensor:
-        return resnet152_pool(self, x_nchw)
-
-    def _stack(self, x, state):
-        new = []
-        for i, (h, c) in enumerate(state):
-            h, c = self.lstm(f"lstm.{i}", x, h, c)
-            new.append((h, c))
-            x = h
-        return new, self.lin(x, "out")
-
-    def start(self, feats: torch.Tensor):
-        emb = self.bn(self.lin(feats, "proj"), "bn", axis=-1)
-        H = self.w["lstm.0.b"].shape[0] // 4
-        zero = feats.new_zeros(feats.shape[0], H)
-        state, logits = self._stack(emb, [(zero, zero)] * self.layers)
-        return logits, state
-
-    def step(self, image, state, tok: torch.Tensor, rows_per_image: int):
-        return self._stack(self.w["embed"][tok], state)
-
-    def first(self, image, state, B: int, k: int):
-        logits, state = image, state
-        state = [(h.repeat_interleave(k, 0), c.repeat_interleave(k, 0)) for h, c in state]
-        return state, logits.repeat_interleave(k, 0)
-
-
-def build(model: str, w: Weights, q: Quant = _ident, layers: int = 1) -> Net:
-    if model == "show_attend_tell":
-        return ShowAttendTell(w, q)
-    if model == "show_tell":
-        return ShowTell(w, q, layers)
-    raise ValueError(f"no reference for model {model!r}")
 
 
 # --- decoding and scoring -----------------------------------------------------

@@ -8,12 +8,13 @@ forced over the caption (step t reads word t and is scored on word t + 1,
 under the mask t < length - 1); the loss is the cross entropy averaged over
 the scored words. Every gradient is clamped to +-grad_clip, then Adam (b1
 0.9, b2 0.999, eps 1e-8 outside the square root, bias-corrected) steps by
--lr. Imports torch and the reference's model only.
+-lr. Imports torch and ``reference.models`` only: the network is the model
+plug-in's reference, which the caller hands over.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,7 +36,7 @@ def crop_flip(images: torch.Tensor, crop: int, g: torch.Generator) -> torch.Tens
     return out
 
 
-def loss_of(net: ref.ShowAttendTell, feats: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor):
+def loss_of(net: ref.Net, feats: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor):
     B, T = captions.shape
     image, (h, c) = net.start(feats)
     logits = []
@@ -48,12 +49,14 @@ def loss_of(net: ref.ShowAttendTell, feats: torch.Tensor, captions: torch.Tensor
     return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-def train(weights: Dict[str, torch.Tensor], batches: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+def train(net_of: Callable[[Dict[str, torch.Tensor], Optional[Callable]], ref.Net],
+          weights: Dict[str, torch.Tensor], batches: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
           g: torch.Generator, crop: int, lr: float, clip: float, q=None):
     """Follow the step over ``batches`` of (uint8 images, captions, lengths)
-    from ``weights``. Returns (losses, the first step's clamped gradients,
-    the trainable tensors after the last step)."""
-    kw = {} if q is None else {"q": q}
+    from ``weights``, with the network ``net_of(params, q)`` (the model
+    plug-in's reference) over the leaves themselves, so that gradients reach
+    them. Returns (losses, the first step's clamped gradients, the trainable
+    tensors after the last step)."""
     params = {k: v.detach().clone().float().requires_grad_(not k.startswith("encoder."))
               for k, v in weights.items()}
     trainable = [k for k, v in params.items() if v.requires_grad]
@@ -61,8 +64,7 @@ def train(weights: Dict[str, torch.Tensor], batches: List[Tuple[torch.Tensor, to
     nu = {k: torch.zeros_like(params[k]) for k in trainable}
     losses, first = [], None
     for n, (images, captions, lengths) in enumerate(batches, start=1):
-        net = ref.ShowAttendTell(params, **kw)
-        net.w = params  # the leaves themselves, so that gradients reach them
+        net = net_of(params, q)
         with torch.no_grad():
             feats = net.features(ref.normalize_nchw(crop_flip(images, crop, g)))
         loss = loss_of(net, feats, captions, lengths)

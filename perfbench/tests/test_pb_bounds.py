@@ -5,7 +5,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from harness import bounds
+from harness import bounds, plugins
 
 
 @pytest.mark.parametrize("B,I,H", [(768, 1024, 1024), (8, 512, 1024)])
@@ -30,18 +30,55 @@ def test_attention_bound_by_hand(B, K, L, D):
     assert bounds.attention_bound(B, K, L, D, torch.bfloat16) == pytest.approx(want, rel=1e-12)
 
 
+def _cfg(**kw):
+    base = dict(model="show_attend_tell", encoder="vgg16", crop_size=224, embed_size=512, hidden_size=1024,
+                num_layers=1)
+    return SimpleNamespace(**{**base, **kw})
+
+
+SAT, ST = _cfg(), _cfg(model="show_tell", encoder="resnet152")
+E, H, V, L, D = 512, 1024, 10000, 196, 512
+
+
 def test_trunk_flops_published_counts():
     # VGG16 to conv5_2 at 224 px: 12 convs, 14.88 G multiply-adds
-    assert bounds.vgg16_conv5_2_flops(224) == pytest.approx(2 * 14.88e9, rel=2e-3)
+    assert plugins.encoder("vgg16").flops(SAT) == pytest.approx(2 * 14.88e9, rel=2e-3)
     # ResNet-152 at 224 px: 11.5 G multiply-adds (He et al. 2016, table 1),
     # 11.51 in torchvision's count
-    assert bounds.resnet152_flops(224) == pytest.approx(2 * 11.51e9, rel=1e-2)
+    assert plugins.encoder("resnet152").flops(ST) == pytest.approx(2 * 11.51e9, rel=1e-2)
 
 
-def test_step_flops_by_hand():
-    cfg = SimpleNamespace(model="show_attend_tell", crop_size=224, embed_size=512, hidden_size=1024, num_layers=1)
-    L, D, E, H, V = 196, 512, 512, 1024, 10000
-    want = 2 * H * D + 5 * L * D + 2 * (E + D + H) * 4 * H + 2 * D * E + 2 * H * E + 2 * E * V
-    assert bounds.step_flops(cfg, V) == want
-    st = SimpleNamespace(model="show_tell", crop_size=224, embed_size=512, hidden_size=1024, num_layers=2)
-    assert bounds.step_flops(st, V) == 2 * (E + H) * 4 * H + 2 * (H + H) * 4 * H + 2 * H * V
+# Each figure as the yardstick gave it before the plug-ins held it, to the
+# FLOP, and the decoder's step by hand
+FIGURES = [
+    ("encoder", "vgg16", "flops", SAT, 29_768_417_280),
+    ("encoder", "resnet152", "flops", ST, 23_023_157_248),
+    ("model", "show_attend_tell", "image_flops", SAT, 104_857_600),
+    ("model", "show_tell", "image_flops", ST, 2_097_152),
+    ("model", "show_attend_tell", "step_flops", SAT, 30_140_416),
+    ("model", "show_tell", "step_flops", ST, 33_062_912),
+    ("model", "show_attend_tell", "step_flops", SAT,
+     2 * H * D + 5 * L * D + 2 * (E + D + H) * 4 * H + 2 * D * E + 2 * H * E + 2 * E * V),
+    ("model", "show_tell", "step_flops", _cfg(model="show_tell", num_layers=2),
+     2 * (E + H) * 4 * H + 2 * (H + H) * 4 * H + 2 * H * V),
+]
+
+
+@pytest.mark.parametrize("kind,name,fn,cfg,want", FIGURES,
+                         ids=[f"{n}.{f}.{c.num_layers}" for _, n, f, c, _ in FIGURES])
+def test_flops_figures(kind, name, fn, cfg, want):
+    plugin = getattr(plugins, kind)(name)
+    got = plugin.flops(cfg) if kind == "encoder" else getattr(plugin, fn)(cfg, V)
+    assert got == want
+
+
+@pytest.mark.parametrize("cfg,trunk,image,step", [(SAT, 29_768_417_280, 104_857_600, 30_140_416),
+                                                  (ST, 23_023_157_248, 2_097_152, 33_062_912)],
+                         ids=["show_attend_tell", "show_tell"])
+def test_window_flops_compose_as_before(cfg, trunk, image, step):
+    """``model_flops`` of a window's counters, as ``bulk.Driver.traced``
+    computed it inline before: images x (trunk + image) + cell rows x step
+    / layers."""
+    counters = {"trunk_images": 4096.0, "decode_row_cells": 245760.0}
+    want = counters["trunk_images"] * (trunk + image) + counters["decode_row_cells"] * step / cfg.num_layers
+    assert plugins.model_flops(cfg, V, counters) == want

@@ -1,5 +1,5 @@
 """What the benchmark loads: nothing of JAX or the JAX package, and a
-reference that imports nothing of the program."""
+reference and plug-ins that import nothing of the program."""
 
 import ast
 import os
@@ -11,6 +11,9 @@ import pytest
 from harness import cell
 
 REF = os.path.join(cell.BENCH, "reference")
+PLUGINS = [os.path.join(d, f) for d in (os.path.join(cell.BENCH, "models"),
+                                        os.path.join(cell.BENCH, "models", "encoders"))
+           for f in sorted(os.listdir(d)) if f.endswith(".py")]
 
 
 def test_run_and_every_module_it_runs_load_no_jax():
@@ -23,6 +26,11 @@ def test_run_and_every_module_it_runs_load_no_jax():
         "for m in run.cell_lib.DRIVERS.values(): importlib.import_module(m)\n"
         "import control\n"
         "from reference import models, train, lowp\n"
+        "from harness import plugins\n"
+        f"for p in sorted(glob.glob(os.path.join({cell.BENCH!r}, 'models', '*.py'))):\n"
+        "    plugins.model(os.path.basename(p)[:-3])\n"
+        f"for p in sorted(glob.glob(os.path.join({cell.BENCH!r}, 'models', 'encoders', '*.py'))):\n"
+        "    plugins.encoder(os.path.basename(p)[:-3])\n"
         "import show_and_tell_tpu_torch.serve, show_and_tell_tpu_torch.train.step\n"
         f"for p in sorted(glob.glob(os.path.join({cell.BENCH!r}, 'metrics', '*.py'))):\n"
         "    run.metric_reader(os.path.basename(p)[:-3])\n"
@@ -43,13 +51,30 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
     assert run.forbidden_modules() == ["show_and_tell_tpu"]
 
 
+def imports(path):
+    """The modules a file imports, whole (``from a import b`` as ``a.b``)."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+    return names
+
+
+BASE = {"__future__", "typing", "torch", "numpy", "reference", "math"}
+
+
 @pytest.mark.parametrize("path", sorted(os.path.join(REF, f) for f in os.listdir(REF) if f.endswith(".py")))
 def test_reference_imports_torch_numpy_and_itself_only(path):
-    tree = ast.parse(open(path).read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
-    assert names <= {"__future__", "typing", "torch", "numpy", "reference", "math"}, names
+    names = {n.split(".")[0] for n in imports(path)}
+    assert names <= BASE, names
+
+
+@pytest.mark.parametrize("path", PLUGINS, ids=[os.path.relpath(p, cell.BENCH) for p in PLUGINS])
+def test_plugins_import_nothing_of_the_program(path):
+    """A plug-in reads the reference and the yardstick's arithmetic; it names
+    the program's entry points as strings only."""
+    for name in imports(path):
+        top = name.split(".")[0]
+        assert top in BASE or name in {"harness.bounds", "harness.plugins.Wrap", "harness.plugins"}, name

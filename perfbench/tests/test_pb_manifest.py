@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from harness import cell
+from harness import cell, plugins
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -68,6 +68,8 @@ def test_each_cell_finds_its_files(w):
     cfg = next(x for x in M["configs"] if x["name"] == w["config"])
     assert cfg["file"] == f"perfbench/configs/{w['config']}.json" and cfg["reduced"] == c.config["reduced"] == []
     assert c.config["source"] == cfg["source"]
+    model, trunk = plugins.of(c.port_config())  # its model's and its trunk's plug-ins
+    assert callable(model.reference) and callable(model.model_flops) and callable(trunk.features)
 
 
 @pytest.mark.parametrize("m", M["per_layer"], ids=[m["name"] for m in M["per_layer"]])
