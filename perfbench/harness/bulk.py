@@ -33,6 +33,7 @@ class Driver:
         from show_and_tell_tpu_torch.serve import Captioner
 
         cfg = self.cfg = self.cell.port_config()
+        self.arch = self.cell.arch
         self.wraps = plugins.of(cfg)[0].WRAPS
         self.model, self.weights = cell_lib.build_model(self.cell, self.seed, self.device)
         self.cap = Captioner(cfg, self.model, None, self.cell.vocabulary(), device=self.device)
@@ -76,7 +77,7 @@ class Driver:
                 self._call()
             run.unprofiled_s = time.perf_counter() - t0
         run.settle()
-        flops = plugins.model_flops(self.cfg, self.cell.vocab_size, run.counters)
+        flops = plugins.model_flops(self.cfg, self.cell.vocab_size, run.counters, self.arch)
         with instrument.serving(run, wraps):
             for _ in range(n):
                 self._call()
@@ -112,12 +113,12 @@ class Driver:
 
     def check(self) -> Dict[str, float]:
         captions, images, records = self._sample()
-        return served.judge(self.cfg, self.weights, images, captions, records)
+        return served.judge(self.cfg, self.arch, self.weights, images, captions, records)
 
     def control(self, q) -> Dict[str, float]:
-        return served.control(self.cfg, self.weights, self._sample()[1], q)
+        return served.control(self.cfg, self.arch, self.weights, self._sample()[1], q)
 
     def altered(self) -> Dict[str, float]:
         captions, images, records = self._sample()
-        return served.judge(self.cfg, self.weights, images, served.altered(captions, self.cell.vocab_size),
-                            records)
+        return served.judge(self.cfg, self.arch, self.weights, images,
+                            served.altered(captions, self.cell.vocab_size), records)

@@ -6,15 +6,21 @@ imports nothing of the program: it names the program's entry points that a
 traced run wraps as ``"module:function"`` strings, which
 ``harness.instrument`` resolves at run time.
 
-A model plug-in gives:
-- ``reference(cfg, weights, q, trunk)``: the plain reference network, a
-  ``reference.models.Net`` with ``start``, ``first`` and ``step`` as
+A model plug-in gives, where ``cfg`` is the program's ``Config`` (run
+settings) and ``arch`` the cell's architecture (``Cell.arch``: the keys of
+the configuration file's top level that are the model's own, as its public
+``config.json`` names them; ``{}`` for a model that has none):
+- ``reference(cfg, weights, q, trunk, arch)``: the plain reference network,
+  a ``reference.models.Net`` with ``start``, ``first`` and ``step`` as
   ``beam_search`` and ``replay`` take it, whose ``features`` run ``trunk``;
-- ``model_flops(cfg, vocab, counters, trunk_flops)``: the model FLOPs of a
-  traced serving window from its counters, given one image's trunk FLOPs;
+- ``model_flops(cfg, vocab, counters, trunk_flops, arch)``: the model FLOPs
+  of a traced serving window from its counters, given one image's trunk
+  FLOPs;
 - ``WRAPS``: the program's entry points to wrap, each a ``Wrap``;
 - for a model that the training driver runs, ``train_step_flops(cfg, vocab,
-  batch, caption_len, trunk_flops)``: one training step's model FLOPs.
+  batch, caption_len, trunk_flops, arch)``: one training step's model FLOPs.
+The harness reads no key of ``arch``: only the plug-in and the program's
+model do.
 
 A trunk plug-in gives ``features(net, x_nchw)``, the reference trunk over
 the weights under ``encoder.``, and ``flops(cfg)``, one image's trunk FLOPs.
@@ -87,14 +93,14 @@ def of(cfg) -> Tuple[ModuleType, ModuleType]:
     return model(cfg.model), encoder(cfg.encoder)
 
 
-def reference(cfg, weights, q=None):
-    """The plain reference of ``cfg``: its model's network over its trunk,
-    reading ``weights`` (computed under ``q``, where given)."""
+def reference(cfg, weights, arch: Dict, q=None):
+    """The plain reference of ``cfg`` and ``arch``: its model's network over
+    its trunk, reading ``weights`` (computed under ``q``, where given)."""
     net, trunk = of(cfg)
-    return net.reference(cfg, weights, q, trunk.features)
+    return net.reference(cfg, weights, q, trunk.features, arch)
 
 
-def model_flops(cfg, vocab: int, counters) -> float:
+def model_flops(cfg, vocab: int, counters, arch: Dict) -> float:
     """The model FLOPs of a traced serving window, from its counters."""
     net, trunk = of(cfg)
-    return net.model_flops(cfg, vocab, counters, trunk.flops(cfg))
+    return net.model_flops(cfg, vocab, counters, trunk.flops(cfg), arch)

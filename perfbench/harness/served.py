@@ -153,7 +153,7 @@ class BeamRecorder:
         raise IndexError(row)
 
 
-def judge(cfg, weights, images: torch.Tensor, captions: List[str],
+def judge(cfg, arch: Dict, weights, images: torch.Tensor, captions: List[str],
           records: List[Optional[Record]]) -> Dict[str, float]:
     """The numbers compared for ``captions`` served from ``images``, given
     the record of the program's search that served each (None: none did);
@@ -171,7 +171,7 @@ def judge(cfg, weights, images: torch.Tensor, captions: List[str],
     final = torch.from_numpy(np.stack([records[i][1] for i in good]))
     prog = torch.from_numpy(np.stack([records[i][2] for i in good])).double()
     with cell_lib.full_fp32():
-        net = plugins.reference(cfg, weights)
+        net = plugins.reference(cfg, weights, arch)
         g, ids, logp = ref.replay(net, ref.features_of(net, images[good], cfg.crop_size), par, tok)
     g, ids, logp = g.double().cpu(), ids.cpu(), logp.double().cpu()
     # the served caption is the best final beam; no other outscores it
@@ -183,18 +183,18 @@ def judge(cfg, weights, images: torch.Tensor, captions: List[str],
     return {"score_err_nats": float(err.max()), "topk_gap_nats": float(gap.max())}
 
 
-def control(cfg, weights, images: torch.Tensor, q) -> Dict[str, float]:
+def control(cfg, arch: Dict, weights, images: torch.Tensor, q) -> Dict[str, float]:
     """The same numbers for the reference put in the program's place and
     computed under ``q``: its beam search's captions, choices and scores."""
     with cell_lib.full_fp32():
-        low = plugins.reference(cfg, weights, q)
+        low = plugins.reference(cfg, weights, arch, q)
         ids, scores, par, tok = ref.beam_search(low, ref.features_of(low, images, cfg.crop_size), cfg.beam_size,
                                                 cfg.max_decode_len)
         del low
     ids, scores = ids.cpu().numpy(), scores.float().cpu().numpy()
     par, tok = par.cpu().numpy(), tok.cpu().numpy()
     records = [((par[i], tok[i]), ids[i], scores[i]) for i in range(ids.shape[0])]
-    return judge(cfg, weights, images, words(ids[:, 0]), records)
+    return judge(cfg, arch, weights, images, words(ids[:, 0]), records)
 
 
 def altered(captions: List[str], vocab_size: int) -> List[str]:

@@ -78,6 +78,7 @@ class Driver:
 
         cfg = self.cfg = self.cell.port_config()
         mix = self.cell.mix_value
+        self.arch = self.cell.arch
         net, trunk = plugins.of(cfg)
         self.train_step_flops = net.train_step_flops
         self.trunk_flops = trunk.flops(cfg)
@@ -174,7 +175,7 @@ class Driver:
             for _ in range(n):
                 with span("step"):
                     self._step()
-                flops += self.train_step_flops(cfg, V, B, self.last_T, self.trunk_flops)
+                flops += self.train_step_flops(cfg, V, B, self.last_T, self.trunk_flops, self.arch)
             return flops
 
         step.features, step.backward = timed_features, timed_backward
@@ -203,13 +204,13 @@ class Driver:
     # --- the check -----------------------------------------------------------
 
     def _reference(self, q=None):
-        cfg = self.cfg
+        cfg, arch = self.cfg, self.arch
         g = torch.Generator(device=self.device)
         g.manual_seed(traffic.substream(self.seed, traffic.CROPS))
         batches = [tuple(self.host[j][k].to(self.device) for k in ("images", "captions", "lengths"))
                    for j in self.check_batches]
         with cell_lib.full_fp32():
-            return ref_train.train(lambda w, q: plugins.reference(cfg, w, q), self.weights, batches, g,
+            return ref_train.train(lambda w, q: plugins.reference(cfg, w, arch, q), self.weights, batches, g,
                                    cfg.crop_size, cfg.learning_rate, cfg.grad_clip, q=q)
 
     def _compare(self, losses, first, after, ref) -> Dict[str, float]:

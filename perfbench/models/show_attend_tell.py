@@ -3,7 +3,8 @@ the trunk's conv5 grid, one LSTM, the deep output layer.
 
 The plain reference network, the model FLOPs of a window and of a training
 step, and the kernels' entry points that traced runs wrap
-(``harness.plugins`` says what a model plug-in gives).
+(``harness.plugins`` says what a model plug-in gives). Every size is a
+``Config`` field: ``arch`` is ignored.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class ShowAttendTell(ref.Net):
         return self.step(image, state, tok, k)
 
 
-def reference(cfg, weights, q, trunk) -> ShowAttendTell:
+def reference(cfg, weights, q, trunk, arch) -> ShowAttendTell:
     return ShowAttendTell(weights, q, trunk)
 
 
@@ -81,14 +82,14 @@ def step_flops(cfg, vocab: int) -> float:
     return attention + cell + head
 
 
-def model_flops(cfg, vocab: int, counters, trunk_flops: float) -> float:
+def model_flops(cfg, vocab: int, counters, trunk_flops: float, arch) -> float:
     """Every image's trunk and start, and one step per row that the cell
     wraps counted (``decode_row_cells``, one cell call per layer a step)."""
     return (counters["trunk_images"] * (trunk_flops + image_flops(cfg, vocab))
             + counters["decode_row_cells"] * step_flops(cfg, vocab) / cfg.num_layers)
 
 
-def train_step_flops(cfg, vocab: int, batch: int, caption_len: int, trunk_flops: float) -> float:
+def train_step_flops(cfg, vocab: int, batch: int, caption_len: int, trunk_flops: float, arch) -> float:
     """One teacher-forced step over ``batch`` captions padded to
     ``caption_len``: the frozen trunk forward, the rest forward and backward
     (three times its forward)."""

@@ -4,7 +4,7 @@ LSTM; every later step reads the previous word.
 
 The plain reference network, the model FLOPs of a window, and the kernels'
 entry points that traced runs wrap (``harness.plugins`` says what a model
-plug-in gives).
+plug-in gives). Every size is a ``Config`` field: ``arch`` is ignored.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class ShowTell(ref.Net):
         return state, logits.repeat_interleave(k, 0)
 
 
-def reference(cfg, weights, q, trunk) -> ShowTell:
+def reference(cfg, weights, q, trunk, arch) -> ShowTell:
     return ShowTell(weights, q, trunk, cfg.num_layers)
 
 
@@ -68,7 +68,7 @@ def step_flops(cfg, vocab: int) -> float:
     return cells + 2.0 * H * V
 
 
-def model_flops(cfg, vocab: int, counters, trunk_flops: float) -> float:
+def model_flops(cfg, vocab: int, counters, trunk_flops: float, arch) -> float:
     """Every image's trunk and projection, and one step per row that the
     cell wraps counted (``decode_row_cells``, one cell call per layer a
     step)."""

@@ -81,4 +81,22 @@ def test_window_flops_compose_as_before(cfg, trunk, image, step):
     / layers."""
     counters = {"trunk_images": 4096.0, "decode_row_cells": 245760.0}
     want = counters["trunk_images"] * (trunk + image) + counters["decode_row_cells"] * step / cfg.num_layers
-    assert plugins.model_flops(cfg, V, counters) == want
+    assert plugins.model_flops(cfg, V, counters, {}) == want
+
+
+@pytest.mark.parametrize("cfg,trunk,image,step", [(SAT, 29_768_417_280, 104_857_600, 30_140_416),
+                                                  (ST, 23_023_157_248, 2_097_152, 33_062_912)],
+                         ids=["show_attend_tell", "show_tell"])
+def test_the_figures_through_the_plugin_interface_with_no_arch(cfg, trunk, image, step):
+    """The six figures, each read through the plug-ins' own entry points as
+    the harness calls them, with the empty ``arch`` of a model whose sizes
+    are all ``Config`` fields: one image, one decoder step of one row, and
+    (Show-Attend-Tell) one training step of one two-word caption."""
+    net = plugins.model(cfg.model)
+    one_image = {"trunk_images": 1.0, "decode_row_cells": 0.0}
+    one_step = {"trunk_images": 0.0, "decode_row_cells": float(cfg.num_layers)}
+    assert plugins.encoder(cfg.encoder).flops(cfg) == trunk
+    assert net.model_flops(cfg, V, one_image, trunk, {}) == plugins.model_flops(cfg, V, one_image, {}) == trunk + image
+    assert net.model_flops(cfg, V, one_step, trunk, {}) == step
+    if hasattr(net, "train_step_flops"):
+        assert net.train_step_flops(cfg, V, 1, 2, trunk, {}) == trunk + 3 * image + 3 * step

@@ -13,6 +13,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 M = cell.manifest()
 CELLS = [w["name"] for w in M["workloads"]]
+UNCUT = ("sat_vgg16_bf16", "st_resnet152_bf16")
 
 
 def test_top_level_keys_and_limits():
@@ -66,8 +67,17 @@ def test_each_cell_finds_its_files(w):
     assert w["name"] == f"{w['config']}.{w['traffic']}" and w["chips"] in (1, 4)
     assert c.mix["kind"] in ("bulk", "train") and c.limits
     cfg = next(x for x in M["configs"] if x["name"] == w["config"])
-    assert cfg["file"] == f"perfbench/configs/{w['config']}.json" and cfg["reduced"] == c.config["reduced"] == []
+    assert cfg["file"] == f"perfbench/configs/{w['config']}.json" and cfg["reduced"] == c.config["reduced"]
     assert c.config["source"] == cfg["source"]
+    # each cut documented: set in the file, its published value beside it and
+    # differing, and the deployment it stands for (``cell.check_config``,
+    # which ``Cell.find`` ran, stops set-up otherwise)
+    for key in c.config["reduced"]:
+        assert key == "vocab_size" or key in c.arch
+        assert c.config["published"][key] != c.config[key]
+        assert c.config["deployment"].strip()
+    if w["config"] in UNCUT:  # every size a Config field, nothing cut
+        assert c.config["reduced"] == [] and c.arch == {}
     model, trunk = plugins.of(c.port_config())  # its model's and its trunk's plug-ins
     assert callable(model.reference) and callable(model.model_flops) and callable(trunk.features)
 

@@ -39,11 +39,12 @@ def test_an_inception_v3_trunk_is_its_own_or_stops():
     cfg = cell_lib.Cell.find(ST, {"model": {"encoder": "inception_v3"}}).port_config()
     counters = {"trunk_images": 1.0, "decode_row_cells": 0.0}
     if os.path.isfile(os.path.join(plugins.BENCH, "models", "encoders", "inception_v3.py")):
-        resnet = plugins.model("show_tell").model_flops(cfg, 10000, counters, plugins.encoder("resnet152").flops(cfg))
-        assert plugins.model_flops(cfg, 10000, counters) != resnet
+        resnet = plugins.model("show_tell").model_flops(cfg, 10000, counters,
+                                                        plugins.encoder("resnet152").flops(cfg), {})
+        assert plugins.model_flops(cfg, 10000, counters, {}) != resnet
     else:
         with pytest.raises(SystemExit, match="perfbench/models/encoders/inception_v3.py"):
-            plugins.model_flops(cfg, 10000, counters)
+            plugins.model_flops(cfg, 10000, counters, {})
         with pytest.raises(SystemExit, match="perfbench/models/encoders/inception_v3.py"):
             driver(ST, {"encoder": "inception_v3"}).setup()
 

@@ -27,7 +27,7 @@ def test_features_and_beams_match_the_program(name):
 
     cfg, model, w = port(name)
     images = traffic.images(5, 40, 40, 9, "cpu")
-    net = plugins.reference(cfg, w)
+    net = plugins.reference(cfg, w, {})
     with torch.no_grad():
         got = model.backbone_features(eval_transform(images, cfg.crop_size))
         want = ref.features_of(net, images, cfg.crop_size)
@@ -50,7 +50,7 @@ def test_the_programs_recorded_search_replays_to_its_beams(name):
 
     cfg, model, w = port(name)
     images = traffic.images(5, 40, 40, 9, "cpu")
-    net = plugins.reference(cfg, w)
+    net = plugins.reference(cfg, w, {})
     rec = served.BeamRecorder()
     with torch.no_grad(), rec.recording():
         ids = decode_ids(model, cfg, model.backbone_features(eval_transform(images, cfg.crop_size)), "beam")
@@ -86,7 +86,7 @@ def test_training_steps_match_the_program():
         if n == 0:
             first = {k: v.clone() / 0.1 for k, v in state.opt_state["mu"].items()}
     g = torch.Generator().manual_seed(11)
-    r_losses, r_first, r_after = ref_train.train(lambda p, q: plugins.reference(cfg, p, q), w, batches, g,
+    r_losses, r_first, r_after = ref_train.train(lambda p, q: plugins.reference(cfg, p, {}, q), w, batches, g,
                                                  cfg.crop_size, cfg.learning_rate, cfg.grad_clip)
     assert np.allclose(losses, r_losses, rtol=1e-5)
     assert set(r_first) == set(first)

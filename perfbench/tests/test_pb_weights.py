@@ -147,7 +147,7 @@ def test_the_reference_holds_at_most_one_drawn_tensor_per_read(monkeypatch):
         return t
 
     monkeypatch.setattr(weights.Drawn, "__getitem__", counted)
-    net = plugins.reference(cfg, w)
+    net = plugins.reference(cfg, w, {})
     with torch.no_grad():
         feats = ref.features_of(net, traffic.images(3, 40, 40, 9, "cpu"), cfg.crop_size)
         ref.beam_search(net, feats, cfg.beam_size, cfg.max_decode_len)
