@@ -22,10 +22,17 @@ int8 trunk's calibration replay and forward (``models/quantize.py``) fill.
 ``frozen_module`` holds a trunk's tree in a module as frozen parameters and
 ``module_tree`` gives the tree back, so a trunk's state-dict names are its
 tree's paths under ``encoder.``.
+
+The weights each convolution takes (the folded BatchNorm, the casts, the
+channels-last copy) depend only on the frozen tree. ``trunk_features`` with
+a model's ``PreparedTrunk`` makes them at the first call for each version of
+the weights and reuses them until a weight changes; ``encoder_apply(name)``
+alone, and a trunk that needs grad, make them in each call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import torch
@@ -34,6 +41,7 @@ from torch import nn
 
 from show_and_tell_tpu_torch.models.layers import (
     avg_pool,
+    channels_last,
     conv_bn_relu,
     conv_relu,
     folded_conv_bn,
@@ -42,7 +50,10 @@ from show_and_tell_tpu_torch.models.layers import (
     init_bn,
     init_conv,
     max_pool,
+    prepared,
 )
+from show_and_tell_tpu_torch.obs import profiler
+from show_and_tell_tpu_torch.ops.lstm import weight_key
 
 Params = Dict
 Gen = Optional[torch.Generator]
@@ -59,11 +70,14 @@ def frozen_module(tree) -> nn.Module:
 
 
 def module_tree(m: nn.Module):
-    """The inverse of ``frozen_module``: the module's tensors as the tree."""
+    """The inverse of ``frozen_module``: the module's tensors as the tree.
+    A ``ParameterDict``'s are read from its own ``_parameters`` (where it
+    keeps every value under its key, in order): its ``items()`` costs a
+    lookup per key, and the trunk's tree is read at every call."""
     if isinstance(m, nn.ModuleList):
         return [module_tree(c) for c in m]
     if isinstance(m, nn.ParameterDict):
-        return dict(m.items())
+        return dict(m._parameters)
     return {k: module_tree(c) for k, c in m.items()}
 
 
@@ -87,7 +101,7 @@ def init_vgg16(generator: Gen = None, dtype: torch.dtype = torch.float32) -> Par
     return {"convs": convs}
 
 
-def vgg16_features(params: Params, images: torch.Tensor) -> torch.Tensor:
+def vgg16_features(params: Params, images: torch.Tensor, memo: Optional[Dict] = None) -> torch.Tensor:
     """images [B, H, W, 3] (NHWC) -> feature grid [B, (H/16)*(W/16), 512]."""
     x = images.permute(0, 3, 1, 2)
     ci = 0
@@ -96,7 +110,8 @@ def vgg16_features(params: Params, images: torch.Tensor) -> torch.Tensor:
             x = max_pool(x, 2, 2)
         else:
             p = params["convs"][ci]
-            x = conv_relu(x, p["w"].to(x.dtype), p["b"].to(x.dtype), padding=1)
+            w, b = prepared(memo, (id(p["w"]), x.dtype), lambda: (p["w"].to(x.dtype), p["b"].to(x.dtype)))
+            x = conv_relu(x, w, b, padding=1)
             ci += 1
     b, c, h, w = x.shape
     return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
@@ -197,32 +212,40 @@ def init_resnet152(generator: Gen = None, dtype: torch.dtype = torch.float32) ->
     }
 
 
-def _bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+def _bottleneck(p: Params, x: torch.Tensor, stride: int, memo: Optional[Dict] = None) -> torch.Tensor:
     """``relu(bn3(conv3(y)) + shortcut)``, conv3 and the residual add one
     ``conv_relu`` call. Where that call fuses, the shortcut's convolution
     runs without bias and its BatchNorm shift joins conv3's bias in fp32
     before the one cast, so no pass of its own is left in the block."""
-    y = conv_bn_relu(p["conv1"], p["bn1"], x)
-    y = conv_bn_relu(p["conv2"], p["bn2"], y, stride=stride, padding=1)
-    w, shift = folded_conv_bn(p["conv3"], p["bn3"], y)
-    if "down_conv" in p:
+    y = conv_bn_relu(p["conv1"], p["bn1"], x, memo=memo)
+    y = conv_bn_relu(p["conv2"], p["bn2"], y, stride=stride, padding=1, memo=memo)
+
+    def make():
+        """(conv3's weight and bias, the shortcut's weight and bias or
+        None)."""
+        w, shift = folded_conv_bn(p["conv3"], p["bn3"], y)
+        if "down_conv" not in p:
+            return w, shift.to(y.dtype), None, None
         wd, dshift = folded_conv_bn(p["down_conv"], p["down_bn"], x)
         if fuses_epilogue(y, w, wd):
-            x = F.conv2d(x, wd, None, stride=stride)
-            shift = shift + dshift
-        else:
-            x = F.conv2d(x, wd, dshift.to(x.dtype), stride=stride)
-    return conv_relu(y, w, shift.to(y.dtype), z=x)
+            return w, (shift + dshift).to(y.dtype), wd, None
+        return w, shift.to(y.dtype), wd, dshift.to(x.dtype)
+
+    key = (id(p["conv3"]["w"]), y.dtype, channels_last(y), channels_last(x), fuses_epilogue(y))
+    w, b, wd, bd = prepared(memo, key, make)
+    if wd is not None:
+        x = F.conv2d(x, wd, bd, stride=stride)
+    return conv_relu(y, w, b, z=x)
 
 
-def resnet152_features(params: Params, images: torch.Tensor) -> torch.Tensor:
+def resnet152_features(params: Params, images: torch.Tensor, memo: Optional[Dict] = None) -> torch.Tensor:
     """images [B, H, W, 3] (NHWC, 224 px) -> pooled [B, 2048]."""
     x = images.permute(0, 3, 1, 2)
-    x = conv_bn_relu(params["stem_conv"], params["stem_bn"], x, stride=2, padding=3)
+    x = conv_bn_relu(params["stem_conv"], params["stem_bn"], x, stride=2, padding=3, memo=memo)
     x = max_pool(x, 3, 2, padding=1)
     for li, blocks in enumerate(params["layers"]):
         for bi, blk in enumerate(blocks):
-            x = _bottleneck(blk, x, 2 if (li > 0 and bi == 0) else 1)
+            x = _bottleneck(blk, x, 2 if (li > 0 and bi == 0) else 1, memo)
     return global_avg_pool(x)
 
 
@@ -336,9 +359,9 @@ def init_inception_v3(generator: Gen = None, dtype: torch.dtype = torch.float32)
     return p
 
 
-def _basic(p: Params, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
+def _basic(p: Params, x: torch.Tensor, stride=1, padding=0, memo: Optional[Dict] = None) -> torch.Tensor:
     """torchvision BasicConv2d: conv (no bias) -> BatchNorm (eps 1e-3) -> ReLU."""
-    return conv_bn_relu(p["conv"], p["bn"], x, stride, padding, eps=1e-3)
+    return conv_bn_relu(p["conv"], p["bn"], x, stride, padding, eps=1e-3, memo=memo)
 
 
 def _branch_pool(p: Params, x: torch.Tensor, basic=_basic) -> torch.Tensor:
@@ -396,10 +419,14 @@ def _inc_e(p, x, basic=_basic):
     return torch.cat([b1, b3, bd, _branch_pool(p, x, basic)], dim=1)
 
 
-def inception_v3_features(params: Params, images: torch.Tensor, basic=_basic) -> torch.Tensor:
+def inception_v3_features(
+    params: Params, images: torch.Tensor, basic=_basic, memo: Optional[Dict] = None,
+) -> torch.Tensor:
     """images [B, H, W, 3] (NHWC, 299 px) -> pooled [B, 2048]. ``basic(node,
     x, stride, padding)`` applies each BasicConv2d node (``padding`` an int or
-    (ph, pw)); the int8 trunk passes its own."""
+    (ph, pw)); the int8 trunk passes its own, and no ``memo``."""
+    if memo is not None:
+        basic = functools.partial(basic, memo=memo)
     x = images.permute(0, 3, 1, 2)
     x = basic(params["Conv2d_1a_3x3"], x, stride=2)
     x = basic(params["Conv2d_2a_3x3"], x)
@@ -464,6 +491,59 @@ ENCODERS = {
     "resnet152": (init_resnet152, resnet152_features, from_torch_resnet152, 2048),
     "inception_v3": (init_inception_v3, inception_v3_features, from_torch_inception_v3, 2048),
 }
+
+
+def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list, in order, appended to ``out``."""
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        if torch.is_tensor(v):
+            out.append(v)
+        else:
+            _leaves(v, out)
+    return out
+
+
+class PreparedTrunk:
+    """One trunk's convolution weights, prepared once per weight version.
+
+    ``memo(tree, images)`` checks the frozen tree once per call: its key is
+    every tensor's ``ops.lstm.weight_key`` (storage, shape, version: a
+    ``load_state_dict``, a ``copy_`` or a ``.to()`` changes it) and the
+    images' device. While it holds, the call gets the same memo back, in
+    which each convolution keeps what ``layers.prepared`` made for it, by
+    the weight's identity, the compute dtype, the input's memory format and
+    (ResNet's residual call) whether the call fuses; when it changes, the old
+    memo is dropped. A trunk with a tensor that requires grad (so that
+    gradients reach it) or that is an inference tensor (no version counter)
+    gets None, and any memo is dropped: every call prepares its own. Inside a recording
+    (``obs.profiler``) each new memo counts ``trunk.prepares``, each call
+    that reused one ``trunk.prepared_calls``."""
+
+    def __init__(self):
+        self.key = None
+        self.entries: Optional[Dict] = None
+
+    def memo(self, tree: Params, images: torch.Tensor) -> Optional[Dict]:
+        leaves = _leaves(tree, [])
+        if any(t.requires_grad or t.is_inference() for t in leaves):
+            self.key = self.entries = None
+            return None
+        key = (images.device, *map(weight_key, leaves))
+        if key == self.key:
+            counter = "trunk.prepared_calls"
+        else:
+            self.key, self.entries = key, {}
+            counter = "trunk.prepares"
+        rec = profiler.active
+        if rec is not None:
+            rec.counters[counter] += 1
+        return self.entries
+
+
+def trunk_features(name: str, params: Params, images: torch.Tensor, prepared_trunk: PreparedTrunk) -> torch.Tensor:
+    """``encoder_apply(name)(params, images)``, with the convolutions'
+    weights from ``prepared_trunk`` where it has a memo for them."""
+    return ENCODERS[name][1](params, images, memo=prepared_trunk.memo(params, images))
 
 
 def init_encoder(name: str, generator: Gen = None, dtype: torch.dtype = torch.float32) -> Params:

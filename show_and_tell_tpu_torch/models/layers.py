@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -135,7 +135,7 @@ def folded_conv_bn(conv: Params, bn: Params, x: torch.Tensor, eps: float = 1e-5)
     dtype in x's memory format, and the BatchNorm's shift, still in fp32."""
     scale, shift = _bn_affine(bn, eps)
     w = (conv["w"].float() * scale[:, None, None, None]).to(x.dtype)
-    if x.is_contiguous(memory_format=torch.channels_last):
+    if channels_last(x):
         w = w.contiguous(memory_format=torch.channels_last)
     return w, shift
 
@@ -211,10 +211,41 @@ def conv_relu(
     return torch.relu_(y)
 
 
-def conv_bn_relu(conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5) -> torch.Tensor:
-    """``relu(conv_bn(conv, bn, x))`` through ``conv_relu``."""
-    w, shift = folded_conv_bn(conv, bn, x, eps)
-    return conv_relu(x, w, shift.to(x.dtype), stride, padding)
+def prepared(memo: Optional[Dict], key, make: Callable[[], Tuple]) -> Tuple:
+    """``make()``, a convolution's weights in the form it takes them. With
+    ``memo`` (``encoders.PreparedTrunk``'s, valid for the frozen weights'
+    present versions) the result made by the first call under ``key`` is
+    kept there and returned to every later one. It is made outside inference
+    mode, in the caller's grad mode, so that a copy made under
+    ``torch.inference_mode()`` serves a ``no_grad`` call and the other way
+    round."""
+    if memo is None:
+        return make()
+    out = memo.get(key)
+    if out is None:
+        grad = torch.is_grad_enabled()
+        with torch.inference_mode(False), torch.set_grad_enabled(grad):
+            out = memo[key] = make()
+    return out
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    return x.is_contiguous(memory_format=torch.channels_last)
+
+
+def conv_bn_relu(
+    conv: Params, bn: Params, x: torch.Tensor, stride=1, padding=0, eps: float = 1e-5, memo: Optional[Dict] = None,
+) -> torch.Tensor:
+    """``relu(conv_bn(conv, bn, x))`` through ``conv_relu``; the folded
+    weight and its cast shift ``prepared`` in ``memo``, by x's dtype and
+    memory format."""
+
+    def make():
+        w, shift = folded_conv_bn(conv, bn, x, eps)
+        return w, shift.to(x.dtype)
+
+    w, b = prepared(memo, (id(conv["w"]), x.dtype, channels_last(x)), make)
+    return conv_relu(x, w, b, stride, padding)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -89,6 +89,8 @@ class ShowAttendTell(nn.Module):
         #: Captioner, the Trainer or ``cli.evaluate`` has made it; it is held
         #: outside the state dict, so checkpoints do not carry it
         self.quantized: Optional[Params] = None
+        #: the trunk's convolution weights, made once per weight version
+        self.prepared_trunk = encoders.PreparedTrunk()
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.random_seed)
         self.init(generator)
@@ -135,7 +137,7 @@ class ShowAttendTell(nn.Module):
         or in fp32 through the int8 trunk once ``quantized`` is set."""
         if self.quantized is not None:
             return backbone_features_q(self.quantized, images)
-        return encoders.vgg16_features(self.frozen_tree(), images.to(self.cdtype))
+        return encoders.trunk_features("vgg16", self.frozen_tree(), images.to(self.cdtype), self.prepared_trunk)
 
     def init_lstm_state(self, trainable: Params, features: torch.Tensor):
         """Mean feature through two dense layers."""

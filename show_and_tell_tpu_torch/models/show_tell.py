@@ -97,6 +97,8 @@ class ShowTell(nn.Module):
         #: the calibrated int8 trunk, held outside the state dict (as in
         #: ``ShowAttendTell``)
         self.quantized: Optional[Params] = None
+        #: the trunk's convolution weights, made once per weight version
+        self.prepared_trunk = encoders.PreparedTrunk()
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.random_seed)
         self.init(generator)
@@ -150,8 +152,8 @@ class ShowTell(nn.Module):
         or in fp32 through the int8 trunk once ``quantized`` is set."""
         if self.quantized is not None:
             return backbone_features_q(self.quantized, images)
-        apply = encoders.encoder_apply(self.encoder_name)
-        return apply(self.frozen_tree(), images.to(self.cdtype))
+        return encoders.trunk_features(self.encoder_name, self.frozen_tree(), images.to(self.cdtype),
+                                       self.prepared_trunk)
 
     def encode(self, features: torch.Tensor, train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The projection, then the BatchNorm: ``(embedding [B, E],

@@ -30,7 +30,11 @@ tensors, so that counting adds no device work and no synchronisation.
 ``trunk.convs`` counts the trunk's convolutions that carry an epilogue (a
 bias, a ReLU, a residual add: each ``models.layers.conv_relu`` call), and
 ``trunk.fused_convs`` those among them that ran it inside cuDNN's fused
-call.
+call. ``trunk.prepares`` counts each time a trunk's convolution weights are
+prepared anew (``models.encoders.PreparedTrunk``: the first call, and the
+first after a weight changed), ``trunk.prepared_calls`` each trunk call that
+reused them; the second over their sum is the share of calls that skipped
+the fold.
 
 Usage::
 

@@ -7,7 +7,9 @@ Every convolution of VGG16, ResNet-152 and Inception-v3 that carries a
 bias, a ReLU or a residual add is one cuDNN call on the card
 (``layers.conv_relu``), held against the same call as separate passes, at
 the serving cells' shapes: a chunk of 256 images of the trunk's size
-(224 px, Inception's 299 px), random weights of the trunks' widths.
+(224 px, Inception's 299 px), random weights of the trunks' widths. The
+trunk prepared once per weight version gives the per-call fold's features
+bit for bit at that chunk.
 """
 
 import pytest
@@ -134,3 +136,21 @@ def test_fused_trunk_matches_the_plain_one_in_fp32(name, card, monkeypatch):
     assert rec.counters["trunk.fused_convs"] == rec.counters["trunk.convs"] == CONVS[name]
     assert want.abs().max() > 0
     assert float((got - want).abs().max() / want.abs().max()) <= F32_RTOL
+
+
+@pytest.mark.parametrize("name", TRUNKS)
+def test_prepared_trunk_matches_the_per_call_fold(name, card):
+    """At a serving chunk in bf16, under ``inference_mode`` as the serving
+    path runs: the trunk prepared once (``encoders.PreparedTrunk``) gives
+    the per-call fold's features bit for bit, in the call that prepares and
+    in the two that reuse it, with every call fused."""
+    params = _trunk(name, card)
+    x = _images(name, CHUNK, card, torch.bfloat16)
+    prep = tenc.PreparedTrunk()
+    with torch.inference_mode(), profiler.recording() as rec:
+        want = tenc.encoder_apply(name)(params, x)
+        got = [tenc.trunk_features(name, params, x, prep) for _ in range(3)]
+    assert want.abs().max() > 0
+    assert all(torch.equal(g, want) for g in got)
+    assert (rec.counters["trunk.prepares"], rec.counters["trunk.prepared_calls"]) == (1, 2)
+    assert rec.counters["trunk.fused_convs"] == rec.counters["trunk.convs"] == 4 * CONVS[name]
