@@ -1,4 +1,4 @@
-"""Batched beam search.
+"""Batched beam search: a start and a selection rule over ``decode.loop``.
 
 - All B images decode together with k beams each; rows are beam-major per
   image (``b*k + j``), so the model step sees one [B*k, ...] batch.
@@ -8,6 +8,7 @@
   top-k picks k distinct first tokens from beam 0.
 - Finished beams (emitted ``<end>``) may only emit ``<pad>`` at log-prob 0,
   which keeps their score.
+- Each selection reorders the carry by this module's ``_gather_beams``.
 - Optional GNMT length penalty ``((5+len)/6)**alpha``; ``alpha=0`` ranks by
   the raw sum of log-probs.
 """
@@ -18,9 +19,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from show_and_tell_tpu_torch.decode.greedy import carry_device, count_step
-from show_and_tell_tpu_torch.obs import profiler
-from show_and_tell_tpu_torch.obs.profiler import span
+from show_and_tell_tpu_torch.decode.loop import carry_device, run
 from show_and_tell_tpu_torch.utils.vocab import END_ID, PAD_ID, START_ID
 
 NEG_INF = -1.0e9
@@ -55,14 +54,65 @@ def _gather_beams(tree: Any, parent: torch.Tensor, B: int, k: int) -> Any:
     return _map(tree, gather)
 
 
-def _unfinished(finished: torch.Tensor) -> torch.Tensor:
-    return (~finished).sum()
-
-
 def _length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
     if alpha == 0.0:
         return torch.ones_like(lengths, dtype=torch.float32)
     return torch.pow((5.0 + lengths.float()) / 6.0, alpha)
+
+
+class _Beam:
+    """Beam search's rule: scores, histories and finished flags [B, k],
+    reordered by each step's parents."""
+
+    finished: Optional[torch.Tensor] = None
+
+    def __init__(self, B: int, k: int, max_len: int, dev, length_penalty: float, return_all: bool):
+        self.B, self.k, self.max_len, self.dev = B, k, max_len, dev
+        self.length_penalty, self.return_all = length_penalty, return_all
+
+    def emitted(self, t: int) -> torch.Tensor:
+        return self.tokens[:, :, :t]
+
+    def select(self, carry: Any, logits: torch.Tensor, t: int) -> Tuple[Any, torch.Tensor]:
+        B, k, dev = self.B, self.k, self.dev
+        V = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
+        if t == 0:  # the beams are identical: beam 0's candidates only
+            beam_mask = torch.full((1, k, 1), NEG_INF, device=dev)
+            beam_mask[:, 0] = 0.0
+            cand = logp + beam_mask
+        else:
+            cand = self.scores[:, :, None] + torch.where(self.finished[:, :, None], self.pad_only, logp)
+        self.scores, flat = torch.topk(cand.reshape(B, k * V), k, dim=-1)
+        parent = torch.div(flat, V, rounding_mode="floor")
+        tok = flat % V
+        carry = _gather_beams(carry, parent, B, k)
+        if t == 0:
+            self.finished = tok == END_ID
+            self.tokens = torch.full((B, k, self.max_len), PAD_ID, dtype=torch.long, device=dev)
+            self.tokens[:, :, 0] = tok
+            self.pad_only = torch.full((V,), NEG_INF, device=dev)
+            self.pad_only[PAD_ID] = 0.0
+        else:
+            # histories follow their parents, then take the new column
+            tokens = torch.gather(self.tokens, 1, parent[:, :, None].expand(B, k, self.max_len))
+            finished = torch.gather(self.finished, 1, parent)
+            tokens[:, :, t] = torch.where(finished, PAD_ID, tok)
+            self.tokens, self.finished = tokens, finished | (tok == END_ID)
+        return carry, tok.reshape(B * k)
+
+    def result(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        # Rank by length-normalised score. Lengths count every non-pad token:
+        # <end> for finished beams, the full budget for unfinished ones.
+        B, k, tokens = self.B, self.k, self.tokens
+        lengths = (tokens != PAD_ID).sum(dim=-1)
+        norm = self.scores / _length_penalty(lengths, self.length_penalty)
+        if self.return_all:
+            order = torch.argsort(-norm, dim=-1, stable=True)
+            all_ids = torch.gather(tokens, 1, order[:, :, None].expand(B, k, self.max_len))
+            return all_ids, torch.gather(norm, 1, order)
+        best = norm.argmax(dim=-1)
+        return tokens[torch.arange(B, device=self.dev), best], norm[torch.arange(B, device=self.dev), best]
 
 
 def beam_search(
@@ -88,63 +138,8 @@ def beam_search(
     dev = carry_device(carry)
     if tile:
         carry = _tile_beams(carry, k)
-
+    rule = _Beam(B, k, max_len, dev, length_penalty, return_all)
     if first_logits is not None:
-        logits0 = first_logits.repeat_interleave(k, dim=0)  # [B*k, V]
-    else:
-        start = torch.full((B * k,), START_ID, dtype=torch.long, device=dev)
-        if profiler.active is not None:
-            count_step(B * k)
-        with span("decode.step"):
-            carry, logits0 = step_fn(carry, start)
-
-    V = logits0.shape[-1]
-    with span("decode.select"):
-        logp0 = torch.log_softmax(logits0.float(), dim=-1).reshape(B, k, V)
-        beam_mask = torch.full((1, k, 1), NEG_INF, device=dev)
-        beam_mask[:, 0] = 0.0
-        scores, flat = torch.topk((logp0 + beam_mask).reshape(B, k * V), k, dim=-1)
-        parent = torch.div(flat, V, rounding_mode="floor")
-        tok = flat % V
-        carry = _gather_beams(carry, parent, B, k)
-        finished = tok == END_ID
-        tokens = torch.full((B, k, max_len), PAD_ID, dtype=torch.long, device=dev)
-        tokens[:, :, 0] = tok
-        pad_only = torch.full((V,), NEG_INF, device=dev)
-        pad_only[PAD_ID] = 0.0
-
-    for t in range(1, max_len):
-        if early_stop:
-            with span("decode.sync"):
-                done = bool(finished.all())
-            if done:
-                break
-        if profiler.active is not None:
-            count_step(B * k, _unfinished, finished)  # a new tensor every step
-        with span("decode.step"):
-            carry, logits = step_fn(carry, tok.reshape(B * k))
-        with span("decode.select"):
-            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
-            logp = torch.where(finished[:, :, None], pad_only, logp)
-            scores, flat = torch.topk((scores[:, :, None] + logp).reshape(B, k * V), k, dim=-1)
-            parent = torch.div(flat, V, rounding_mode="floor")
-            tok = flat % V
-            carry = _gather_beams(carry, parent, B, k)
-            # histories follow their parents, then take the new column
-            tokens = torch.gather(tokens, 1, parent[:, :, None].expand(B, k, max_len))
-            finished = torch.gather(finished, 1, parent)
-            tokens[:, :, t] = torch.where(finished, PAD_ID, tok)
-            finished = finished | (tok == END_ID)
-
-    # Rank by length-normalised score. Lengths count every non-pad token:
-    # <end> for finished beams, the full budget for unfinished ones.
-    with span("decode.select"):
-        lengths = (tokens != PAD_ID).sum(dim=-1)
-        norm = scores / _length_penalty(lengths, length_penalty)
-        if return_all:
-            order = torch.argsort(-norm, dim=-1, stable=True)
-            all_ids = torch.gather(tokens, 1, order[:, :, None].expand(B, k, max_len))
-            return all_ids, torch.gather(norm, 1, order)
-        best = norm.argmax(dim=-1)
-        best_ids = tokens[torch.arange(B, device=dev), best]
-        return best_ids, norm[torch.arange(B, device=dev), best]
+        return run(rule, step_fn, carry, None, 0, max_len, early_stop, first_logits.repeat_interleave(k, dim=0))
+    start = torch.full((B * k,), START_ID, dtype=torch.long, device=dev)
+    return run(rule, step_fn, carry, start, 0, max_len, early_stop)

@@ -1,7 +1,6 @@
-"""Stochastic decoding: temperature, top-k and top-p (nucleus) sampling.
-
-The same step interface as greedy and beam. The filters are the JAX
-package's, to the letter:
+"""Stochastic decoding: temperature, top-k and top-p (nucleus) sampling, a
+selection rule over ``decode.loop``. The filters are the JAX package's, to
+the letter:
 
 - top-k keeps every logit >= the k-th largest, so ties with it are kept;
 - top-p keeps the smallest prefix of the descending probabilities whose
@@ -11,21 +10,19 @@ package's, to the letter:
 
 The draw is a Gumbel-max over the filtered logits, with the noise drawn from
 the given ``torch.Generator`` on the logits' device; over a mesh it is drawn
-for all the rows of the global batch and each rank keeps its rows'. Like the JAX scan the
-loop runs a fixed ``max_len`` steps with no early exit, so it reads nothing
-back from the device per step; tokens after a row's ``<end>`` are cut by the
-host's string decode.
+for all the rows of the global batch and each rank keeps its rows'. Like the
+JAX scan the loop runs a fixed ``max_len`` steps with no early exit, so it
+reads nothing back from the device per step; tokens after a row's ``<end>``
+are cut by the host's string decode.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from show_and_tell_tpu_torch.decode.greedy import carry_device, count_step, unended
-from show_and_tell_tpu_torch.obs import profiler
-from show_and_tell_tpu_torch.obs.profiler import span
+from show_and_tell_tpu_torch.decode.loop import carry_device, run
 from show_and_tell_tpu_torch.parallel.mesh import rand_rows
 from show_and_tell_tpu_torch.utils.vocab import START_ID
 
@@ -62,8 +59,25 @@ def _sample_from_logits(
     return (logits + gumbel).argmax(dim=-1)
 
 
-def _unended_rows(toks) -> torch.Tensor:
-    return unended(torch.stack(toks, dim=1))
+class _Sample:
+    """Sampling's selection rule: ``draw`` a token per row each step, kept as
+    the steps' columns. No row is ever finished: there is no early exit."""
+
+    finished = None
+
+    def __init__(self, draw: Callable, toks: List[torch.Tensor], prev: torch.Tensor):
+        self.draw, self.toks, self.prev = draw, toks, prev
+
+    def emitted(self, t: int) -> Tuple[torch.Tensor, ...]:
+        return tuple(self.toks)
+
+    def select(self, carry: Any, logits: torch.Tensor, t: int) -> Tuple[Any, torch.Tensor]:
+        tok = self.draw(logits)
+        self.toks.append(tok)
+        return carry, tok
+
+    def result(self) -> torch.Tensor:
+        return torch.stack(self.toks, dim=1) if self.toks else self.prev.new_zeros((len(self.prev), 0))
 
 
 def sample_decode(
@@ -82,20 +96,14 @@ def sample_decode(
     given (Show-and-Tell): token 0 is drawn from it; None (Show-Attend-Tell):
     decoding starts from ``<start>``. With ``mesh`` the rows are this rank's
     of the global batch."""
+
+    def draw(logits):
+        return _sample_from_logits(generator, logits, temperature, top_k, top_p, mesh)
+
     toks = []
     if first_logits is not None:
-        prev = _sample_from_logits(generator, first_logits, temperature, top_k, top_p, mesh)
+        prev = draw(first_logits)
         toks.append(prev)
     else:
         prev = torch.full((batch,), START_ID, dtype=torch.long, device=carry_device(carry))
-    while len(toks) < max_len:
-        if profiler.active is not None:
-            count_step(batch, _unended_rows if toks else None, tuple(toks))
-        with span("decode.step"):
-            carry, logits = step_fn(carry, prev)
-        with span("decode.select"):
-            prev = _sample_from_logits(generator, logits, temperature, top_k, top_p, mesh)
-        toks.append(prev)
-    if not toks:
-        return torch.zeros((batch, 0), dtype=torch.long, device=carry_device(carry))
-    return torch.stack(toks, dim=1)
+    return run(_Sample(draw, toks, prev), step_fn, carry, prev, len(toks), max_len, early_stop=False)

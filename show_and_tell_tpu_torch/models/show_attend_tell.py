@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from show_and_tell_tpu_torch.config import Config
+from show_and_tell_tpu_torch.decode.greedy import greedy_decode
 from show_and_tell_tpu_torch.models import encoders
 from show_and_tell_tpu_torch.models.layers import (
     cast_tree,
@@ -48,7 +49,6 @@ from show_and_tell_tpu_torch.ops.fused_decode_attention import attention_beam
 from show_and_tell_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
 from show_and_tell_tpu_torch.parallel.mesh import rand_rows, vocab_parallel
 from show_and_tell_tpu_torch.utils.device import resolve_device
-from show_and_tell_tpu_torch.utils.vocab import START_ID
 
 Params = Dict
 _DENSE = ("init_h", "init_c", "c2o", "h2o", "classifier")
@@ -255,20 +255,21 @@ class ShowAttendTell(nn.Module):
 
     @torch.no_grad()
     def greedy_with_attention(self, features: torch.Tensor, max_len: int = 20):
-        """Greedy decode that also returns each step's attention map:
-        ``(ids [B, T], alphas [B, T, L])``. Reshape alphas to the patch grid
-        (14 x 14 at 224 px) to lay them over the image."""
+        """Greedy decode (``decode.greedy``, every step run) that also returns
+        each step's attention map: ``(ids [B, T], alphas [B, T, L])``.
+        Reshape alphas to the patch grid (14 x 14 at 224 px) to lay them
+        over the image."""
         t, features, ctx_enc, h, c = self.decode_init(features)
-        B = features.shape[0]
-        tok = torch.full((B,), START_ID, dtype=torch.long, device=features.device)
-        ids, alphas = [], []
-        for _ in range(max_len):
+        alphas = []
+
+        def step_fn(carry, tok):
             emb = embedding_lookup(t["embed"], tok, self.vocab_mesh)
-            h, c, logits, alpha = self._step(t, features, ctx_enc, h, c, emb)
-            tok = logits.argmax(dim=-1)
-            ids.append(tok)
+            h, c, logits, alpha = self._step(t, features, ctx_enc, *carry, emb)
             alphas.append(alpha)
-        return torch.stack(ids, 1), torch.stack(alphas, 1)
+            return (h, c), logits
+
+        ids = greedy_decode(step_fn, (h, c), features.shape[0], max_len, early_stop=False)
+        return ids, torch.stack(alphas, 1)
 
     # --- decoding step interface -----------------------------------------
 

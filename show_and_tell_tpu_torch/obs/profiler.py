@@ -12,11 +12,14 @@ port's spans:
 - serving: ``serve.call`` (a ``Captioner`` call) > ``serve.chunk`` (one
   bucket chunk) > ``trunk`` (``Captioner._features``) > ``trunk.copy`` (the
   images to the device), ``trunk.transform``, ``trunk.backbone``; ``decode``
-  (``decode.dispatch.decode_ids``) > ``decode.prepare`` (the model's
-  ``decode_state``), ``decode.step`` (each call of its step function),
-  ``decode.select`` (log-softmax, top-k, gathers and histories),
-  ``decode.sync`` (the read of whether every row has ended); ``strings``
-  (ids back to the host and into strings) > ``strings.wait``;
+  (``decode.dispatch.decode_ids`` and ``decode_nbest``; the attention
+  surface's decode in ``serve``) > ``decode.prepare`` (the model's
+  ``decode_state``, in ``decode.dispatch``), and from the one step loop,
+  ``decode.loop.run``: ``decode.step`` (each call of the step function),
+  ``decode.select`` (each selection rule's step: log-softmax, top-k, gathers
+  and histories for beam; and its result), ``decode.sync`` (the read of
+  whether every row has ended); ``strings`` (a chunk's result back to the
+  host and into strings) > ``strings.wait``;
 - the kernels' entry points: ``op.lstm_cell``, ``op.attention_beam``;
 - training: ``train.step`` > ``train.features``, ``train.forward``,
   ``train.backward``, ``train.apply`` > ``train.apply.sync`` (the read of

@@ -9,9 +9,12 @@
 Requests are cut into chunks of the bucket sizes, and a short last chunk is
 padded to its bucket by repeating its last image, so every batch has one of
 a few shapes. Center crop, normalisation, the trunk and the decode all run
-on the device. Every entry point holds one re-entrant lock, so threads
-may share a Captioner. The ``DynamicBatcher`` coalesces single-image
-requests from many threads into bucketed batches on one worker thread.
+on the device. Every surface (captions, n-best lists, attention maps) runs
+one chunk loop, ``Captioner._serve``: it decodes chunk i through
+``decode.dispatch`` (or the model's attention decode) before it reads chunk
+i-1 back. Every entry point holds one re-entrant lock, so threads may share
+a Captioner. The ``DynamicBatcher`` coalesces single-image requests from
+many threads into bucketed batches on one worker thread.
 
 Over a mesh (``Captioner(..., mesh=make_mesh(...))``, one process per
 device) every rank is given the same images, decodes its data index's rows
@@ -25,7 +28,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,8 +36,7 @@ import torch
 from show_and_tell_tpu_torch import ckpt
 from show_and_tell_tpu_torch.config import Config
 from show_and_tell_tpu_torch.data.transforms import eval_transform
-from show_and_tell_tpu_torch.decode.beam import beam_search
-from show_and_tell_tpu_torch.decode.dispatch import decode_ids
+from show_and_tell_tpu_torch.decode.dispatch import decode_ids, decode_nbest
 from show_and_tell_tpu_torch.models import quantize
 from show_and_tell_tpu_torch.models.registry import build_model
 from show_and_tell_tpu_torch.obs.profiler import span
@@ -205,34 +207,40 @@ class Captioner:
             return t
         return collectives.all_gather(t, self.mesh.data_group, self.mesh.data_index, self.mesh.data)
 
-    @torch.inference_mode()
-    def _ids(self, images_u8: np.ndarray, mode: str, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The ids of a whole bucket chunk."""
-        return self._gathered(decode_ids(
-            self.model, self.cfg, self._features(images_u8), mode, generator=generator,
-            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p, mesh=self.mesh,
-        ))
-
-    @staticmethod
-    def _to_host(ids: torch.Tensor):
-        """Start the copy of ``ids`` into pinned host memory behind the work
-        that makes them; returns (host tensor, event to wait on)."""
-        if not ids.is_cuda:
-            return ids, None
-        host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-        host.copy_(ids, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
-
-    def _decode_pending(self, pending) -> List[str]:
-        host, done, live = pending
+    def _decode_pending(self, pending) -> list:
+        host, done, live, read = pending
         with span("strings"):
             with span("strings.wait"):
                 if done is not None:
                     done.synchronize()
-            # cut to the live rows before the string decode
-            return self.vocab.decode_batch(host.numpy()[:live])
+            return read(*(h.numpy()[:live] for h in host))
+
+    def _serve(self, images_u8: np.ndarray, decode: Callable, read: Callable) -> list:
+        """The chunk loop of every surface: ``decode(features, start)`` maps
+        the chunk at image ``start`` to device tensors, copied back behind
+        the work that makes them, and ``read(*arrays)`` their live rows to
+        one answer per image. Chunk i is dispatched before chunk i-1 is read
+        back, so that the host's work overlaps the device's."""
+        with self._lock, span("serve.call"):
+            self._ensure_quantized(images_u8)
+            out: list = []
+            pending = None
+            for i, chunk, live in self._chunks(images_u8):
+                with span("serve.chunk"):
+                    with torch.inference_mode():
+                        host = tuple(self._gathered(t) for t in decode(self._features(chunk), i))
+                    done = None
+                    if host[0].is_cuda:
+                        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                                     for t in host)
+                        done = torch.cuda.Event()
+                        done.record()
+                    if pending is not None:
+                        out.extend(self._decode_pending(pending))
+                pending = (host, done, live, read)
+            if pending is not None:
+                out.extend(self._decode_pending(pending))
+            return out
 
     # ------------------------------------------------------------------
 
@@ -291,8 +299,8 @@ class Captioner:
         """Calibrate the int8 trunk on the first ``min(32, N)`` of these
         images through the eval transform (or load the tree at
         ``cfg.quantized_backbone_path``), once; from then on the model's
-        ``backbone_features`` runs it. Every serving surface calls this
-        first; during warmup's dummies it does nothing."""
+        ``backbone_features`` runs it. The chunk loop of every serving surface
+        calls this first; during warmup's dummies it does nothing."""
         if self._quant_deferred or not quantize.needs_calibration(self.model, self.cfg) or images_u8.shape[0] == 0:
             return
         x = torch.from_numpy(np.ascontiguousarray(images_u8[:32])).to(self.device)
@@ -310,86 +318,51 @@ class Captioner:
         counter advances per sampled image, so repeated requests differ,
         while a fresh Captioner with the same seed replays them (exactly when
         the chunk boundaries match too). ``rng_offset`` is for a caller that
-        rebuilt the Captioner and continues a sequence.
-
-        Chunk i is dispatched before chunk i-1's ids are read back and turned
-        into strings, so that the host's work overlaps the device's."""
-        with self._lock, span("serve.call"):
-            self._ensure_quantized(images_u8)
-            n = images_u8.shape[0]
+        rebuilt the Captioner and continues a sequence."""
+        with self._lock:
             base = self._sample_count
             if mode == "sample":
-                self._sample_count += n
-            out: List[str] = []
-            pending = None
-            for i, chunk, live in self._chunks(images_u8):
-                with span("serve.chunk"):
-                    gen = None
-                    if mode == "sample":
-                        gen = self._keys.generator("sample", base + rng_offset + i, device=self.device)
-                    host, done = self._to_host(self._ids(chunk, mode, gen))
-                    if pending is not None:
-                        out.extend(self._decode_pending(pending))
-                pending = (host, done, live)
-            if pending is not None:
-                out.extend(self._decode_pending(pending))
-            return out
+                self._sample_count += images_u8.shape[0]
+
+            def decode(features, start):
+                gen = None
+                if mode == "sample":
+                    gen = self._keys.generator("sample", base + rng_offset + start, device=self.device)
+                return (decode_ids(self.model, self.cfg, features, mode, generator=gen, temperature=self.temperature,
+                                   top_k=self.top_k, top_p=self.top_p, mesh=self.mesh),)
+
+            return self._serve(images_u8, decode, self.vocab.decode_batch)
 
     def caption_nbest(self, images_u8: np.ndarray) -> List[List[Tuple[str, float]]]:
         """Per image, the ``beam_size`` (caption, score) pairs of the beam,
         best first; the score is the length-normalised log-probability that
         ranks the beams."""
-        with self._lock, span("serve.call"):
-            self._ensure_quantized(images_u8)
-            model, cfg = self.model, self.cfg
-            out: List[List[Tuple[str, float]]] = []
-            for _, chunk, live in self._chunks(images_u8):
-                with span("serve.chunk"):
-                    with torch.inference_mode():
-                        feats = self._features(chunk)
-                        with span("decode"):
-                            with span("decode.prepare"):
-                                step_fn, carry, first, tile = model.decode_state(feats, beam_size=cfg.beam_size)
-                            ids, scores = beam_search(
-                                step_fn, carry, feats.shape[0], beam_size=cfg.beam_size,
-                                max_len=cfg.max_decode_len, length_penalty=cfg.length_penalty,
-                                first_logits=first, tile=tile, return_all=True,
-                            )
-                        ids, scores = self._gathered(ids), self._gathered(scores)
-                    with span("strings"):
-                        ids = ids[:live].cpu().numpy()  # [live, k, T]
-                        scores = scores[:live].float().cpu().numpy()  # [live, k]
-                        for r in range(live):
-                            caps = self.vocab.decode_batch(ids[r])
-                            out.append([(c, float(s)) for c, s in zip(caps, scores[r])])
-            return out
+
+        def read(ids, scores):  # [live, k, T], [live, k]
+            return [list(zip(self.vocab.decode_batch(i), map(float, s))) for i, s in zip(ids, scores)]
+
+        return self._serve(images_u8, lambda features, _: decode_nbest(self.model, self.cfg, features), read)
 
     def caption_with_attention(self, images_u8: np.ndarray) -> Tuple[List[str], np.ndarray]:
         """Greedy captions and each step's attention map: images_u8
         [N, H, W, 3] -> (captions, alphas [N, T, L] fp32) with T =
         ``max_decode_len`` and L the patch grid (196 at 224 px). Raises
         ``ValueError`` for a model without attention."""
-        with self._lock, span("serve.call"):
+
+        def decode(features, _):
+            with span("decode"):
+                ids, alphas = self.model.greedy_with_attention(features, max_len=self.cfg.max_decode_len)
+            return ids, alphas.float()
+
+        with self._lock:
             model, cfg = self.model, self.cfg
             if not hasattr(model, "greedy_with_attention"):
                 raise ValueError(f"model {cfg.model!r} exposes no attention maps (only show_attend_tell does)")
             if images_u8.shape[0] == 0:
                 grid = (cfg.crop_size // 16) ** 2  # VGG conv5's stride-16 grid
                 return [], np.zeros((0, cfg.max_decode_len, grid), np.float32)
-            self._ensure_quantized(images_u8)
-            caps: List[str] = []
-            alphas: List[np.ndarray] = []
-            for _, chunk, live in self._chunks(images_u8):
-                with span("serve.chunk"):
-                    with torch.inference_mode():
-                        feats = self._features(chunk)
-                        with span("decode"):
-                            ids, alpha = model.greedy_with_attention(feats, max_len=cfg.max_decode_len)
-                        ids, alpha = self._gathered(ids), self._gathered(alpha)
-                    with span("strings"):
-                        caps.extend(self.vocab.decode_batch(ids[:live].cpu().numpy()))
-                        alphas.append(alpha[:live].float().cpu().numpy())
-            return caps, np.concatenate(alphas, axis=0)
+            rows = self._serve(images_u8, decode, lambda ids, alphas: list(zip(self.vocab.decode_batch(ids), alphas)))
+            return [c for c, _ in rows], np.stack([a for _, a in rows])
 
     def caption_paths(self, paths: Sequence[str], mode: str = "beam") -> List[str]:
         """Caption image files, read by PIL and resized to 256 x 256. A file

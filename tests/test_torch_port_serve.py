@@ -63,13 +63,22 @@ def test_captioner_matches_jax_captioner(captioners, mode):
     assert any(got), "random weights should still emit some words"
 
 
-def test_captioner_chunks_over_buckets(captioners):
-    """7 images: chunks of 4, 2 and 1, each captioned as if alone."""
+@pytest.mark.parametrize("surface", ["greedy", "nbest", "attention"])
+def test_captioner_chunks_over_buckets(captioners, surface):
+    """7 images: chunks of 4, 2 and 1, each read back a chunk late and each
+    captioned as if alone, on every surface of the one chunk loop: the same
+    captions, and n-best scores and attention maps within the rounding of a
+    batch of another size (1e-5)."""
     _, tcap = captioners
     images = np.random.default_rng(8).integers(0, 256, (7, 40, 40, 3), dtype=np.uint8)
-    got = tcap.caption_images(images, mode="greedy")
-    alone = [tcap.caption_images(images[i : i + 1], mode="greedy")[0] for i in range(7)]
-    assert got == alone
+    call = {"greedy": lambda x: [(c, 0.0) for c in tcap.caption_images(x, mode="greedy")],
+            "nbest": lambda x: [row for caps in tcap.caption_nbest(x) for row in caps],
+            "attention": lambda x: list(zip(*tcap.caption_with_attention(x)))}[surface]
+    got = call(images)
+    alone = [row for i in range(7) for row in call(images[i : i + 1])]
+    assert len(got) == len(alone) == 7 * (SMALL["beam_size"] if surface == "nbest" else 1)
+    assert [c for c, _ in got] == [c for c, _ in alone]
+    np.testing.assert_allclose(np.stack([a for _, a in got]), np.stack([a for _, a in alone]), atol=1e-5, rtol=0)
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
