@@ -112,16 +112,22 @@ Phases, each printing its own lines:
    and one traced decode (device busy share, top kernels);
 7. training: the Show-Attend-Tell train step at full width (bf16, batch 256,
    T=20, uint8 images with synthetic captions from the seed): warm steps,
-   then timed steps on one fixed batch (img/s), the split into trunk,
-   forward, backward and optimizer, one traced step (device busy share, top
-   kernels), the launches per step (19 of the cell, all by its ``wgmma``
-   design, and 19 of the per-row attention, all by its one-pass design), the
-   loss finite and falling,
-   and one fp32 step whose
+   then timed steps on one fixed batch (img/s; forward and backward replay
+   their CUDA graphs), the split into trunk, forward, backward and
+   optimizer, one traced step (device busy share, top kernels), the
+   launches of an eager step (19 of the cell, all by its ``wgmma`` design,
+   and 19 of the per-row attention, all by its one-pass design), the loss
+   finite and falling,
+   and one eager fp32 step whose
    gradients through the kernels are held against the plain path's on the
-   card (the cell by ``tf32x3``, 19 launches); then fp32 steps (ms and
+   card (the cell by ``tf32x3``, 19 launches); then eager fp32 steps (ms and
    img/s, 19 cell launches per step, all by ``tf32x3``, losses finite) in
-   turns with the cell on ``tiled``;
+   turns with the cell on ``tiled``; then the graphed step against the eager
+   one from one seed, for Show-Attend-Tell and Show-and-Tell in bf16 and
+   Show-Attend-Tell in fp32: 3 steps each with the losses, parameters and
+   running statistics bit for bit, the graph counters (one capture, two
+   replays) and the capture's launches ((warm-ups + 1) x 19 per layer), and
+   img/s of each in turns;
 8. the rest of serving, on phase 5's 256 images and weights: the serving
    model saved by ``ckpt.save_best`` and its trunk as a torchvision state
    dict, read back by ``Captioner.from_checkpoint`` (beam and greedy captions
@@ -1973,6 +1979,94 @@ def plain_ops():
         sat.fused_additive_attention, sat.lstm_cell, st.lstm_cell = saved
 
 
+@contextlib.contextmanager
+def eager(step):
+    """``step`` (a ``TrainStep``) on its eager path for the duration: its
+    graph rule answers no, so that every call launches its kernels, for
+    counting launches and for holding the kernels against the plain path
+    (which a replayed graph would not run)."""
+    step.graphable = lambda *a, **kw: False
+    try:
+        yield step
+    finally:
+        del step.graphable
+
+
+def _graphed_vs_eager(cfg, images, V, T, label):
+    """The same model twice from one seed, one step graphed (the default)
+    and one eager (``eager``), over the same batch and generator seeds: 3
+    steps each, holding the losses, the parameters and the running
+    statistics equal bit for bit, and the cell's and attention's launches of
+    the graphed capture ((warm-ups + 1) x (T-1) per layer) against the
+    eager steps'; then TIMED_STEPS steps each in turns (graphed, eager,
+    eager, graphed): img/s. Returns the figures."""
+    from show_and_tell_tpu_torch.models.registry import build_model
+    from show_and_tell_tpu_torch.obs import profiler
+    from show_and_tell_tpu_torch.ops import cuda_lib
+    from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
+    from show_and_tell_tpu_torch.utils.vocab import START_ID
+
+    N = images.shape[0]
+    rng = np.random.default_rng(SEED + 27)
+    caps = np.concatenate([np.full((N, 1), START_ID), rng.integers(4, V, (N, T - 1))], 1)
+    batch = {"images": torch.from_numpy(images).cuda(), "captions": torch.from_numpy(caps).cuda(),
+             "lengths": torch.full((N,), T, device="cuda")}
+    runs = {}
+    for mode in ("graphed", "eager"):
+        model = build_model(cfg, V, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        run = {"state": make_train_state(cfg, model), "step": make_train_step(model, cfg),
+               "gen": torch.Generator(device="cuda").manual_seed(SEED)}
+        if mode == "eager":
+            run["step"].graphable = lambda *a, **kw: False
+        losses = []
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        with profiler.recording() as rec:
+            for _ in range(3):
+                run["state"], m = run["step"](run["state"], batch, cfg.learning_rate, generator=run["gen"])
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+        run.update(losses=[float(x) for x in losses], counters=dict(rec.counters),
+                   params={k: v.detach().clone() for k, v in run["state"].params.items()},
+                   stats={k: v.clone() for k, v in (run["state"].batch_stats or {}).items()},
+                   launches={k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention")},
+                   designs=cuda_lib.designs("lstm_cell"))
+        runs[mode] = run
+    g, e = runs["graphed"], runs["eager"]
+    same = {"losses": g["losses"] == e["losses"],
+            "params": all(torch.equal(g["params"][k], e["params"][k]) for k in e["params"]),
+            "stats": all(torch.equal(g["stats"][k], e["stats"][k]) for k in e["stats"])}
+    differ = [k for k in e["params"] if not torch.equal(g["params"][k], e["params"][k])]
+    print(f"  {label}, graphed vs eager from one seed, 3 steps at batch {N}, T={T}: losses {g['losses']} / "
+          f"{e['losses']}; identical: {same}{'; params differ in ' + str(differ) if differ else ''}")
+    print(f"  {label} counters: graphed {g['counters']}, eager {e['counters']}; launches graphed {g['launches']} "
+          f"{g['designs']}, eager {e['launches']} {e['designs']}")
+    layers = getattr(cfg, "num_layers", 1) if cfg.model == "show_tell" else 1
+    forwards = g["step"].graphs.warmups + 1
+    assert all(same.values()), f"{label}: the graphed step differs from the eager one: {same}"
+    assert g["counters"].get("train.graph_captures") == 1 and g["counters"].get("train.graph_replays") == 2
+    assert e["counters"].get("train.eager_steps") == 3 and not g["counters"].get("train.eager_steps")
+    assert g["launches"]["lstm_cell"] == forwards * (T - 1) * layers and e["launches"]["lstm_cell"] == 3 * (T - 1) * layers
+    assert set(g["designs"]) == set(e["designs"]), (g["designs"], e["designs"])
+    secs = {"graphed": [], "eager": []}
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        run = runs[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            run["state"], _ = run["step"](run["state"], batch, cfg.learning_rate, generator=run["gen"])
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+    img_s = {k: 2 * TIMED_STEPS * N / sum(v) for k, v in secs.items()}
+    print(f"  {label} img/s ({TIMED_STEPS} steps a turn, graphed / eager / eager / graphed): graphed "
+          f"{img_s['graphed']:.1f}, eager {img_s['eager']:.1f} ({img_s['graphed'] / img_s['eager']:.2f}x)")
+    out = {"identical": same, "img_s": img_s, "losses": {"graphed": g["losses"], "eager": e["losses"]},
+           "counters": {"graphed": g["counters"], "eager": e["counters"]}}
+    del runs, g, e
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_training(images):
     from show_and_tell_tpu_torch.config import Config
     from show_and_tell_tpu_torch.data.transforms import eval_transform
@@ -2043,9 +2137,11 @@ def phase_training(images):
                      (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
     print("  split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
 
+    # the launches of one step, on the eager path (a replayed graph counts none)
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
-    one_step()
+    with eager(step):
+        one_step()
     torch.cuda.synchronize()
     counts = {k: cuda_lib.LAUNCHES[k] for k in ("lstm_cell", "additive_attention")}
     cell_designs = cuda_lib.designs("lstm_cell")
@@ -2076,7 +2172,7 @@ def phase_training(images):
     grads = {}
     for path in ("kernels", "plain"):
         cuda_lib.LAUNCHES.clear()
-        with plain_ops() if path == "plain" else contextlib.nullcontext():
+        with plain_ops() if path == "plain" else contextlib.nullcontext(), eager(s32):
             loss, _ = s32.forward(f32, b32)
             grads[path] = s32.backward(st32, loss)
         torch.cuda.synchronize()
@@ -2093,7 +2189,8 @@ def phase_training(images):
     del grads
 
     # fp32 training steps, the Config default's dtype: every cell launch by
-    # the tf32x3 design (T-1 per step), in turns with the cell on tiled
+    # the tf32x3 design (T-1 per step), in turns with the cell on tiled; eager,
+    # since a replayed graph keeps the design it was captured with
     losses32 = []
 
     def step32():
@@ -2101,7 +2198,8 @@ def phase_training(images):
         st32, m = s32(st32, batch, lr, generator=gen)
         losses32.append(m["loss"])
 
-    secs, launches = _in_turns(step32, FP32_STEPS)
+    with eager(s32):
+        secs, launches = _in_turns(step32, FP32_STEPS)
     for design, n in launches.items():
         assert n == {design: 2 * FP32_STEPS * (T - 1)}, (design, dict(n))
     ms32 = {d: statistics.median(v) * 1e3 for d, v in secs.items()}
@@ -2115,8 +2213,18 @@ def phase_training(images):
             "launches": launches["tf32x3"]["tf32x3"]}
     del s32, st32, m32
     torch.cuda.empty_cache()
+
+    # the CUDA graphs of forward and backward (train/graphs.py) against the
+    # eager step: both models in bf16, and Show-Attend-Tell in fp32, whose
+    # tf32x3 cell reads a W split that the graph makes again at each replay
+    graphs = {
+        "sat_bf16": _graphed_vs_eager(cfg, images, V, T, "Show-Attend-Tell bf16"),
+        "st_bf16": _graphed_vs_eager(Config(model="show_tell", dtype="bfloat16"), images, V, T, "Show-and-Tell bf16"),
+        "sat_fp32": _graphed_vs_eager(cfg32, images, V, T, "Show-Attend-Tell fp32"),
+    }
     return {"img_s": img_s, "ms_per_step": dt * 1e3 / TIMED_STEPS, "split_ms": split,
-            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel, "fp32": fp32}, state, cfg
+            "launches_per_step": counts, "losses": losses, "grad_rel_err": rel, "fp32": fp32,
+            "graphs": graphs}, state, cfg
 
 
 def _first_difference(got, want):
@@ -2713,9 +2821,13 @@ def _timed_transfers(seconds):
 @contextlib.contextmanager
 def _recording_steps(steps):
     """Record, per call of ``TrainStep``, the batch's array shapes, the
-    launches of rows 1 and 2 during the step and its host seconds (the step
-    waits on its gradient norm, so that is its device time but the tail of
-    the optimizer's launches)."""
+    launches of rows 1 and 2 during the step, the forwards it ran eagerly
+    (an eager step 1; a capture 1, and the step's first capture its
+    warm-ups too; a replay none: the launches a step counts are these times
+    pad_len - 1) and its
+    host seconds (the step waits on its gradient norm, so that is its device
+    time but the tail of the optimizer's launches)."""
+    from show_and_tell_tpu_torch.obs import profiler
     from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.train import step as step_mod
 
@@ -2724,11 +2836,18 @@ def _recording_steps(steps):
 
     def recorded(self, state, batch, *a, **kw):
         before = {k: cuda_lib.LAUNCHES[k] for k in rows}
+        warmups = self.graphs.warmups
         t0 = time.perf_counter()
-        out = call(self, state, batch, *a, **kw)
+        with profiler.recording() as rec:
+            counted = dict(rec.counters)
+            out = call(self, state, batch, *a, **kw)
+            kinds = {k: rec.counters[k] - counted.get(k, 0) for k in
+                     ("train.eager_steps", "train.graph_captures", "train.graph_replays")}
         steps.append({"shapes": {k: tuple(v.shape) for k, v in batch.items()},
                       "launches": {k: cuda_lib.LAUNCHES[k] - before[k] for k in rows},
-                      "loss": out[1]["loss"], "seconds": time.perf_counter() - t0})
+                      "forwards": (kinds["train.eager_steps"] + kinds["train.graph_captures"]
+                                   + self.graphs.warmups - warmups),
+                      "kinds": kinds, "loss": out[1]["loss"], "seconds": time.perf_counter() - t0})
         return out
 
     step_mod.TrainStep.__call__ = recorded
@@ -2928,13 +3047,16 @@ def phase_train_cli(smi, bare_img_s, tmp):
     print(f"  per step of the loop {loop_ms:.1f} ms: the TrainStep call {call_ms:.1f} ms (it waits on its gradient "
           f"norm), the batch to the card {copy_ms:.1f} ms (pinned copy, queued transfer), the rest "
           f"{loop_ms - call_ms - copy_ms:.1f} ms (the loader's queue, logging, the generator)  [{smi}]")
-    per_step = [(s["shapes"]["captions"][1] - 1, s["launches"]) for s in steps]
+    per_step = [((s["shapes"]["captions"][1] - 1) * s["forwards"], s["launches"]) for s in steps]
     bad = [(want, got) for want, got in per_step if got != {"lstm_cell": want, "additive_attention": want}]
     cell_d, attn_d = cuda_lib.designs("lstm_cell"), cuda_lib.designs("additive_attention")
-    print(f"  launches of rows 1 and 2 per step: pad_len - 1 on {len(steps) - len(bad)} of {len(steps)} steps "
-          f"(pad_len - 1 in {sorted({w for w, _ in per_step})}); over the run, with the gates: "
-          f"cell {cell_d}, attention {attn_d}")
+    kinds = {k: sum(s["kinds"][k] for s in steps) for k in steps[0]["kinds"]}
+    pads = {s["shapes"]["captions"] for s in steps}  # (batch, pad_len): a graph each
+    print(f"  launches of rows 1 and 2 per step: (pad_len - 1) x the forwards it ran eagerly on "
+          f"{len(steps) - len(bad)} of {len(steps)} steps (pad_len - 1 in {sorted({p[1] - 1 for p in pads})}); steps by "
+          f"kind {kinds}; over the run, with the gates: cell {cell_d}, attention {attn_d}")
     assert len(steps) == TRAIN_CLI_EPOCHS * 5 and not bad, bad[:3]
+    assert kinds["train.graph_captures"] == len(pads) and kinds["train.eager_steps"] == 0, kinds
     plan = attention_plan(cfg.batch_size, 196, 512, 2, True)
     assert set(cell_d) == {"wgmma"} and set(attn_d) == {f"onepass{plan[1]}"}, (cell_d, attn_d)
     losses = [float(s["loss"]) for s in steps]
@@ -3663,11 +3785,13 @@ def _st_logits_vs_plain(model, cfg, x_u8, label):
 
 def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=True):
     """TrainStep on uint8 images with synthetic captions (T=20): warm steps,
-    then timed ones; the cell's launches per step; the loss finite and
-    falling on the fixed batch; the running statistics after one step
-    against 0.99 old + 0.01 the batch's, recomputed in fp32 (float64) from
-    that step's projected features. Returns the figures."""
+    then timed ones; the cell's launches per forward run eagerly (a graph's
+    warm-ups and capture; its replays launch nothing the counter sees); the
+    loss finite and falling on the fixed batch; the running statistics
+    after one step against 0.99 old + 0.01 the batch's, recomputed in fp32
+    (float64) from that step's projected features. Returns the figures."""
     from show_and_tell_tpu_torch.models.layers import dense
+    from show_and_tell_tpu_torch.obs import profiler
     from show_and_tell_tpu_torch.ops import cuda_lib
     from show_and_tell_tpu_torch.train.step import make_train_state, make_train_step
     from show_and_tell_tpu_torch.utils.vocab import START_ID
@@ -3693,6 +3817,8 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
 
     warm, timed = steps
     cuda_lib.LAUNCHES.clear()
+    rec = profiler.Recording()
+    profiler.active = rec  # the graph counters of every step below
     for _ in range(warm):
         one_step()
     torch.cuda.synchronize()
@@ -3713,8 +3839,6 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    total = cuda_lib.LAUNCHES["lstm_cell"]
-    cuda_lib.LAUNCHES.clear()
     mark()
     feats = step.features(batch, gen)
     mark()
@@ -3726,18 +3850,24 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
     old = {k: v.clone() for k, v in state.batch_stats.items()}
     state, _ = step.apply(state, grads, lr)
     mark()
+    profiler.active = None
+    rec.close()
     losses.append(loss.detach())
     n = cuda_lib.LAUNCHES["lstm_cell"]
     designs = cuda_lib.designs("lstm_cell")
     others = {k: cuda_lib.LAUNCHES[k] for k in REPLACES if k != "lstm_cell" and cuda_lib.LAUNCHES[k]}
+    kinds = {k: rec.counters[k] for k in ("train.eager_steps", "train.graph_captures", "train.graph_replays")}
+    forwards = kinds["train.eager_steps"] + kinds["train.graph_captures"] + step.graphs.warmups
     out["split_ms"] = dict(zip(("trunk", "forward", "backward", "apply"),
                                (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
     if split:
         print(f"  {label} split: " + ", ".join(f"{k} {v:.2f} ms" for k, v in out["split_ms"].items()))
-    print(f"  {label} launches per step: cell {n} ((T-1) x {layers} layers = {(T - 1) * layers}), designs "
-          f"{designs}; attention kernels {others or 'none'}")
+    print(f"  {label} launches over {warm + timed + 1} steps ({kinds}, so {forwards} forwards run eagerly): cell "
+          f"{n} ((T-1) x {layers} layers a forward = {(T - 1) * layers}), designs {designs}; attention kernels "
+          f"{others or 'none'}")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    assert n == (T - 1) * layers and designs == {planned_cell(N, 1024, 1024, dtype): n} and not others, \
+    assert kinds["train.graph_captures"] == 1 and kinds["train.eager_steps"] == 0, f"{label}: steps by kind {kinds}"
+    assert n == (T - 1) * layers * forwards and designs == {planned_cell(N, 1024, 1024, dtype): n} and not others, \
         f"{label}: training launches {n}, designs {designs}, others {others}"
     with torch.no_grad():
         f = dense(proj, feats).double()
@@ -3750,7 +3880,7 @@ def _st_train(model, cfg, images, label, steps=(WARM_STEPS, TIMED_STEPS), split=
           f"{not torch.equal(old['mean'], state.batch_stats['mean'])}")
     assert max(rel.values()) <= 1e-5 and not torch.equal(old["var"], state.batch_stats["var"])
     out["stats_rel_err"] = rel
-    out["launches"] = total + n
+    out["launches"] = n
     # values of the steps so far (one_step goes on appending to ``losses``)
     values = [float(x) for x in losses]
     print(f"  {label} loss by step: {', '.join(f'{x:.4f}' for x in values)}")
@@ -3936,7 +4066,7 @@ def phase_show_tell(tmp, images):
     grads = {}
     for path in ("kernels", "plain"):
         cuda_lib.LAUNCHES.clear()
-        with plain_ops() if path == "plain" else contextlib.nullcontext():
+        with plain_ops() if path == "plain" else contextlib.nullcontext(), eager(s32):
             loss, _ = s32.forward(f32, b32)
             grads[path] = s32.backward(st32, loss)
         torch.cuda.synchronize()

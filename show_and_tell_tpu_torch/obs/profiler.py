@@ -37,7 +37,14 @@ call. ``trunk.prepares`` counts each time a trunk's convolution weights are
 prepared anew (``models.encoders.PreparedTrunk``: the first call, and the
 first after a weight changed), ``trunk.prepared_calls`` each trunk call that
 reused them; the second over their sum is the share of calls that skipped
-the fold.
+the fold. Each ``TrainStep`` forward counts one of ``train.graph_captures``
+(its padded shape's forward and backward captured as CUDA graphs, at the
+shape's first step), ``train.graph_replays`` (the graphs replayed) or
+``train.eager_steps`` (run eagerly: CPU tensors, a mesh across processes,
+scheduled sampling, dropout, or shapes past the graphs' cap);
+``graph_replays`` over the three's sum is the graphs' hit share. Launches
+counted per kernel (``ops.cuda_lib.LAUNCHES``) count a graphed shape's
+kernels in its warm-ups and capture, not at its replays.
 
 Usage::
 

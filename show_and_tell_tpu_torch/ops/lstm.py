@@ -25,7 +25,9 @@ falls back: the launch succeeds or it raises.
 
 ``tf32x3`` reads W^T split into TF32 parts (``tf32x3_weight``), made once
 per weight version by ``prepared_weight`` and kept beside the weight, out
-of any ``state_dict`` (2 x 33.6 MB for the serving model's W).
+of any ``state_dict`` (2 x 33.6 MB for the serving model's W). While a CUDA
+graph is captured the split is made afresh instead (``fresh_splits``), so
+that it is work of the graph and follows the weight at every replay.
 
 Training: when an input requires grad, ``lstm_cell`` goes through
 ``LSTMCellFunction``, whose forward is that same kernel (or plain cell) and
@@ -37,6 +39,7 @@ fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -153,6 +156,23 @@ def tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
 
 # id(w) -> (weakref to w, its key, tf32x3_weight(w))
 _PREPARED: Dict[int, tuple] = {}
+# id(w) -> (w, its key, tf32x3_weight(w)) inside ``fresh_splits``, else None
+_FRESH: Optional[Dict[int, tuple]] = None
+
+
+@contextlib.contextmanager
+def fresh_splits():
+    """Inside, ``prepared_weight`` splits each weight version once for the
+    scope and neither reads nor fills the memo. Around the capture of a CUDA
+    graph, the split is then work of the graph, made again from the weight
+    at every replay, where a memo hit would replay the split of the version
+    seen at capture."""
+    global _FRESH
+    outer, _FRESH = _FRESH, {}
+    try:
+        yield
+    finally:
+        _FRESH = outer
 
 
 def weight_key(w: torch.Tensor) -> tuple:
@@ -165,10 +185,17 @@ def weight_key(w: torch.Tensor) -> tuple:
 def prepared_weight(w: torch.Tensor) -> torch.Tensor:
     """``tf32x3_weight(w)``, made once per weight version and kept while
     ``w`` lives. An inference tensor has no version counter: it is split at
-    every call."""
+    every call. Under stream capture it is split at every call too, or once
+    per ``fresh_splits`` scope, and the memo is left alone."""
     if w.is_inference():
         return tf32x3_weight(w)
     key = weight_key(w)
+    if _FRESH is not None or (w.is_cuda and torch.cuda.is_current_stream_capturing()):
+        scope = {} if _FRESH is None else _FRESH
+        entry = scope.get(id(w))
+        if entry is None or entry[0] is not w or entry[1] != key:
+            entry = scope[id(w)] = (w, key, tf32x3_weight(w))
+        return entry[2]
     entry = _PREPARED.get(id(w))
     if entry is not None and entry[0]() is w and entry[1] == key:
         return entry[2]

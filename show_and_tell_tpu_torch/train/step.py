@@ -53,6 +53,7 @@ from show_and_tell_tpu_torch.data.transforms import eval_transform, train_transf
 from show_and_tell_tpu_torch.obs.profiler import span
 from show_and_tell_tpu_torch.parallel import mesh as mesh_lib
 from show_and_tell_tpu_torch.parallel.collectives import all_reduce
+from show_and_tell_tpu_torch.train import graphs as graphs_lib
 from show_and_tell_tpu_torch.train.losses import masked_cross_entropy
 
 Tensors = Dict[str, torch.Tensor]
@@ -180,6 +181,20 @@ class TrainStep:
     optimizer). Each runs inside its span (``obs.profiler``), ``train.step``
     around them all, and the finite read inside ``train.apply.sync``.
 
+    ``forward`` and ``backward`` replay CUDA graphs (``train.graphs``), one
+    pair per padded shape, where the call allows it (``graphable``): CUDA
+    tensors, no mesh across processes, the teacher-forcing fast path and a
+    forward that draws no random numbers (no dropout). A shape is captured
+    the first time it is seen, up to ``graphs.MAX_KEYS`` shapes; the rest, and
+    every other call, run eagerly. The arithmetic is the eager path's, by
+    the same kernels in the same order. The trunk and ``apply`` always run
+    eagerly. The graphs' gradients are buffers that the next replay
+    rewrites: ``apply`` consumes them first. ``cuda_lib.LAUNCHES`` counts a
+    graphed shape's kernels in its warm-up runs and its capture, not at its
+    replays; the recording's ``train.graph_captures``,
+    ``train.graph_replays`` and ``train.eager_steps`` count the forwards of
+    each kind.
+
     On a mesh (``model.mesh``) the batch is this rank's rows of the global
     batch and ``generator`` draws the global batch's numbers on every rank;
     the metrics are the global batch's."""
@@ -193,6 +208,11 @@ class TrainStep:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.random_seed)
         # the running statistics of the last forward, which apply commits
         self.new_stats: Optional[Tensors] = None
+        self.graphs = graphs_lib.StepGraphs()
+        # the leaves the graphed forward differentiates by, and the names of
+        # Show-and-Tell's running statistics, which it also returns
+        self._leaves = list(trainable_state_dict(model).values())
+        self._stat_names = tuple(model.batch_stats or ())
 
     def features(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
         with span("train.features"):
@@ -215,14 +235,42 @@ class TrainStep:
         lengths = batch["lengths"].to(self.device)
         if self.cfg.scheduled_sampling_start < 0:
             ss_prob = 0.0
-        generator = generator or self.generator
         with span("train.forward"), torch.enable_grad():
-            if hasattr(self.model, "encode"):  # Show-and-Tell: projection + BatchNorm
-                feat_embed, self.new_stats = self.model.encode(features, train=True)
-                logits, mask = self.model.decode_train(feat_embed, captions, lengths, generator, ss_prob)
-            else:
-                logits, mask, _ = self.model.decode_train(features, captions, lengths, generator, ss_prob)
-            return masked_cross_entropy(logits, captions[:, 1:], mask, self.mesh)
+            out = None
+            if self.graphable(features, ss_prob):
+                # the graphs read the leaves and the running statistics where
+                # they are: a key holds their addresses, so that moved storage
+                # is captured anew
+                in_place = self._leaves + [self.model.batch_stats[n] for n in self._stat_names]
+                key = (features.device, *((t.dtype, tuple(t.shape)) for t in (features, captions, lengths)),
+                       *(t.data_ptr() for t in in_place))
+                out = self.graphs(self._loss, key, (features, captions, lengths), self._leaves)
+            if out is None:
+                graphs_lib.count("train.eager_steps")
+                out = self._loss(features, captions, lengths, generator or self.generator, ss_prob)
+            loss, count, *stats = out
+            self.new_stats = dict(zip(self._stat_names, stats)) or None
+            return loss, count
+
+    def graphable(self, features: torch.Tensor, ss_prob: Union[float, torch.Tensor]) -> bool:
+        """Whether ``forward`` and ``backward`` may replay CUDA graphs for
+        this call: CUDA features, no mesh across processes, the
+        teacher-forcing fast path (``ss_prob`` the Python number 0) and no
+        dropout, so that the forward draws no random numbers."""
+        return (features.is_cuda and not (self.mesh is not None and self.mesh.distributed)
+                and isinstance(ss_prob, (int, float)) and float(ss_prob) == 0.0
+                and getattr(self.model, "dropout_rate", 0.0) == 0.0)
+
+    def _loss(self, features, captions, lengths, generator=None, ss_prob=0.0) -> Tuple[torch.Tensor, ...]:
+        """(loss, token count, *the new running statistics)."""
+        if hasattr(self.model, "encode"):  # Show-and-Tell: projection + BatchNorm
+            feat_embed, new_stats = self.model.encode(features, train=True)
+            logits, mask = self.model.decode_train(feat_embed, captions, lengths, generator, ss_prob)
+        else:
+            new_stats = {}
+            logits, mask, _ = self.model.decode_train(features, captions, lengths, generator, ss_prob)
+        loss, count = masked_cross_entropy(logits, captions[:, 1:], mask, self.mesh)
+        return (loss, count, *(new_stats[n] for n in self._stat_names))
 
     def backward(self, state: TrainState, loss: torch.Tensor) -> Tensors:
         """The gradients of ``loss`` by parameter name, over a mesh summed
